@@ -1,7 +1,9 @@
-from . import convert, metrics, params, prng, stages, topology, workload
-from .params import (EngineParams, RuntimeKnobs, SimParams, SimState,
-                     SimStructure, grid_from_params, merge_params,
-                     stack_knobs)
+from . import (control, convert, metrics, params, prng, stages, topology,
+               workload)
+from .control import ACTION_FIELDS, SimController, StepObs, apply_action
+from .params import (EngineParams, PackedTables, RuntimeKnobs, SimParams,
+                     SimState, SimStructure, grid_from_params, merge_params,
+                     pack_route_tables, plan_tiling, stack_knobs)
 from .simulator import (SimResult, Static, WindowSamples, build_static,
                         init_state, link_domains, make_lanes, resolve_device,
                         run_window,
@@ -23,4 +25,6 @@ __all__ = [
     "scale_for_hosts",
     "Workload", "WorkloadBuilder", "convert", "metrics", "params", "prng", "stages",
     "topology", "workload",
+    "control", "SimController", "StepObs", "apply_action", "ACTION_FIELDS",
+    "PackedTables", "pack_route_tables", "plan_tiling",
 ]

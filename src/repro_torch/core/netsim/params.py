@@ -29,7 +29,7 @@ from ..symphony import SymphonyParams
 
 __all__ = ["SimParams", "SimStructure", "RuntimeKnobs", "SimState",
            "EngineParams", "merge_params", "stack_knobs", "grid_from_params",
-           "lanes_of"]
+           "lanes_of", "PackedTables", "pack_route_tables", "plan_tiling"]
 
 
 class SimParams(NamedTuple):
@@ -63,7 +63,7 @@ class SimParams(NamedTuple):
     backend: str = "eager"         # "eager" staged torch | "cuda" fused kernel
     segsum: str = "scatter"        # only "scatter" is ported so far
     blk: int | None = None         # instance tiling: not ported yet
-    tick_window: int = 1           # ticks per kernel launch: not ported yet
+    tick_window: int = 1           # ticks per kernel launch (backend="cuda")
 
     def structure(self) -> "SimStructure":
         return SimStructure(
@@ -246,3 +246,70 @@ def grid_from_params(cfgs: Sequence[SimParams]
             f"grid points differ in static structure (fields {diff}); "
             "sweep only RuntimeKnobs fields, or run separate grids")
     return cfgs[0].structure(), stack_knobs([cfg.knobs() for cfg in cfgs])
+
+
+# ------------------------------------------------ kernel tiling + tables
+class PackedTables(NamedTuple):
+    """Per-instance dense route/chunk/ECMP tables.
+
+    Every array leads with the flat ``[FW]`` instance axis: row ``f*W + w``
+    holds flow ``f``'s table, the ``inst_flow``/``inst_job`` layout of
+    ``stages.make_ctx``.  These are the operands a tiled tick streams block
+    by block instead of gathering from the per-flow tables.
+    """
+    routes: torch.Tensor     # [FW, H]    static per-instance route links
+    route_dom: torch.Tensor  # [FW, H]    Symphony domain of each static hop
+    cand: torch.Tensor       # [FW, P, H] ECMP candidate paths per instance
+    cand_dom: torch.Tensor   # [FW, P, H] domains of the candidate hops
+    n_paths: torch.Tensor    # [FW]       valid candidate count per instance
+    chunk: torch.Tensor      # [FW, SEG]  per-instance segment chunk sizes
+
+
+def pack_route_tables(st, wl, window: int) -> PackedTables:
+    """Expand the per-flow/per-job tables to the ``[FW]`` instance axis.
+
+    ``st`` is one run's ``simulator.Static`` (no lane axis) and ``wl`` a
+    ``stages.WLArrays``; the tables land on their device.  The window
+    expansion repeats each flow's row ``W`` times.
+    """
+    W = int(window)
+
+    def per_inst(x):
+        return x.repeat_interleave(W, dim=0)
+
+    routes = st.routes.long()
+    paths = st.path_table.long()
+    return PackedTables(
+        routes=per_inst(st.routes),
+        route_dom=per_inst(st.link_dom[routes]),
+        cand=per_inst(st.path_table),
+        cand_dom=per_inst(st.link_dom[paths]),
+        n_paths=per_inst(st.n_paths),
+        chunk=per_inst(wl.chunk_sched[wl.job.long()]),
+    )
+
+
+def plan_tiling(FW: int, blk: int | None, segsum: str,
+                tick_window: int) -> int | None:
+    """Validate and normalize the kernel tiling plan for an ``[FW]``
+    instance axis: returns the effective ``blk`` (``None`` = untiled).
+
+    * ``blk >= FW`` normalizes to untiled (one whole-array block).
+    * ``blk`` tiling requires the dense ``segsum="onehot"`` reductions.
+    * ``tick_window > 1`` runs the multi-tick window kernel, which keeps
+      the whole ``[FW]`` axis of a lane in one thread block, so the
+      single-tick tiling normalizes away.
+    """
+    if blk is None:
+        return None
+    if blk < 1:
+        raise ValueError(f"blk must be >= 1, got {blk}")
+    if int(blk) >= FW:
+        return None
+    if segsum != "onehot":
+        raise ValueError(
+            f"blk={blk} tiling requires segsum='onehot'; "
+            f"got segsum={segsum!r}")
+    if tick_window > 1:
+        return None
+    return int(blk)

@@ -17,9 +17,11 @@ run where their prepared arrays lie.
 Backends: ``SimParams.backend="eager"`` runs the staged torch tick;
 ``"cuda"`` runs the hot stages in the fused CUDA kernel of
 :mod:`repro_torch.kernels.netsim_tick` (its plain torch version on CPU
-tensors).  The reference's window kernel (``tick_window > 1``), tiled kernel
-(``blk``) and one-hot reductions (``segsum="onehot"``) are not ported yet
-and raise ``NotImplementedError``.
+tensors).  With ``tick_window > 1`` the ``cuda`` backend runs whole ticks,
+``tick_window`` of them per launch, in the multi-tick window kernel; windows
+divide each ``record_every`` period.  The reference's tiled kernel (``blk``
+with ``tick_window == 1``) and one-hot reductions (``segsum="onehot"``) are
+not ported yet and raise ``NotImplementedError``.
 
 Entities: flow slot ``f`` in ``[0, F)``; instance ``(f, w)``, one in-flight
 step-send of slot ``f`` (``W`` window slots keyed by ``s % W``); links are
@@ -37,7 +39,7 @@ from .params import (RuntimeKnobs, SimParams, SimState, SimStructure,
                      grid_from_params, lanes_of, merge_params, stack_knobs)
 from .stages import (BACKENDS, SHARE_POLICIES, WLArrays, engine_tick,
                      init_state as engine_init_state, make_ctx,
-                     resolve_share_policy)
+                     resolve_backend, resolve_share_policy)
 from . import prng
 from ...device import resolve_device
 from .topology import LEVEL_SPINE, LEVEL_TOR, Topology
@@ -206,14 +208,13 @@ def check_structure(struct) -> None:
         raise NotImplementedError(
             f"segsum={struct.segsum!r}: the one-hot reductions come with "
             "the tiled kernel in a later slice of the port")
-    if struct.blk is not None:
+    if int(struct.tick_window or 1) < 1:
+        raise ValueError(
+            f"tick_window must be >= 1, got {struct.tick_window}")
+    if struct.blk is not None and int(struct.tick_window or 1) == 1:
         raise NotImplementedError(
             f"blk={struct.blk}: the tiled tick kernel comes in a later "
             "slice of the port")
-    if int(struct.tick_window or 1) != 1:
-        raise NotImplementedError(
-            f"tick_window={struct.tick_window}: the multi-tick window "
-            "kernel comes in the next slice of the port")
 
 
 def _window_body(ctx, cfg, sim: SimState, n_ticks: int
@@ -222,18 +223,43 @@ def _window_body(ctx, cfg, sim: SimState, n_ticks: int
     tick of every ``record_every`` period.  The one windowed engine body:
     the closed-form runs enter it once from tick 0, and :func:`run_window`
     re-enters it from any checkpoint, so a split run replays the same
-    ticks.  Samples come back as ``[B, T, ...]``."""
+    ticks.  Samples come back as ``[B, T, ...]``.
+
+    With ``tick_window`` ``w > 1`` each record period of ``R`` ticks runs
+    as ``R // w`` window-kernel launches of ``w`` ticks and one of
+    ``R % w`` (``w`` is capped at ``R``: a window never spans a record
+    boundary), and the period's sample is its last window's.  The kernel
+    never changes the state it is given, so neither does this body."""
     R = cfg.record_every
     n_rec = n_ticks // R
     state, tick = sim.engine, int(sim.tick)
+    w = int(cfg.tick_window or 1)
+    if w > 1 and resolve_backend(cfg) != "cuda":
+        raise ValueError(
+            f"tick_window={w} > 1 requires the fused cuda backend "
+            f"(got backend={cfg.backend!r}, share_policy="
+            f"{cfg.share_policy!r}; wfq/drr fall back to the eager "
+            "tick, which has no multi-tick window kernel)")
+    w = min(w, R)
     rows = []
     with torch.no_grad():
-        for _ in range(n_rec):
-            for j in range(R):
-                state, smp = engine_tick(ctx, cfg, state, tick,
-                                         sample=j == R - 1)
-                tick += 1
-            rows.append(smp)
+        if w > 1:
+            from ...kernels.netsim_tick.ops import engine_window_fused
+            n_full, rem = divmod(R, w)
+            sizes = [w] * n_full + ([rem] if rem else [])
+            for _ in range(n_rec):
+                for size in sizes:
+                    state, smp = engine_window_fused(ctx, cfg, state, tick,
+                                                     size)
+                    tick += size
+                rows.append(smp)
+        else:
+            for _ in range(n_rec):
+                for j in range(R):
+                    state, smp = engine_tick(ctx, cfg, state, tick,
+                                             sample=j == R - 1)
+                    tick += 1
+                rows.append(smp)
     if rows:
         samples = tuple(torch.stack(xs, dim=1) for xs in zip(*rows))
     else:

@@ -1,11 +1,12 @@
 """The fused netsim tick as a hand-written CUDA kernel: build, binding, wrapper.
 
 ``csrc/netsim_tick.cu`` replaces the reference's Pallas ``_tick_kernel``
-(``src/repro/kernels/netsim_tick/kernel.py:339``).  It is compiled with
-``nvcc`` for ``sm_90a`` at first use into ``build/`` beside this file (a
-directory git ignores), loaded with ``ctypes`` and launched on PyTorch's
-current stream.  Nothing is built or imported from CUDA when this module is
-imported.
+(``src/repro/kernels/netsim_tick/kernel.py:339``).  Each ``csrc/*.cu``
+source is compiled with ``nvcc`` for ``sm_90a`` at first use into its own
+shared library in ``build/`` beside this file (a directory git ignores),
+loaded with ``ctypes`` and launched on PyTorch's current stream;
+:func:`build_all` compiles them in parallel.  Nothing is built or imported
+from CUDA when this module is imported.
 
 :func:`netsim_tick` is the one entry point: on CPU tensors it runs the
 plain torch version (:func:`.ref.hot_tick`); on CUDA tensors it launches
@@ -24,10 +25,11 @@ import torch
 
 from .ref import TickOut, hot_tick
 
-__all__ = ["TickOut", "netsim_tick", "build", "SMEM_LIMIT"]
+__all__ = ["TickOut", "netsim_tick", "build", "build_all", "kernel_policy",
+           "SMEM_LIMIT"]
 
 _HERE = Path(__file__).resolve().parent
-SOURCE = _HERE / "csrc" / "netsim_tick.cu"
+CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "--fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -39,58 +41,107 @@ POLICIES = ("proportional", "pq")
 _loaded: dict = {}
 
 
-def _nvcc() -> str:
-    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
-                 "/usr/local/cuda/bin/nvcc"):
-        if cand and Path(cand).exists():
-            return cand
-    raise RuntimeError("nvcc not found: the netsim_tick CUDA kernel is "
-                       "built on a machine with the CUDA toolkit")
-
-
-def build() -> tuple[ctypes.CDLL, str]:
-    """Compile (once per source version) and load the kernel library.
-    Returns ``(library, compiler log)``; the log holds ptxas's register
-    and shared-memory report."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    if tag in _loaded:
-        return _loaded[tag]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = BUILD_DIR / f"netsim_tick_{tag}.so"
-    log = ""
-    if not so.exists():
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(SOURCE)], capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{log}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+def _bind_tick(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.netsim_tick_launch.argtypes = [p] * 38 + [i] * 9 + [f, f, i, i, p]
     lib.netsim_tick_launch.restype = ctypes.c_int
     lib.netsim_tick_smem_bytes.argtypes = [i] * 5
     lib.netsim_tick_smem_bytes.restype = ctypes.c_size_t
-    _loaded[tag] = (lib, log)
-    return lib, log
+
+
+def _bind_window(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.netsim_window_launch.argtypes = [p, p, p, p]
+    lib.netsim_window_launch.restype = ctypes.c_int
+    lib.netsim_window_smem_bytes.argtypes = [i] * 6
+    lib.netsim_window_smem_bytes.restype = ctypes.c_size_t
+    lib.netsim_math_launch.argtypes = [p, p, p, i, p]
+    lib.netsim_math_launch.restype = ctypes.c_int
+
+
+# one shared library per source in csrc/, and the function that binds it
+LIBRARIES = {"netsim_tick": _bind_tick, "netsim_window": _bind_window}
+
+
+def kernel_policy(cfg) -> str:
+    """The in-kernel share policy for this config ("proportional"|"pq")."""
+    if cfg.share_policy == "pq" or cfg.pq_lanes == "all":
+        return "pq"
+    return "proportional"
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and Path(cand).exists():
+            return cand
+    raise RuntimeError("nvcc not found: the netsim_tick CUDA kernels are "
+                       "built on a machine with the CUDA toolkit")
+
+
+def _tag(name: str) -> str:
+    """Hash of everything the library is compiled from: its source, the
+    headers beside it and the compiler flags."""
+    h = hashlib.sha1(name.encode() + " ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode() + path.read_bytes())
+    return h.hexdigest()[:12]
+
+
+def build_all(names=tuple(LIBRARIES)) -> dict[str, tuple[ctypes.CDLL, str]]:
+    """Compile the named kernel libraries that are not built yet — one
+    ``nvcc`` per source, all started together — and load them.  A library
+    is compiled once per version of its sources (its file name carries
+    :func:`_tag`) and loaded once per process.  Returns ``{name: (library,
+    compiler log)}``; a log holds ptxas's register and shared-memory report
+    (empty when nothing was compiled)."""
+    todo = [name for name in names if name not in _loaded]
+    paths, jobs, logs = {}, {}, {}
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for name in todo:
+        so = paths[name] = BUILD_DIR / f"{name}_{_tag(name)}.so"
+        if so.exists():
+            continue
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (proc, tmp, so)
+    for name, (proc, tmp, so) in jobs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}.cu:\n{logs[name]}")
+        os.replace(tmp, so)
+    for name in todo:
+        lib = ctypes.CDLL(str(paths[name]))
+        LIBRARIES[name](lib)
+        _loaded[name] = lib
+    return {name: (_loaded[name], logs.get(name, "")) for name in names}
+
+
+def build(name: str = "netsim_tick") -> tuple[ctypes.CDLL, str]:
+    """The loaded kernel library ``name``, compiled first if need be.
+    Returns ``(library, compiler log)``."""
+    if name in _loaded:
+        return _loaded[name], ""
+    return build_all((name,))[name]
 
 
 def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,
-           device: torch.device) -> None:
+           device: torch.device, who: str = "netsim_tick") -> None:
     if not isinstance(x, torch.Tensor):
-        raise TypeError(f"netsim_tick: {name} must be a tensor")
+        raise TypeError(f"{who}: {name} must be a tensor")
     if x.dtype != dtype:
-        raise TypeError(f"netsim_tick: {name} must be {dtype}, got {x.dtype}")
+        raise TypeError(f"{who}: {name} must be {dtype}, got {x.dtype}")
     if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"netsim_tick: {name} must have shape {tuple(shape)}"
+        raise ValueError(f"{who}: {name} must have shape {tuple(shape)}"
                          f", got {tuple(x.shape)}")
     if x.device != device:
-        raise ValueError(f"netsim_tick: {name} is on {x.device}, "
+        raise ValueError(f"{who}: {name} is on {x.device}, "
                          f"expected {device}")
     if not x.is_contiguous():
-        raise ValueError(f"netsim_tick: {name} must be contiguous")
+        raise ValueError(f"{who}: {name} must be contiguous")
 
 
 def netsim_tick(step, sent, rate, done_upto, q_prev,
@@ -160,7 +211,7 @@ def netsim_tick(step, sent, rate, done_upto, q_prev,
     if L1 > 65535:
         raise ValueError(f"netsim_tick: {L1} link rows exceed the kernel's "
                          "uint16 link ids")
-    lib, _ = build()
+    lib, _ = build("netsim_tick")
     smem = lib.netsim_tick_smem_bytes(FW, H, L1, J, DJ)
     if smem > SMEM_LIMIT:
         raise ValueError(

@@ -1,12 +1,14 @@
-"""Engine-facing entry points for the fused netsim tick kernel.
+"""Engine-facing entry points for the netsim tick kernels.
 
 `stages.engine_tick` dispatches here when ``cfg.backend == "cuda"``:
 :func:`engine_tick_fused` runs the hot stages (instance view, route
 selection, bandwidth sharing, queue/RED, Symphony update) in the CUDA
 kernel of :mod:`.kernel` and composes the remaining cheap stages (marking,
 progress, rate control, segment barriers, metrics) around it in torch.
-On CPU tensors the kernel wrapper runs its plain torch version, which is
-bit-for-bit equal to the eager tick.
+With ``tick_window > 1`` the simulator calls :func:`engine_window_fused`
+instead, which runs whole ticks, many per launch, in the window kernel of
+:mod:`.window`.  On CPU tensors both wrappers run their plain torch
+versions, which are bit-for-bit equal to the eager tick.
 """
 from __future__ import annotations
 
@@ -16,17 +18,12 @@ from ...core.netsim.stages import (EngineState, instance_view, stage_marking,
                                    stage_metrics, stage_progress,
                                    stage_rate_control, stage_segments,
                                    stage_starts)
-from .kernel import TickOut, netsim_tick
+from ...core.netsim.params import plan_tiling
+from .kernel import TickOut, kernel_policy, netsim_tick
+from .window import netsim_window
 
 __all__ = ["kernel_policy", "tick_operands", "fused_tick", "compose_tick",
-           "engine_tick_fused"]
-
-
-def kernel_policy(cfg) -> str:
-    """The in-kernel share policy for this config ("proportional"|"pq")."""
-    if cfg.share_policy == "pq" or cfg.pq_lanes == "all":
-        return "pq"
-    return "proportional"
+           "engine_tick_fused", "engine_window_fused"]
 
 
 def tick_operands(ctx, cfg, starts, state: EngineState, tick: int
@@ -95,3 +92,13 @@ def engine_tick_fused(ctx, cfg, state: EngineState, tick: int,
     starts = stage_starts(ctx, state, tick)
     out = fused_tick(ctx, cfg, starts, state, tick)
     return compose_tick(ctx, cfg, state, tick, starts, out, sample)
+
+
+def engine_window_fused(ctx, cfg, state: EngineState, base_tick: int,
+                        n: int):
+    """Run ``n`` consecutive ticks from ``base_tick`` in ONE launch of the
+    window kernel: start gating, the hot stages, marking, progress, rate
+    control, segments and the last tick's metrics.  Returns ``(state after
+    n ticks, metric sample of the last tick)``."""
+    plan_tiling(ctx.FW, cfg.blk, cfg.segsum, cfg.tick_window)
+    return netsim_window(ctx, cfg, state, base_tick, n)

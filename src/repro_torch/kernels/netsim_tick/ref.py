@@ -1,4 +1,4 @@
-"""Plain torch version of the fused netsim tick (the CUDA kernel's oracle).
+"""Plain torch versions of the netsim tick kernels (the CUDA kernels' oracles).
 
 :func:`hot_tick` computes what ``csrc/netsim_tick.cu`` computes — the
 counterpart of the reference's ``kernel.hot_tick`` in ``segsum="scatter"``
@@ -8,6 +8,9 @@ op sequence, with the float segment sums added in ascending entry order
 CPU it equals the staged eager tick bit for bit.  The kernel wrapper runs
 it for CPU tensors; ``chip_smoke.py`` holds the kernel against it on the
 card.
+
+:func:`window_ref` is the multi-tick window kernel's plain version: ``n``
+staged eager ticks, returning the last tick's sample.
 """
 from __future__ import annotations
 
@@ -16,9 +19,9 @@ from typing import NamedTuple
 import torch
 
 from ...core.netsim.stages import (BIG, WIRE_SEG, div_scalar, ecmp_routes,
-                                   lane_take, ordered_segment_sum, per_hop,
-                                   segment_min, symphony_epoch,
-                                   symphony_rows)
+                                   engine_tick_eager, lane_take,
+                                   ordered_segment_sum, per_hop, segment_min,
+                                   symphony_epoch, symphony_rows)
 
 
 class TickOut(NamedTuple):
@@ -127,3 +130,16 @@ def hot_tick(step, sent, rate, done_upto, q_prev,
     return TickOut(iroute=iroute.to(torch.int32), eff=eff, offered=offered,
                    q=q, p_red=p_red, s_stepmin=stepmin, s_psnwin=s_psnwin,
                    s_alpha=s_alpha, s_cnt=s_cnt, s_cntop=s_cntop)
+
+
+def window_ref(ctx, cfg, state, base_tick: int, n: int):
+    """``n`` staged eager ticks from ``base_tick``: returns ``(state after
+    n ticks, metric sample of tick base_tick+n-1)``, the window kernel's
+    contract."""
+    if n < 1:
+        raise ValueError(f"a window runs at least one tick, got n={n}")
+    with torch.no_grad():
+        for t in range(int(base_tick), int(base_tick) + n):
+            state, smp = engine_tick_eager(ctx, cfg, state, t,
+                                           sample=t == base_tick + n - 1)
+    return state, smp

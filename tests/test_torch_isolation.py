@@ -21,7 +21,8 @@ for n in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
-print(len(names), bad)
+print(" ".join(names))
+print(bad)
 """
 
 
@@ -31,8 +32,11 @@ def test_port_imports_no_jax_and_no_reference():
         cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin",
                        "JAX_PLATFORMS": "cpu"}, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    n, bad = proc.stdout.strip().split(" ", 1)
-    assert int(n) >= 14, proc.stdout
+    names, bad = proc.stdout.strip().split("\n")
+    assert len(names.split()) >= 19, names
+    for mod in ("core.netsim.control", "kernels.netsim_tick.window",
+                "kernels.netsim_tick.ops", "kernels.netsim_tick.ref"):
+        assert f"repro_torch.{mod}" in names, names
     assert bad == "[]", f"port pulled in {bad}"
 
 

@@ -4,7 +4,8 @@
 * Every lane of ``simulate_seeds``/``simulate_grid`` equals a single
   ``simulate`` of that point, bit for bit within the port.
 * A ``run_window`` split equals a one-shot run, bit for bit.
-* ``device=None`` needs a card; unported options raise.
+* ``device=None`` needs a card; unported options raise, and so does
+  ``tick_window > 1`` where the tick falls back to the eager stages.
 
 The Table-1 goldens live in ``test_torch_golden_*.py``, one 20,000-tick run
 per file so that the workers share them out.
@@ -150,14 +151,20 @@ def test_default_device_needs_a_card():
             build()
 
 
-@pytest.mark.parametrize("opt", [dict(segsum="onehot"), dict(blk=64),
-                                 dict(tick_window=5)],
-                         ids=["onehot", "blk", "tick_window"])
-def test_unported_options_raise(opt):
+@pytest.mark.parametrize("opt,exc", [
+    (dict(segsum="onehot"), NotImplementedError),
+    (dict(blk=64), NotImplementedError),
+    # ported now, but only on the fused share policies: drr runs the eager
+    # tick, which has no multi-tick window
+    (dict(tick_window=5, share_policy="drr"), ValueError)],
+    ids=["onehot", "blk", "tick_window"])
+def test_unported_options_raise(opt, exc):
     topo, wl = _small(T)
     cfg = T.SimParams(n_ticks=20, window=8, backend="cuda", **opt)
-    with pytest.raises(NotImplementedError):
-        T.simulate(topo, wl, cfg, seed=0, device="cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")      # the drr -> eager fallback note
+        with pytest.raises(exc):
+            T.simulate(topo, wl, cfg, seed=0, device="cpu")
 
 
 def test_cuda_backend_wfq_falls_back_with_one_warning(monkeypatch):
