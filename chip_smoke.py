@@ -2,12 +2,13 @@
 """Smoke test of the PyTorch/CUDA port on one CUDA card.
 
 Drives the port's main paths — the fluid network simulator with the fused
-netsim tick (``backend="cuda"``, ``tick_window=1``) and with the multi-tick
-window kernel (``tick_window > 1``), and the online controller on top of it
-— phase by phase, one line per phase, and exits non-zero at the first phase
-that fails:
+netsim tick (``backend="cuda"``, ``tick_window=1``), with the multi-tick
+window kernel (``tick_window > 1``), with the tiled tick
+(``segsum="onehot"``, ``blk``) on the 512-host grid, the online controller,
+and the Alg. 1 switch pipeline — phase by phase, one line per phase, and
+exits non-zero at the first phase that fails:
 
-1. build    compile both kernel libraries from the checkout (one nvcc per
+1. build    compile every kernel library from the checkout (one nvcc per
             source, in parallel, sm_90a); print the card's name and power
             limit from nvidia-smi
 2. math     the window kernel's expf/log1pf against torch's CUDA exp/log1p
@@ -18,27 +19,42 @@ that fails:
             sym_on/pq_on on and off (as lanes) and per_step_ecmp on and off
 4. window   the window kernel against its plain version (eager ticks) on
             the card from the same mid-run states: windows of 20 and 7
-5. goldens  Table 1, 20,000 ticks, seed 3: the ecmp_base and ecmp_sym golden
+5. tiled    the tiled kernel against its plain version on mid-run states:
+            Table 1 (blk=256, 4 lanes; also blk=300, a ragged last block,
+            and 2048, one block), 128 hosts (blk=1024) and 512 hosts
+            (blk=2048), 8 lanes each
+6. large    the tick and window kernels at 256 and 512 hosts (8 lanes),
+            whose link ids live in global memory, against their plain
+            versions: 10 ticks, windows of 20 and 7
+7. switch   the switch-pipeline kernel against its plain version at 8,000
+            packets on both marking paths; then the entry point on a
+            1,000,000-packet trace (its main path, launches counted)
+8. goldens  Table 1, 20,000 ticks, seed 3: the ecmp_base and ecmp_sym golden
             finish ticks (two lanes of one grid run) through
             backend="cuda" with tick_window 1 (one tick launch per tick),
-            20 (1,000 window launches) and 7 (3,000)
-6. multipod 128-host fat_tree_multipod, 8 seeds as lanes, 2,000 ticks:
+            20 (1,000 window launches) and 7 (3,000), and through the tiled
+            tick with blk=256 (20,000 tiled launches)
+9. multipod 128-host fat_tree_multipod, 8 seeds as lanes, 2,000 ticks:
             backend="cuda" with tick_window 1 and 20 (the main-path runs
             whose launches are counted) against backend="eager"
-7. control  SimController on the card (Table 1, window_ticks=640,
+10. grid512 the 512-host grid (16 pods; sym off/on x 4 seeds as lanes),
+            1,000 ticks: the tiled tick (blk=2048, tick_window=1) and the
+            window kernel (tick_window=20), their launches counted, against
+            their plain versions on the card and against eager
+11. control SimController on the card (Table 1, window_ticks=640,
             tick_window=20): stepping equals one-shot simulate, tau retuned
             mid-run, checkpoint/restore replays bit for bit
-8. timing   each kernel's device time per launch against its plain
-            version's and its bound, at both shapes
-9. profile  main-path ticks/s (Table 1 with 1 lane through ``simulate``,
-            and 128 hosts x 8 lanes) with tick_window 1 and 20, and where a
-            tick's time goes: wall and device-busy time, the busiest kernels
+12. timing  each kernel's device time per launch against its plain
+            version's and its bound, at the main paths' shapes
+13. profile main-path ticks/s (Table 1 with 1 lane through ``simulate``,
+            128 hosts x 8 lanes, 512 hosts x 8 lanes) and where a tick's
+            time goes: wall and device-busy time, the busiest kernels
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
 
     python3 chip_smoke.py              # every phase
-    python3 chip_smoke.py build window # a subset (no report lines)
+    python3 chip_smoke.py build tiled  # a subset (no report lines)
 
 It needs one CUDA card and the CUDA toolkit; without a card it exits
 non-zero before printing any result.
@@ -54,6 +70,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12           # H100 SXM float32 rate outside tensor cores
+SM_HZ = 1.98e9                  # H100 SXM boost clock: sizes spin kernels
 
 # Table-1 golden constants (seed 3, 20,000 ticks, window 64), the same
 # values the reference's engine tests hold.
@@ -77,8 +94,14 @@ RTOL = 1e-6
 RTOL_TPUT = 1e-5
 INT_SERIES = ("finish_ticks", "job_finish_ticks", "ts_min_wire",
               "ts_max_wire", "ts_done_min", "ts_alpha_max")
-PHASES = ("build", "math", "kernel", "window", "goldens", "multipod",
-          "control", "timing", "profile")
+PHASES = ("build", "math", "kernel", "window", "tiled", "large", "switch",
+          "goldens", "multipod", "grid512", "control", "timing", "profile")
+# instance tile of the tiled tick at each shape (a multiple of the window)
+BLK = {"table1": 256, "multipod128": 1024, "multipod512": 2048}
+# the shape of each kernel's main path, whose timing goes in the report
+MAIN_SHAPE = {"netsim_tick": "multipod128", "netsim_window": "multipod128",
+              "netsim_tiled": "multipod512",
+              "switch_pipeline": "P=1000000"}
 WARM = 300                      # eager ticks before the kernel checks
 
 
@@ -98,17 +121,29 @@ def table1(T):
     return topo, b.build(), T.SimParams(n_ticks=20_000, window=64)
 
 
-def multipod128(T):
-    """benchmarks/grid512.py's full configuration at 128 hosts: 4 pods of
-    4 ToRs x 8 hosts, 4 spines per pod, 8 cores at 1:2 oversubscription,
-    rings of 32, 8 MB chunks, coarse 20 us ticks."""
-    topo = T.make_fat_tree(4, 4, 4, 8, 8, core_oversubscription=2.0)
+def multipod(T, n_pods: int, n_ticks: int):
+    """benchmarks/grid512.py's full configuration at ``32 * n_pods`` hosts:
+    pods of 4 ToRs x 8 hosts with 4 spines, 8 cores at 1:2
+    oversubscription, rings of 32, 8 MB chunks, coarse 20 us ticks; cut to
+    ``n_ticks`` ticks."""
+    topo = T.make_fat_tree(n_pods, 4, 4, 8, 8, core_oversubscription=2.0)
     b = T.WorkloadBuilder()
-    b.add_ring_job(hosts=list(range(128)), ring_size=32, chunk_bytes=8e6,
-                   passes=1, barrier=False)
-    cfg = T.SimParams(n_ticks=2000, window=64, dt=20e-6, sym_win_ticks=5,
+    b.add_ring_job(hosts=list(range(32 * n_pods)), ring_size=32,
+                   chunk_bytes=8e6, passes=1, barrier=False)
+    cfg = T.SimParams(n_ticks=n_ticks, window=64, dt=20e-6, sym_win_ticks=5,
                       cc_epoch_ticks=2)
     return topo, b.build(), cfg
+
+
+def multipod128(T):
+    """The 128-host grid (4 pods, 4 spines a pod, 8 cores at 1:2), cut to
+    2,000 ticks."""
+    return multipod(T, 4, 2000)
+
+
+SHAPES = {"table1": table1, "multipod128": multipod128,
+          "multipod256": lambda T: multipod(T, 8, 1000),
+          "multipod512": lambda T: multipod(T, 16, 1000)}
 
 
 def lane_knobs(T, cfg):
@@ -123,29 +158,31 @@ def tensor_bytes(xs) -> int:
 
 
 def timed(fn, n: int, torch) -> tuple[float, float]:
-    """``(device ms, wall ms)`` per call of ``fn`` over ``n`` calls after a
-    warm-up: device time is the sum of the CUDA kernels the profiler saw
-    (None if it saw none); wall time is CUDA events around the loop."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """``(device ms, wall ms)`` per call of ``fn`` over ``n`` calls, after
+    a warm-up, from CUDA events.  Wall: the calls made one after another,
+    host time between them included.  Device: the same calls queued behind
+    a spin kernel that outlasts queueing them, so that the card runs them
+    back to back and the events span only their device work."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = a.elapsed_time(b) / n
+    torch.cuda._sleep(int((2 * enqueue_s + 0.005) * SM_HZ))
     a.record()
     for _ in range(n):
         fn()
     b.record()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
-    return (dev_us / n / 1e3 if dev_us else None), a.elapsed_time(b) / n
+    return a.elapsed_time(b) / n, wall
 
 
 def profile_ticks(run, torch) -> tuple[float, dict]:
@@ -179,12 +216,16 @@ class Smoke:
         import repro_torch.core.netsim as T
         from repro_torch.kernels.netsim_tick import kernel as K
         from repro_torch.kernels.netsim_tick import ref as Rf
+        from repro_torch.kernels.netsim_tick import tiled as Tl
         from repro_torch.kernels.netsim_tick import window as Wn
-        self.T, self.K, self.Rf, self.Wn = T, K, Rf, Wn
+        from repro_torch.kernels import switch_pipeline as Sp
+        self.T, self.K, self.Rf, self.Wn, self.Tl, self.Sp = \
+            T, K, Rf, Wn, Tl, Sp
         self.dev = torch.device("cuda")
         self.card = "nvidia-smi unavailable"
         self.mid = {}           # (shape, ecmp) -> (ctx, cfg, state, tick)
-        self.max_err = {"netsim_tick": 0.0, "netsim_window": 0.0}
+        self.max_err = {"netsim_tick": 0.0, "netsim_window": 0.0,
+                        "netsim_tiled": 0.0, "switch_pipeline": 0.0}
         self.launches = {}
         self.rates = {}
         self.reports = []
@@ -192,9 +233,10 @@ class Smoke:
 
     # ---------------------------------------------------------- 1. build
     def build(self):
-        torch, K = self.torch, self.K
+        from repro_torch.kernels import _build
+        torch = self.torch
         t0 = time.time()
-        libs = K.build_all()
+        libs = _build.build_all()
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True)
@@ -248,13 +290,13 @@ class Smoke:
 
     def mid_state(self, shape: str, ecmp: bool):
         """A mid-run engine state (``WARM`` eager ticks) of the 4-knob-point
-        lanes: Table 1 x 1 seed, or 128 hosts x 2 seeds."""
+        lanes: Table 1 x 1 seed, or a multipod grid x 2 seeds."""
         key = (shape, ecmp)
         if key not in self.mid:
             T, torch = self.T, self.torch
             from repro_torch.core.netsim.stages import engine_tick_eager
-            (topo, wl, cfg), seeds = ((table1(T), [0]) if shape == "table1"
-                                      else (multipod128(T), [0, 1]))
+            topo, wl, cfg = SHAPES[shape](T)
+            seeds = [0] if shape == "table1" else [0, 1]
             ctx, ecfg, sim = T.make_lanes(
                 topo, wl, cfg._replace(backend="cuda").structure(),
                 lane_knobs(T, cfg), seeds=seeds,
@@ -346,7 +388,157 @@ class Smoke:
                       f"{self.max_err['netsim_window']} (state alone: "
                       f"{state_err}; the rest is the throughput sample)")
 
-    # ------------------------------------------------------- 5. goldens
+    # ------------------------------------------- 5. tiled kernel vs plain
+    def tiled(self):
+        torch, Tl, Rf = self.torch, self.Tl, self.Rf
+        from repro_torch.core.netsim.stages import (engine_tick_eager,
+                                                    stage_starts)
+        from repro_torch.kernels.netsim_tick.ops import tiled_operands
+        # each shape's main-path tile; at Table 1 also a tile that does not
+        # divide FW (a ragged last block) and one block of the whole axis
+        # (the untiled onehot tick)
+        runs = [(shape, BLK[shape], ecmp)
+                for shape in ("table1", "multipod128", "multipod512")
+                for ecmp in (True, False)]
+        runs += [("table1", 300, True), ("table1", 2048, True)]
+        for shape, blk, ecmp in runs:
+            ctx, ecfg, state, t0 = self.mid_state(shape, ecmp)
+            n = 10 if shape != "multipod512" else 5
+            with torch.no_grad():
+                for tick in range(t0, t0 + n):
+                    starts = stage_starts(ctx, state, tick)
+                    args, kw = tiled_operands(ctx, ecfg, starts, state,
+                                              tick, blk)
+                    out = Tl.netsim_tiled(*args, **kw)
+                    ref = Rf.tiled_tick_ref(*args, **kw)
+                    torch.cuda.synchronize()
+                    for f in out._fields:
+                        self.compare("tiled", f"{shape} blk={blk} "
+                                     f"ecmp={ecmp} tick {tick}: {f}",
+                                     getattr(out, f), getattr(ref, f),
+                                     kernel="netsim_tiled")
+                    state, _ = engine_tick_eager(ctx, ecfg, state, tick,
+                                                 False)
+            nb = -(-ctx.FW // blk)
+            say("tiled", f"{shape} lanes={ctx.B} blk={blk} ({nb} blocks"
+                         f" of {ctx.FW} instances) per_step_ecmp={ecmp}:"
+                         f" ticks {t0}-{t0 + n - 1} equal the plain "
+                         f"version (ints exact, floats rtol {RTOL})")
+        say("tiled", "max abs float error kernel vs plain: "
+                     f"{self.max_err['netsim_tiled']}")
+
+    # ------------------------- 6. tick and window kernels at 256-512 hosts
+    def large(self):
+        torch, K, Rf, Wn = self.torch, self.K, self.Rf, self.Wn
+        from repro_torch.core.netsim.stages import (engine_tick_eager,
+                                                    stage_starts)
+        from repro_torch.kernels.netsim_tick.ops import tick_operands
+        for shape in ("multipod256", "multipod512"):
+            ctx, ecfg, state, t0 = self.mid_state(shape, True)
+            split = Wn.window_smem_split(ctx.F, ctx.FW, ctx.H, ctx.L + 1,
+                                         ctx.J, ctx.DJ)
+            if not split.ids:
+                fail("large", f"{shape}: expected the link ids in global "
+                              "memory")
+            tick_state = state
+            with torch.no_grad():
+                for tick in range(t0, t0 + 3):
+                    starts = stage_starts(ctx, tick_state, tick)
+                    args, kw = tick_operands(ctx, ecfg, starts, tick_state,
+                                             tick)
+                    out = K.netsim_tick(*args, **kw)
+                    ref = Rf.hot_tick(*args, **kw)
+                    torch.cuda.synchronize()
+                    for f in out._fields:
+                        self.compare("large", f"{shape} tick {tick}: {f}",
+                                     getattr(out, f), getattr(ref, f),
+                                     kernel="netsim_tick")
+                    tick_state, _ = engine_tick_eager(ctx, ecfg, tick_state,
+                                                      tick, False)
+            base = t0
+            for n in (20, 7):
+                kst, ksm = Wn.netsim_window(ctx, ecfg, state, base, n)
+                rst, rsm = Rf.window_ref(ctx, ecfg, state, base, n)
+                torch.cuda.synchronize()
+                what = f"{shape} ticks {base}-{base + n - 1}"
+                for f in kst._fields:
+                    self.compare("large", f"{what}: state {f}",
+                                 getattr(kst, f), getattr(rst, f),
+                                 kernel="netsim_window")
+                for i, (x, y) in enumerate(zip(ksm, rsm)):
+                    self.compare("large", f"{what}: sample {i}", x, y,
+                                 rtol=RTOL_TPUT if i == 3 else RTOL,
+                                 kernel="netsim_window")
+                state, base = rst, base + n
+            say("large", f"{shape} lanes={ctx.B} (FW={ctx.FW}, L+1="
+                         f"{ctx.L + 1}): link ids in {split.ids} bytes of "
+                         f"global memory a lane, {split.smem} bytes of shared"
+                         f" memory; tick kernel ticks {t0}-{t0 + 2} and "
+                         f"windows of 20 and 7 equal the plain versions")
+
+    # -------------------------------------------------- 7. switch pipeline
+    def switch_trace(self, n: int, seed: int):
+        """A packet trace like tests/test_kernels.py's, on the card."""
+        import numpy as np
+        rng = np.random.default_rng(seed)
+        steps = np.maximum(0, rng.integers(0, 4, n) + np.arange(n) // 200)
+        arrays = (steps.astype(np.int32),
+                  rng.integers(1, 5000, n).astype(np.float32),
+                  (rng.random(n) < 0.02).astype(np.int32),
+                  (np.arange(n) % 100 == 99).astype(np.int32),
+                  rng.random(n).astype(np.float32))
+        return [self.torch.from_numpy(a).to(self.dev) for a in arrays]
+
+    def switch(self):
+        torch, Sp = self.torch, self.Sp
+        small = self.switch_trace(8000, 7)
+        for exact in (True, False):
+            saved = Sp.switch_pipeline.launches
+            out = Sp.switch_pipeline(*small, exact=exact)
+            Sp.switch_pipeline.launches = saved
+            ref = Sp.pipeline_plain(*small, exact=exact)
+            torch.cuda.synchronize()
+            for name, x, y in zip(("marks", "step_min", "psn_rec", "alpha"),
+                                  out, ref):
+                self.compare("switch", f"P=8000 exact={exact}: {name}", x, y,
+                             kernel="switch_pipeline")
+            say("switch", f"P=8000 exact={exact}: kernel equals the plain "
+                          f"version; {int(out[0].sum())} marks")
+        # the main path: the entry point on a 1,000,000-packet trace
+        big = self.switch_trace(1_000_000, 11)
+        Sp.switch_pipeline.launches = 0
+        t0 = time.time()
+        ex = Sp.switch_pipeline(*big, exact=True)
+        lut = Sp.switch_pipeline(*big, exact=False)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        self.launches["switch_pipeline"] = Sp.switch_pipeline.launches
+        if Sp.switch_pipeline.launches != 2:
+            fail("switch", f"{Sp.switch_pipeline.launches} launches for two "
+                           "calls")
+        for x, y in zip(ex[1:], lut[1:]):
+            if not torch.equal(x, y):
+                fail("switch", "the state trajectory depends on the marking "
+                               "path")
+        if not all(torch.isfinite(x).all() for x in ex[2:]):
+            fail("switch", "non-finite state")
+        re, rl = ex[0].float().mean().item(), lut[0].float().mean().item()
+        if not abs(re - rl) < 0.02 + 0.25 * re:
+            fail("switch", f"LUT mark rate {rl} vs exact {re}")
+        # the state is causal: the trace's first 50,000 packets alone give
+        # the same outputs, which the plain version checks
+        head = [x[:50_000].contiguous() for x in big]
+        ref = Sp.pipeline_plain(*head, exact=True)
+        for name, x, y in zip(("marks", "step_min", "psn_rec", "alpha"),
+                              ex, ref):
+            self.compare("switch", f"P=1e6 first 50,000: {name}",
+                         x[:50_000], y, kernel="switch_pipeline")
+        say("switch", f"P=1,000,000: both paths in {secs:.2f} s (2 "
+                      f"launches), mark rate exact {re:.4f}, LUT {rl:.4f}, "
+                      "same state trajectory; first 50,000 packets equal the"
+                      " plain version")
+
+    # ------------------------------------------------------- 8. goldens
     def goldens(self):
         torch, T, K, Wn = self.torch, self.T, self.K, self.Wn
         topo, wl, cfg = table1(T)
@@ -355,36 +547,43 @@ class Smoke:
         R = cfg.record_every
         # tick_window=1: a tick launch per tick; w > 1: each record period
         # runs R // w windows of w ticks and one of R % w
-        for tw, want_tick, want_win in (
-                (1, cfg.n_ticks, 0), (20, 0, cfg.n_ticks // R),
-                (7, 0, cfg.n_ticks // R * -(-R // 7))):
+        # (tick_window, blk, tick, window and tiled launches expected)
+        for tw, blk, want in (
+                (1, None, (cfg.n_ticks, 0, 0)),
+                (20, None, (0, cfg.n_ticks // R, 0)),
+                (7, None, (0, cfg.n_ticks // R * -(-R // 7), 0)),
+                (1, BLK["table1"], (0, 0, cfg.n_ticks))):
             K.netsim_tick.launches = 0
             Wn.netsim_window.launches = 0
+            self.Tl.netsim_tiled.launches = 0
             t0 = time.time()
             res = T.simulate_grid(
-                topo, wl, cfg._replace(backend="cuda",
-                                       tick_window=tw).structure(),
+                topo, wl, cfg._replace(
+                    backend="cuda", tick_window=tw, blk=blk,
+                    segsum="onehot" if blk else "scatter").structure(),
                 knobs, seeds=[3], routing="ecmp", device=self.dev)
             torch.cuda.synchronize()
             secs = time.time() - t0
             nt, nw = K.netsim_tick.launches, Wn.netsim_window.launches
-            if (nt, nw) != (want_tick, want_win):
-                fail("goldens", f"tick_window={tw}: {nt} tick and {nw} "
-                                f"window launches for {cfg.n_ticks} ticks")
+            ntl = self.Tl.netsim_tiled.launches
+            if (nt, nw, ntl) != want:
+                fail("goldens", f"tick_window={tw} blk={blk}: {nt} tick, "
+                                f"{nw} window and {ntl} tiled launches for "
+                                f"{cfg.n_ticks} ticks")
             for k, name in enumerate(("ecmp_base", "ecmp_sym")):
                 job = int(res.job_finish_ticks[k, 0, 0])
                 flows = res.finish_ticks[k, 0].cpu().tolist()
                 if job != GOLDEN_JOB[name] or flows != GOLDEN_FLOWS[name]:
-                    fail("goldens", f"tick_window={tw} {name}: job finish "
-                                    f"{job}, flows {flows}")
-            say("goldens", f"tick_window={tw}: ecmp_base {GOLDEN_JOB['ecmp_base']}"
-                           f" and ecmp_sym {GOLDEN_JOB['ecmp_sym']} with all "
-                           f"{len(flows)} flow finish ticks; 2 lanes x "
-                           f"{cfg.n_ticks} "
-                           f"ticks, {nt} tick + {nw} window launches, "
-                           f"{cfg.n_ticks / secs:.1f} ticks/s")
+                    fail("goldens", f"tick_window={tw} blk={blk} {name}: "
+                                    f"job finish {job}, flows {flows}")
+            say("goldens", f"tick_window={tw} blk={blk}: ecmp_base "
+                           f"{GOLDEN_JOB['ecmp_base']} and ecmp_sym "
+                           f"{GOLDEN_JOB['ecmp_sym']} with all {len(flows)} "
+                           f"flow finish ticks; 2 lanes x {cfg.n_ticks} "
+                           f"ticks, {nt} tick + {nw} window + {ntl} tiled "
+                           f"launches, {cfg.n_ticks / secs:.1f} ticks/s")
 
-    # ---------------------------------------------- 6. 128-host, 8 lanes
+    # ---------------------------------------------- 9. 128-host, 8 lanes
     def multipod(self):
         torch, T, K, Wn = self.torch, self.T, self.K, self.Wn
         topo, wl, cfg = multipod128(T)
@@ -429,7 +628,83 @@ class Smoke:
                             f"{rate:.1f} ticks/s ({rate * 8:.1f} "
                             "lane-ticks/s)")
 
-    # -------------------------------------------------------- 7. control
+    # --------------------------------------- 10. 512 hosts, 8 lanes, tiled
+    def grid512(self):
+        torch, T, Tl, Wn, Rf = self.torch, self.T, self.Tl, self.Wn, self.Rf
+        from repro_torch.kernels.netsim_tick import ops
+        topo, wl, cfg = multipod(T, 16, 1000)
+        knobs = T.stack_knobs([cfg.knobs(), cfg._replace(sym_on=True).knobs()])
+        seeds = [0, 1, 2, 3]
+
+        def run(**kw):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            res = T.simulate_grid(topo, wl, cfg._replace(**kw).structure(),
+                                  knobs, seeds=seeds, routing="ecmp",
+                                  device=self.dev)
+            torch.cuda.synchronize()
+            return res, cfg.n_ticks / (time.time() - t0)
+
+        eager, eager_rate = run()
+        tiled_kw = dict(backend="cuda", segsum="onehot", blk=BLK["multipod512"])
+        Tl.netsim_tiled.launches = 0                 # main path starts
+        tiled, rate1 = run(**tiled_kw)
+        n_tiled = Tl.netsim_tiled.launches           # main path ends
+        Wn.netsim_window.launches = 0                # main path starts
+        win, rate20 = run(backend="cuda", tick_window=20)
+        n_win = Wn.netsim_window.launches            # main path ends
+        if n_tiled != cfg.n_ticks or n_win != cfg.n_ticks // 20:
+            fail("grid512", f"{n_tiled} tiled and {n_win} window launches "
+                            f"for {cfg.n_ticks} ticks")
+        self.launches["netsim_tiled"] = n_tiled
+        self.rates[("multipod512", 1)] = rate1
+        self.rates[("multipod512", 20)] = rate20
+        # the tiled tick's plain version on the card, through the same path
+        saved = ops.netsim_tiled
+        ops.netsim_tiled = Rf.tiled_tick_ref
+        try:
+            plain, _ = run(**tiled_kw)
+        finally:
+            ops.netsim_tiled = saved
+        R = cfg.record_every
+        for name, x, ref in (("tiled vs its plain version", tiled, plain),
+                             ("tick_window=20 vs eager", win, eager)):
+            for f in T.SimResult._fields:
+                a, b = getattr(x, f), getattr(ref, f)
+                if f in INT_SERIES:
+                    if not torch.equal(a, b):
+                        fail("grid512", f"{name}: {f} differs")
+                else:
+                    self.compare("grid512", f"{name}: {f}", a, b,
+                                 rtol=RTOL_TPUT if f == "ts_throughput"
+                                 else RTOL)
+        # the tiled tick against eager: onehot's contract is allclose on
+        # floats, so integer series may part; count where and report
+        diffs, first = 0, None
+        for f in INT_SERIES:
+            d = getattr(tiled, f) != getattr(eager, f)
+            diffs += int(d.sum())
+            if f.startswith("ts_") and d.any():
+                # [K, S, T, ...] -> the first record period that differs
+                t = int(torch.nonzero(d.transpose(0, 2).reshape(
+                    d.shape[2], -1).any(1))[0])
+                tick = (t + 1) * R - 1
+                first = tick if first is None else min(first, tick)
+        err = (tiled.ts_throughput - eager.ts_throughput).abs().max().item()
+        done = win.ts_done_min[:, :, -1, 0].flatten().tolist()
+        wire = win.ts_max_wire[:, :, -1, 0].flatten().tolist()
+        say("grid512", f"8 lanes x {cfg.n_ticks} ticks at 512 hosts: tiled "
+                       f"(blk={BLK['multipod512']}) == its plain version on "
+                       f"every integer series ({n_tiled} tiled launches, "
+                       f"{rate1:.1f} ticks/s); tick_window=20 == eager "
+                       f"({n_win} window launches, {rate20:.1f} ticks/s); "
+                       f"eager {eager_rate:.1f} ticks/s; steps done per lane"
+                       f" {done}, newest wire step {wire}")
+        say("grid512", f"tiled vs eager: {diffs} integer entries differ"
+                       + (f", first at tick {first}" if first is not None
+                          else "") + f"; throughput max abs diff {err}")
+
+    # ------------------------------------------------------- 11. control
     def control(self):
         torch, T, Wn = self.torch, self.T, self.Wn
         topo, wl, cfg = table1(T)
@@ -479,23 +754,24 @@ class Smoke:
                        f"for bit (alpha max {oa.stats.alpha_max:.0f}, queue "
                        f"max {oa.stats.qmax:.0f} B)")
 
-    # --------------------------------------------------------- 8. timing
+    # -------------------------------------------------------- 12. timing
     def timing(self):
-        torch, K, Rf, Wn = self.torch, self.K, self.Rf, self.Wn
+        torch, K, Rf, Wn, Tl = self.torch, self.K, self.Rf, self.Wn, self.Tl
         from repro_torch.core.netsim.stages import stage_starts
-        from repro_torch.kernels.netsim_tick.ops import tick_operands
-        for shape in ("table1", "multipod128"):
+        from repro_torch.kernels.netsim_tick.ops import (tick_operands,
+                                                         tiled_operands)
+        for shape in ("table1", "multipod128", "multipod512"):
+            big = shape == "multipod512"
             ctx, ecfg, state, tick = self.mid_state(shape, True)
             # -- single tick
             starts = stage_starts(ctx, state, tick)
             args, kw = tick_operands(ctx, ecfg, starts, state, tick)
             saved = K.netsim_tick.launches
-            k_dev, k_wall = timed(lambda: K.netsim_tick(*args, **kw), 100,
-                                  torch)
+            k_dev, k_wall = timed(lambda: K.netsim_tick(*args, **kw),
+                                  5 if big else 100, torch)
             K.netsim_tick.launches = saved
-            p_dev, p_wall = timed(lambda: Rf.hot_tick(*args, **kw), 30, torch)
-            if k_dev is None or p_dev is None:
-                fail("timing", "the profiler saw no device time")
+            p_dev, p_wall = timed(lambda: Rf.hot_tick(*args, **kw),
+                                  3 if big else 30, torch)
             out = Rf.hot_tick(*args, **kw)
             # bytes the timed mode must move: every operand it reads once
             # and every output once.  With per-step ECMP the routes come
@@ -512,17 +788,35 @@ class Smoke:
             self.report(shape, "netsim_tick", "netsim_tick.cu",
                         "src/repro/kernels/netsim_tick/kernel.py:339",
                         k_dev, k_wall, p_dev, p_wall, nbytes, ops, 1)
+            # -- tiled tick
+            blk = BLK[shape]
+            args, kw = tiled_operands(ctx, ecfg, starts, state, tick, blk)
+            saved = Tl.netsim_tiled.launches
+            k_dev, k_wall = timed(lambda: Tl.netsim_tiled(*args, **kw), 20,
+                                  torch)
+            Tl.netsim_tiled.launches = saved
+            p_dev, p_wall = timed(lambda: Rf.tiled_tick_ref(*args, **kw),
+                                  3 if big else 10, torch)
+            out = Rf.tiled_tick_ref(*args, **kw)
+            tb = args[19]
+            # per-step ECMP reads one candidate row (links and domains) of
+            # every instance, its path count and one chunk size
+            nbytes = (tensor_bytes(a for i, a in enumerate(args) if i != 19)
+                      + 4 * B * FW * (2 * H + 2) + tensor_bytes(out))
+            self.report(shape, "netsim_tiled", "netsim_tiled.cu",
+                        "src/repro/kernels/netsim_tick/kernel.py:374",
+                        k_dev, k_wall, p_dev, p_wall, nbytes, ops, 1,
+                        note=f"blk={blk}, {-(-FW // blk)} blocks")
             # -- window of 20 ticks
             n = 20
             saved = Wn.netsim_window.launches
             k_dev, k_wall = timed(
-                lambda: Wn.netsim_window(ctx, ecfg, state, tick, n), 20,
-                torch)
+                lambda: Wn.netsim_window(ctx, ecfg, state, tick, n),
+                2 if big else 20, torch)
             Wn.netsim_window.launches = saved
             p_dev, p_wall = timed(
-                lambda: Rf.window_ref(ctx, ecfg, state, tick, n), 2, torch)
-            if k_dev is None or p_dev is None:
-                fail("timing", "the profiler saw no device time")
+                lambda: Rf.window_ref(ctx, ecfg, state, tick, n),
+                1 if big else 2, torch)
             new, smp = Rf.window_ref(ctx, ecfg, state, tick, n)
             iscal, fscal = Wn.window_operands(ctx, ecfg)
             st, wl = ctx.st, ctx.wl
@@ -537,34 +831,61 @@ class Smoke:
             # (~20), the threefry draw (~90 integer operations per pair of
             # instances on a CC epoch)
             cc = int(ecfg.cc_periods[0])
-            ops = n * B * FW * (54 + 17 * H + 45 / cc)
+            ops_w = n * B * FW * (54 + 17 * H + 45 / cc)
             self.report(shape, "netsim_window", "netsim_window.cu",
                         "src/repro/kernels/netsim_tick/window.py:64",
-                        k_dev, k_wall, p_dev, p_wall, nbytes, ops, n)
+                        k_dev, k_wall, p_dev, p_wall, nbytes, ops_w, n)
+        # -- switch pipeline: 8,000 packets, then the main path's 1,000,000
+        Sp = self.Sp
+        for P, seed in ((8000, 7), (1_000_000, 11)):
+            trace = self.switch_trace(P, seed)
+            saved = Sp.switch_pipeline.launches
+            k_dev, k_wall = timed(lambda: Sp.switch_pipeline(*trace),
+                                  20 if P < 10**5 else 3, torch)
+            Sp.switch_pipeline.launches = saved
+            # the plain version walks the state block on the host: its
+            # cost is the wall time of one call
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            Sp.pipeline_plain(*trace)
+            b.record()
+            torch.cuda.synchronize()
+            p_wall = a.elapsed_time(b)
+            # 20 bytes in and 16 out per packet and the 64-byte LUT; ~20
+            # float operations per packet on the exact path
+            self.report(f"P={P}", "switch_pipeline", None,
+                        "src/repro/kernels/switch_pipeline/kernel.py:42",
+                        k_dev, k_wall, p_wall, p_wall, 36 * P + 64,
+                        20 * P, 1, note="(plain version: wall time; its "
+                                        "state walk runs on the host)")
 
     def report(self, shape, name, src, replaces, k_dev, k_wall, p_dev,
-               p_wall, nbytes, ops, n):
+               p_wall, nbytes, ops, n, note=""):
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / F32_OPS_PER_S * 1e3
         bound = max(bytes_ms, ops_ms)
         per_tick = f", {k_dev / n:.4f} ms/tick" if n > 1 else ""
-        say("timing", f"{name} {shape}: kernel {k_dev:.4f} ms/launch on the "
-                      f"device{per_tick} ({k_wall:.4f} ms wall per call), "
-                      f"plain version {p_dev:.4f} ms device ({p_wall:.4f} ms "
-                      f"wall), bound {bound:.6f} ms ({nbytes} bytes: "
-                      f"{bytes_ms:.6f} ms; {ops:.0f} ops: {ops_ms:.6f} ms), "
-                      f"card {self.card}")
-        if shape == "multipod128":       # the main path's shape
+        say("timing", f"{name} {shape}{' ' + note if note else ''}: kernel "
+                      f"{k_dev:.4f} ms/launch on the device{per_tick} "
+                      f"({k_wall:.4f} ms wall per call), plain version "
+                      f"{p_dev:.4f} ms device ({p_wall:.4f} ms wall), bound "
+                      f"{bound:.6f} ms ({nbytes} bytes: {bytes_ms:.6f} ms; "
+                      f"{ops:.0f} ops: {ops_ms:.6f} ms), card {self.card}")
+        if shape == MAIN_SHAPE[name]:
+            pkg = "switch_pipeline" if name == "switch_pipeline" \
+                else "netsim_tick"
             self.reports.append(dict(
                 name=name, route="cuda",
-                source=f"src/repro_torch/kernels/netsim_tick/csrc/{src}",
+                source=f"src/repro_torch/kernels/{pkg}/csrc/"
+                       f"{src or name + '.cu'}",
                 replaces=replaces, launches=self.launches.get(name, 0),
                 max_abs_err=self.max_err[name], ms=k_dev, plain_ms=p_dev,
                 bound_ms=bound,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 library_ms=None))
 
-    # -------------------------------------------------------- 9. profile
+    # ------------------------------------------------------- 13. profile
     def profile(self):
         torch, T = self.torch, self.T
         from repro_torch.core.netsim.simulator import _window_body
@@ -582,34 +903,36 @@ class Smoke:
             if not torch.isfinite(t1.ts_throughput).all() or \
                     t1.ts_throughput.shape[0] != n_run // cfg.record_every:
                 fail("profile", "Table-1 simulate returned malformed series")
-        # where a main-path tick's time goes: ticks 300-499 alone
-        shapes = {"table1": (table1(T), [3]),
-                  "multipod128": (multipod128(T), list(range(8)))}
-        for shape, ((topo, wl, cfg), seeds) in shapes.items():
-            for tw in (1, 20):
-                if shape == "multipod128" and tw == 1:
-                    continue
-                pcfg = cfg._replace(sym_on=True, backend="cuda",
-                                    tick_window=tw)
-                ctx, ecfg, sim = T.make_lanes(
-                    topo, wl, pcfg.structure(), pcfg.knobs(), seeds=seeds,
-                    device=self.dev)
-                sim, _ = _window_body(ctx, ecfg, sim, 300)
-                n_prof = 200
-                wall_us, by_name = profile_ticks(
-                    lambda: _window_body(ctx, ecfg, sim, n_prof), torch)
-                busy = sum(t for _, t in by_name.values())
-                n_k = sum(n for n, _ in by_name.values())
-                say("profile", f"{shape}, {ctx.B} lane(s), tick_window={tw},"
-                               f" ticks 300-499: {wall_us / n_prof / 1e3:.3f}"
-                               f" ms/tick wall, device busy "
-                               f"{busy / n_prof / 1e3:.3f} ms/tick "
-                               f"({100 * busy / wall_us:.1f}% busy), "
-                               f"{n_k / n_prof:.2f} device kernels/tick")
-                top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:4]
-                for name, (n, t) in top:
-                    say("profile", f"  {t / n_prof / 1e3:.4f} ms/tick  "
-                                   f"{n / n_prof:.2f}/tick  {name[:80]}")
+        # where a main-path tick's time goes: ticks 300-499 alone (300-399
+        # at 512 hosts)
+        runs = (("table1", 1, None), ("table1", 20, None),
+                ("multipod128", 20, None),
+                ("multipod512", 1, BLK["multipod512"]),
+                ("multipod512", 20, None))
+        for shape, tw, blk in runs:
+            topo, wl, cfg = SHAPES[shape](T)
+            seeds = [3] if shape == "table1" else list(range(8))
+            pcfg = cfg._replace(sym_on=True, backend="cuda", tick_window=tw,
+                                blk=blk, segsum="onehot" if blk else "scatter")
+            ctx, ecfg, sim = T.make_lanes(
+                topo, wl, pcfg.structure(), pcfg.knobs(), seeds=seeds,
+                device=self.dev)
+            sim, _ = _window_body(ctx, ecfg, sim, 300)
+            n_prof = 100 if shape == "multipod512" else 200
+            wall_us, by_name = profile_ticks(
+                lambda: _window_body(ctx, ecfg, sim, n_prof), torch)
+            busy = sum(t for _, t in by_name.values())
+            n_k = sum(n for n, _ in by_name.values())
+            say("profile", f"{shape}, {ctx.B} lane(s), tick_window={tw}, "
+                           f"blk={blk}, ticks 300-{299 + n_prof}: "
+                           f"{wall_us / n_prof / 1e3:.3f} ms/tick wall, "
+                           f"device busy {busy / n_prof / 1e3:.3f} ms/tick "
+                           f"({100 * busy / wall_us:.1f}% busy), "
+                           f"{n_k / n_prof:.2f} device kernels/tick")
+            top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:4]
+            for name, (n, t) in top:
+                say("profile", f"  {t / n_prof / 1e3:.4f} ms/tick  "
+                               f"{n / n_prof:.2f}/tick  {name[:80]}")
         r = self.rates
         say("profile", "main path (ticks/s, set-up included, not profiled): "
                        f"Table 1 1 lane through simulate {r[('table1', 1)]:.1f}"
@@ -617,7 +940,10 @@ class Smoke:
                        "(tick_window=20); 128 hosts 8 lanes "
                        f"{r.get(('multipod128', 1), 0):.1f} (tick_window=1), "
                        f"{r.get(('multipod128', 20), 0):.1f} "
-                       f"(tick_window=20); card {self.card}")
+                       f"(tick_window=20); 512 hosts 8 lanes "
+                       f"{r.get(('multipod512', 1), 0):.1f} (tiled, "
+                       f"tick_window=1), {r.get(('multipod512', 20), 0):.1f}"
+                       f" (tick_window=20); card {self.card}")
 
 
 def main(argv) -> int:

@@ -1,9 +1,10 @@
 from . import (control, convert, metrics, params, prng, stages, topology,
                workload)
 from .control import ACTION_FIELDS, SimController, StepObs, apply_action
-from .params import (EngineParams, PackedTables, RuntimeKnobs, SimParams,
-                     SimState, SimStructure, grid_from_params, merge_params,
-                     pack_route_tables, plan_tiling, stack_knobs)
+from .params import (SEGSUM_MODES, EngineParams, PackedTables, RuntimeKnobs,
+                     SimParams, SimState, SimStructure, grid_from_params,
+                     merge_params, pack_lane_tables, pack_route_tables,
+                     plan_tiling, stack_knobs)
 from .simulator import (SimResult, Static, WindowSamples, build_static,
                         init_state, link_domains, make_lanes, resolve_device,
                         run_window,
@@ -26,5 +27,6 @@ __all__ = [
     "Workload", "WorkloadBuilder", "convert", "metrics", "params", "prng", "stages",
     "topology", "workload",
     "control", "SimController", "StepObs", "apply_action", "ACTION_FIELDS",
-    "PackedTables", "pack_route_tables", "plan_tiling",
+    "PackedTables", "pack_route_tables", "pack_lane_tables", "plan_tiling",
+    "SEGSUM_MODES",
 ]

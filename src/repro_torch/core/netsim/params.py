@@ -29,7 +29,15 @@ from ..symphony import SymphonyParams
 
 __all__ = ["SimParams", "SimStructure", "RuntimeKnobs", "SimState",
            "EngineParams", "merge_params", "stack_knobs", "grid_from_params",
-           "lanes_of", "PackedTables", "pack_route_tables", "plan_tiling"]
+           "lanes_of", "PackedTables", "pack_route_tables",
+           "pack_lane_tables", "plan_tiling", "SEGSUM_MODES"]
+
+
+# segment-reduction modes of the fused tick: "scatter" adds every float sum
+# in one ascending (instance, hop) order (bitwise equal to the eager tick);
+# "onehot" is the reference's dense mode, here the tiled kernel's block
+# partials folded in block order (allclose)
+SEGSUM_MODES = ("scatter", "onehot")
 
 
 class SimParams(NamedTuple):
@@ -61,8 +69,8 @@ class SimParams(NamedTuple):
     share_policy: str = "proportional"  # proportional | pq | wfq | drr
     per_step_ecmp: bool = True     # re-hash the 5-tuple every step (§4.7)
     backend: str = "eager"         # "eager" staged torch | "cuda" fused kernel
-    segsum: str = "scatter"        # only "scatter" is ported so far
-    blk: int | None = None         # instance tiling: not ported yet
+    segsum: str = "scatter"        # "scatter" (ordered sums) | "onehot"
+    blk: int | None = None         # instance tile of the onehot tick
     tick_window: int = 1           # ticks per kernel launch (backend="cuda")
 
     def structure(self) -> "SimStructure":
@@ -286,6 +294,32 @@ def pack_route_tables(st, wl, window: int) -> PackedTables:
         cand_dom=per_inst(st.link_dom[paths]),
         n_paths=per_inst(st.n_paths),
         chunk=per_inst(wl.chunk_sched[wl.job.long()]),
+    )
+
+
+def pack_lane_tables(st, wl, window: int) -> PackedTables:
+    """:func:`pack_route_tables` for lane-batched statics: ``st`` carries a
+    leading lane axis (``routes`` ``[B, F, H]``, ...) and every table comes
+    back with it (``routes`` ``[B, FW, H]``, ``chunk`` ``[B, FW, SEG]``);
+    lane ``b`` equals ``pack_route_tables`` of that lane's statics."""
+    W = int(window)
+    B, F, P, H = st.path_table.shape
+
+    def per_inst(x):
+        return x.repeat_interleave(W, dim=1).contiguous()
+
+    def dom_of(links):
+        return torch.gather(st.link_dom, 1, links.reshape(B, -1).long()
+                            ).reshape(links.shape)
+
+    chunk = wl.chunk_sched[wl.job.long()]
+    return PackedTables(
+        routes=per_inst(st.routes),
+        route_dom=per_inst(dom_of(st.routes)),
+        cand=per_inst(st.path_table),
+        cand_dom=per_inst(dom_of(st.path_table)),
+        n_paths=per_inst(st.n_paths),
+        chunk=per_inst(chunk[None].expand(B, -1, -1)),
     )
 
 

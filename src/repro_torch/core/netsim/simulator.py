@@ -19,9 +19,12 @@ Backends: ``SimParams.backend="eager"`` runs the staged torch tick;
 :mod:`repro_torch.kernels.netsim_tick` (its plain torch version on CPU
 tensors).  With ``tick_window > 1`` the ``cuda`` backend runs whole ticks,
 ``tick_window`` of them per launch, in the multi-tick window kernel; windows
-divide each ``record_every`` period.  The reference's tiled kernel (``blk``
-with ``tick_window == 1``) and one-hot reductions (``segsum="onehot"``) are
-not ported yet and raise ``NotImplementedError``.
+divide each ``record_every`` period.  With ``segsum="onehot"`` and
+``tick_window == 1`` the ``cuda`` backend runs the tiled tick kernel over
+``blk``-instance blocks (one block of the whole instance axis without
+``blk``); ``blk`` needs ``segsum="onehot"`` unless it covers the whole axis
+(``ValueError`` otherwise, as ``plan_tiling`` decides), and with
+``tick_window > 1`` it normalizes away to the window kernel.
 
 Entities: flow slot ``f`` in ``[0, F)``; instance ``(f, w)``, one in-flight
 step-send of slot ``f`` (``W`` window slots keyed by ``s % W``); links are
@@ -35,8 +38,9 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from .params import (RuntimeKnobs, SimParams, SimState, SimStructure,
-                     grid_from_params, lanes_of, merge_params, stack_knobs)
+from .params import (SEGSUM_MODES, RuntimeKnobs, SimParams, SimState,
+                     SimStructure, grid_from_params, lanes_of, merge_params,
+                     stack_knobs)
 from .stages import (BACKENDS, SHARE_POLICIES, WLArrays, engine_tick,
                      init_state as engine_init_state, make_ctx,
                      resolve_backend, resolve_share_policy)
@@ -196,7 +200,8 @@ def stack_statics(statics: Sequence[Static]) -> Static:
 
 # ------------------------------------------------------------------- core
 def check_structure(struct) -> None:
-    """Validate the static structure; raise on parts not ported yet."""
+    """Validate the static structure (the tiling plan itself is checked
+    against the instance axis by ``plan_tiling`` when a tick runs)."""
     if struct.backend not in BACKENDS:
         raise ValueError(
             f"unknown tick backend {struct.backend!r}; have {BACKENDS}")
@@ -204,17 +209,14 @@ def check_structure(struct) -> None:
         raise ValueError(
             f"unknown share policy {struct.share_policy!r}; "
             f"have {sorted(SHARE_POLICIES)}")
-    if struct.segsum != "scatter":
-        raise NotImplementedError(
-            f"segsum={struct.segsum!r}: the one-hot reductions come with "
-            "the tiled kernel in a later slice of the port")
+    if struct.segsum not in SEGSUM_MODES:
+        raise ValueError(f"segsum must be one of {SEGSUM_MODES}, got "
+                         f"{struct.segsum!r}")
+    if struct.blk is not None and int(struct.blk) < 1:
+        raise ValueError(f"blk must be >= 1, got {struct.blk}")
     if int(struct.tick_window or 1) < 1:
         raise ValueError(
             f"tick_window must be >= 1, got {struct.tick_window}")
-    if struct.blk is not None and int(struct.tick_window or 1) == 1:
-        raise NotImplementedError(
-            f"blk={struct.blk}: the tiled tick kernel comes in a later "
-            "slice of the port")
 
 
 def _window_body(ctx, cfg, sim: SimState, n_ticks: int

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import warnings
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
@@ -43,6 +44,7 @@ import torch
 
 from ..symphony import SymphonyParams, marking_probability
 from . import prng
+from .params import PackedTables, pack_lane_tables
 
 # Wire-step encoding: global segment index * WIRE_SEG + step-within-segment.
 WIRE_SEG = 4096
@@ -114,6 +116,12 @@ class EngineCtx:
     @property
     def DJ(self) -> int:
         return (self.D + 1) * self.J
+
+    @cached_property
+    def tables(self) -> PackedTables:
+        """The lane-batched packed route tables (``[B, FW, ...]``) the
+        tiled tick reads; built on first use and kept for the run."""
+        return pack_lane_tables(self.st, self.wl, self.W)
 
     def chunk_of(self, job_ids: torch.Tensor, seg: torch.Tensor
                  ) -> torch.Tensor:

@@ -75,7 +75,12 @@ struct HotLane {
   float bg_duty, red_kmin, red_kmax, red_pmax, tau, n_sample, alpha_max;
 };
 
-// Shared-memory scratch of hot_tick.
+// Scratch of hot_tick.  The link, job and Symphony rows always live in
+// shared memory.  The per-(instance, hop) link ids and the per-instance
+// flags live there too when they fit; a lane whose ids do not fit (256
+// hosts and up at window 64) keeps them in a global-memory workspace of
+// hot_ids_bytes() per lane instead.  The walks read them in the same order
+// either way, so where they live changes no result.
 struct HotSmem {
   float* cap_s; float* bg_s; float* sl_s; float* shi_s; float* slo_s;
   int* dom_s; int* jobmin_s; int* cand_s; int* minact_s;
@@ -83,18 +88,47 @@ struct HotSmem {
   unsigned char* flags_s;    // [FW] F_* bits
 };
 
-// Bytes of HotSmem, rounded up to 16 so that more scratch can follow.
-__host__ __device__ inline size_t hot_smem_bytes(int FW, int H, int L1,
-                                                 int J, int DJ) {
-  const size_t E = (size_t)FW * H;
-  const size_t n = (size_t)5 * L1 * 4 + (size_t)L1 * 4 + (size_t)J * 4 +
-                   (size_t)2 * DJ * 4 + ((E + 1) & ~(size_t)1) * 2 +
-                   (size_t)FW;
+__host__ __device__ inline size_t round16(size_t n) {
   return (n + 15) & ~(size_t)15;
 }
 
-__device__ inline HotSmem hot_smem_carve(unsigned char* base,
-                                         const HotDims& d) {
+// Bytes of the rows: five link rows, the link domains, the job row and two
+// Symphony rows.
+__host__ __device__ inline size_t hot_rows_bytes(int L1, int J, int DJ) {
+  return ((size_t)6 * L1 + J + (size_t)2 * DJ) * 4;
+}
+
+// Bytes of one lane's link ids (uint16, padded to an even count) and flags.
+__host__ __device__ inline size_t hot_ids_raw(int FW, int H) {
+  const size_t E = (size_t)FW * H;
+  return ((E + 1) & ~(size_t)1) * 2 + (size_t)FW;
+}
+
+// A lane's stride in the global ids workspace.
+__host__ __device__ inline size_t hot_ids_bytes(int FW, int H) {
+  return round16(hot_ids_raw(FW, H));
+}
+
+// Shared bytes of hot_tick's scratch, rounded up to 16 so that more scratch
+// can follow: the rows, and the ids right after them when ids_in_smem.
+__host__ __device__ inline size_t hot_smem_bytes(int FW, int H, int L1,
+                                                 int J, int DJ,
+                                                 int ids_in_smem) {
+  return round16(hot_rows_bytes(L1, J, DJ) +
+                 (ids_in_smem ? hot_ids_raw(FW, H) : 0));
+}
+
+// Carve the scratch from the block's shared memory.  With IDS_SMEM the ids
+// follow the rows there; otherwise they live in ids_ws, this lane's global
+// workspace of hot_ids_bytes().  The choice is a template parameter so that
+// each kernel instantiation knows the ids' address space at compile time.
+// The ids start right after the last row, derived from its int pointer:
+// starting them at a 16-byte boundary instead measured 21-25 % slower for
+// the single-tick kernel on the H100 (PERF.md).
+template <bool IDS_SMEM>
+__device__ __forceinline__ HotSmem hot_smem_carve(unsigned char* base,
+                                                  const HotDims& d,
+                                                  unsigned char* ids_ws) {
   HotSmem m;
   const int L1 = d.L1, E = d.F * d.W * d.H;
   m.cap_s = reinterpret_cast<float*>(base);
@@ -106,7 +140,10 @@ __device__ inline HotSmem hot_smem_carve(unsigned char* base,
   m.jobmin_s = m.dom_s + L1;
   m.cand_s = m.jobmin_s + d.J;
   m.minact_s = m.cand_s + d.DJ;
-  m.route_s = reinterpret_cast<unsigned short*>(m.minact_s + d.DJ);
+  unsigned char* ids =
+      IDS_SMEM ? reinterpret_cast<unsigned char*>(m.minact_s + d.DJ)
+               : ids_ws;
+  m.route_s = reinterpret_cast<unsigned short*>(ids);
   m.flags_s = reinterpret_cast<unsigned char*>(m.route_s + ((E + 1) & ~1));
   return m;
 }

@@ -21,6 +21,10 @@
 // in shared memory, so one launch runs the whole dependent chain with
 // __syncthreads() between phases and touches device memory only for the
 // tick's true inputs and outputs.  Lanes (seeds, knob points) are blocks.
+// Where a lane's ids do not fit (256 hosts and up at window 64) they go to
+// a per-lane global workspace the wrapper allocates, read through L1/L2;
+// such lanes are slow (each row still walks every entry), and the tiled
+// kernel (netsim_tiled.cu) is the form for them.
 
 #include "netsim_hot.cuh"
 
@@ -39,9 +43,13 @@ struct TickArgs {
   int* smin_o; float* spsn_o; float* salpha_o; float* scnt_o;
   float* scntop_o;
   int* ws_wire; float* ws_f;
+  unsigned char* ids_ws;  // [B, hot_ids_bytes] when the ids leave smem
   HotDims d;
 };
 
+// IDS_SMEM: the lane's link ids and flags live in shared memory (else in
+// a.ids_ws).
+template <bool IDS_SMEM>
 __global__ void __launch_bounds__(NT_THREADS)
 netsim_tick_kernel(TickArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -92,12 +100,16 @@ netsim_tick_kernel(TickArgs a) {
   s.phase = a.phase; s.nph = a.nph; s.off = a.off;
   s.chunk_sched = a.chunk_sched;
 
-  hot_tick(h, d, s, hot_smem_carve(smem, d));
+  unsigned char* ids =
+      IDS_SMEM ? nullptr : a.ids_ws + (size_t)b * hot_ids_bytes((int)FW, H);
+  hot_tick(h, d, s, hot_smem_carve<IDS_SMEM>(smem, d, ids));
 }
 
+// Shared bytes one block needs; the ids take hot_ids_bytes() per lane of
+// global workspace instead when ids_in_smem is 0.
 extern "C" size_t netsim_tick_smem_bytes(int FW, int H, int L1, int J,
-                                         int DJ) {
-  return hot_smem_bytes(FW, H, L1, J, DJ);
+                                         int DJ, int ids_in_smem) {
+  return hot_smem_bytes(FW, H, L1, J, DJ, ids_in_smem);
 }
 
 extern "C" int netsim_tick_launch(
@@ -114,8 +126,10 @@ extern "C" int netsim_tick_launch(
     int* iroute_o, float* eff_o, float* offered_o, float* q_o,
     float* p_red_o, int* smin_o, float* spsn_o, float* salpha_o,
     float* scnt_o, float* scntop_o, int* ws_wire, float* ws_f,
+    unsigned char* ids_ws,
     int B, int F, int W, int H, int P, int L1, int J, int SEG, int DJ,
-    float dt, float mtu, int per_step_ecmp, int policy_pq, void* stream) {
+    float dt, float mtu, int per_step_ecmp, int policy_pq, int ids_in_smem,
+    void* stream) {
   TickArgs a;
   a.step = step; a.sent = sent; a.rate = rate; a.done_upto = done_upto;
   a.q_prev = q_prev; a.s_stepmin = s_stepmin; a.s_psnwin = s_psnwin;
@@ -129,14 +143,17 @@ extern "C" int netsim_tick_launch(
   a.q_o = q_o; a.p_red_o = p_red_o; a.smin_o = smin_o; a.spsn_o = spsn_o;
   a.salpha_o = salpha_o; a.scnt_o = scnt_o; a.scntop_o = scntop_o;
   a.ws_wire = ws_wire; a.ws_f = ws_f;
+  a.ids_ws = ids_ws;
   a.d.F = F; a.d.W = W; a.d.H = H; a.d.P = P; a.d.L1 = L1; a.d.J = J;
   a.d.SEG = SEG; a.d.DJ = DJ; a.d.dt = dt; a.d.mtu = mtu;
   a.d.per_step_ecmp = per_step_ecmp; a.d.policy_pq = policy_pq;
-  const size_t smem = netsim_tick_smem_bytes(F * W, H, L1, J, DJ);
+  const size_t smem =
+      netsim_tick_smem_bytes(F * W, H, L1, J, DJ, ids_in_smem);
+  void (*kernel)(TickArgs) = ids_in_smem ? netsim_tick_kernel<true>
+                                         : netsim_tick_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      netsim_tick_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  netsim_tick_kernel<<<B, NT_THREADS, smem, (cudaStream_t)stream>>>(a);
+  kernel<<<B, NT_THREADS, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

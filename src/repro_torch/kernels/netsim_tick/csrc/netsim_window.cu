@@ -30,10 +30,12 @@
 // What the design does about it.  Link rows, Symphony rows (two copies: the
 // marking stage reads the tick's old rows while the hot stages write the
 // new ones), job rows and the per-(instance, hop) uint16 link ids live in
-// shared memory.  The per-instance state ([F, W] arrays, 229 KB a lane at
-// 128 hosts x window 64) does not fit beside them, so it stays in global
-// memory: the block copies its lane's input state to the output buffers
-// once and then updates the outputs in place across the loop (L2-resident).
+// shared memory; a lane whose ids do not fit there (256 hosts and up at
+// window 64) keeps the ids and flags in a per-lane global workspace.  The
+// per-instance state ([F, W] arrays, 229 KB a lane at 128 hosts x window
+// 64) does not fit beside them, so it stays in global memory: the block
+// copies its lane's input state to the output buffers once and then
+// updates the outputs in place across the loop (L2-resident).
 //
 // Exactness.  Float sums keep the single-tick kernel's ascending (instance,
 // hop) order with no float atomics; log1pf/expf (never __expf) and
@@ -92,16 +94,28 @@ struct WinArgs {
   float* qmax_o; float* amax_o;
   // workspaces [B, FW]
   int* ws_wire; float* ws_f; float* ws_eff;
+  // [B, hot_ids_bytes]: the link ids and flags of lanes whose ids do not
+  // fit in shared memory beside the rows (unused when they fit)
+  unsigned char* ids_ws;
   int base_tick, n;
   HotDims d;
 };
 
-// Bytes of shared memory one lane needs: hot_tick's scratch, then two sets
-// of Symphony rows, the RED profile, a flag per flow and six job rows.
+// Bytes of the window's own rows: two sets of Symphony rows, the RED
+// profile, a flag per flow, six job rows and a float per warp.
+__host__ __device__ inline size_t win_rows_bytes(int F, int L1, int J,
+                                                 int DJ) {
+  return (size_t)10 * DJ * 4 + (size_t)L1 * 4 + (size_t)F * 4 +
+         (size_t)6 * J * 4 + 32 * 4;
+}
+
+// Bytes of shared memory one lane needs: hot_tick's scratch, then the
+// window's own rows.
 __host__ __device__ inline size_t win_smem_bytes(int F, int FW, int H,
-                                                 int L1, int J, int DJ) {
-  return hot_smem_bytes(FW, H, L1, J, DJ) + (size_t)10 * DJ * 4 +
-         (size_t)L1 * 4 + (size_t)F * 4 + (size_t)6 * J * 4 + 32 * 4;
+                                                 int L1, int J, int DJ,
+                                                 int ids_in_smem) {
+  return hot_smem_bytes(FW, H, L1, J, DJ, ids_in_smem) +
+         win_rows_bytes(F, L1, J, DJ);
 }
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
@@ -139,6 +153,9 @@ __device__ float block_sum(float v, float* red) {
   return s;
 }
 
+// IDS_SMEM: the lane's link ids and flags live in shared memory (else in
+// a.ids_ws).
+template <bool IDS_SMEM>
 __global__ void __launch_bounds__(NT_THREADS)
 netsim_window_kernel(WinArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -152,9 +169,11 @@ netsim_window_kernel(WinArgs a) {
   const int D = DJ / J - 1;   // Symphony domains; D is "none"
 
   // ---- shared memory
-  const HotSmem m = hot_smem_carve(smem, d);
-  int* sym_i = reinterpret_cast<int*>(smem + hot_smem_bytes(FW, H, L1, J,
-                                                            DJ));
+  unsigned char* ids =
+      IDS_SMEM ? nullptr : a.ids_ws + (size_t)b * hot_ids_bytes(FW, H);
+  const HotSmem m = hot_smem_carve<IDS_SMEM>(smem, d, ids);
+  int* sym_i = reinterpret_cast<int*>(
+      smem + hot_smem_bytes(FW, H, L1, J, DJ, IDS_SMEM));
   int* smin_a = sym_i;
   float* psn_a = reinterpret_cast<float*>(smin_a + DJ);
   float* alpha_a = psn_a + DJ;
@@ -526,14 +545,14 @@ __global__ void netsim_math_kernel(const float* x, float* exp_o,
 }
 
 extern "C" size_t netsim_window_smem_bytes(int F, int FW, int H, int L1,
-                                           int J, int DJ) {
-  return win_smem_bytes(F, FW, H, L1, J, DJ);
+                                           int J, int DJ, int ids_in_smem) {
+  return win_smem_bytes(F, FW, H, L1, J, DJ, ids_in_smem);
 }
 
 // ptrs: the WinArgs pointers in declaration order (N_WIN_PTRS of them);
 // dims: B, F, W, H, P, L1, J, SEG, DJ, per_step_ecmp, policy_pq,
-// base_tick, n; fdims: dt, mtu.
-#define N_WIN_PTRS 78
+// base_tick, n, ids_in_smem; fdims: dt, mtu.
+#define N_WIN_PTRS 79
 static_assert(offsetof(WinArgs, base_tick) == N_WIN_PTRS * sizeof(void*),
               "WinArgs must start with its N_WIN_PTRS pointers");
 extern "C" int netsim_window_launch(void** ptrs, const int* dims,
@@ -546,14 +565,16 @@ extern "C" int netsim_window_launch(void** ptrs, const int* dims,
   a.d.L1 = dims[5]; a.d.J = dims[6]; a.d.SEG = dims[7]; a.d.DJ = dims[8];
   a.d.per_step_ecmp = dims[9]; a.d.policy_pq = dims[10];
   a.base_tick = dims[11]; a.n = dims[12];
+  const int ids_in_smem = dims[13];
   a.d.dt = fdims[0]; a.d.mtu = fdims[1];
   const size_t smem = win_smem_bytes(a.d.F, a.d.F * a.d.W, a.d.H, a.d.L1,
-                                     a.d.J, a.d.DJ);
+                                     a.d.J, a.d.DJ, ids_in_smem);
+  void (*kernel)(WinArgs) = ids_in_smem ? netsim_window_kernel<true>
+                                        : netsim_window_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      netsim_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  netsim_window_kernel<<<B, NT_THREADS, smem, (cudaStream_t)stream>>>(a);
+  kernel<<<B, NT_THREADS, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -5,8 +5,8 @@
 source is compiled with ``nvcc`` for ``sm_90a`` at first use into its own
 shared library in ``build/`` beside this file (a directory git ignores),
 loaded with ``ctypes`` and launched on PyTorch's current stream;
-:func:`build_all` compiles them in parallel.  Nothing is built or imported
-from CUDA when this module is imported.
+:func:`build_all` compiles them in parallel (``kernels/_build.py``).
+Nothing is built or imported from CUDA when this module is imported.
 
 :func:`netsim_tick` is the one entry point: on CPU tensors it runs the
 plain torch version (:func:`.ref.hot_tick`); on CUDA tensors it launches
@@ -15,37 +15,27 @@ the kernel or raises.  ``netsim_tick.launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
+from .. import _build
+from .._build import SMEM_LIMIT
 from .ref import TickOut, hot_tick
 
 __all__ = ["TickOut", "netsim_tick", "build", "build_all", "kernel_policy",
-           "SMEM_LIMIT"]
+           "SMEM_LIMIT", "hot_smem_split", "HotSplit"]
 
-_HERE = Path(__file__).resolve().parent
-CSRC = _HERE / "csrc"
-BUILD_DIR = _HERE / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "--fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
-# dynamic shared memory one block may use on Hopper (bytes)
-SMEM_LIMIT = 232448
+CSRC = Path(__file__).resolve().parent / "csrc"
 POLICIES = ("proportional", "pq")
-
-_loaded: dict = {}
 
 
 def _bind_tick(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.netsim_tick_launch.argtypes = [p] * 38 + [i] * 9 + [f, f, i, i, p]
+    lib.netsim_tick_launch.argtypes = [p] * 39 + [i] * 9 + [f, f, i, i, i, p]
     lib.netsim_tick_launch.restype = ctypes.c_int
-    lib.netsim_tick_smem_bytes.argtypes = [i] * 5
+    lib.netsim_tick_smem_bytes.argtypes = [i] * 6
     lib.netsim_tick_smem_bytes.restype = ctypes.c_size_t
 
 
@@ -53,14 +43,25 @@ def _bind_window(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.netsim_window_launch.argtypes = [p, p, p, p]
     lib.netsim_window_launch.restype = ctypes.c_int
-    lib.netsim_window_smem_bytes.argtypes = [i] * 6
+    lib.netsim_window_smem_bytes.argtypes = [i] * 7
     lib.netsim_window_smem_bytes.restype = ctypes.c_size_t
     lib.netsim_math_launch.argtypes = [p, p, p, i, p]
     lib.netsim_math_launch.restype = ctypes.c_int
 
 
+def _bind_tiled(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.netsim_tiled_launch.argtypes = [p, p, p, p]
+    lib.netsim_tiled_launch.restype = ctypes.c_int
+    lib.netsim_tiled_smem_bytes.argtypes = [i] * 3
+    lib.netsim_tiled_smem_bytes.restype = ctypes.c_size_t
+
+
 # one shared library per source in csrc/, and the function that binds it
-LIBRARIES = {"netsim_tick": _bind_tick, "netsim_window": _bind_window}
+LIBRARIES = {"netsim_tick": _bind_tick, "netsim_window": _bind_window,
+             "netsim_tiled": _bind_tiled}
+for _name, _bind in LIBRARIES.items():
+    _build.register(_name, CSRC, _bind)
 
 
 def kernel_policy(cfg) -> str:
@@ -70,62 +71,56 @@ def kernel_policy(cfg) -> str:
     return "proportional"
 
 
-def _nvcc() -> str:
-    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
-                 "/usr/local/cuda/bin/nvcc"):
-        if cand and Path(cand).exists():
-            return cand
-    raise RuntimeError("nvcc not found: the netsim_tick CUDA kernels are "
-                       "built on a machine with the CUDA toolkit")
-
-
-def _tag(name: str) -> str:
-    """Hash of everything the library is compiled from: its source, the
-    headers beside it and the compiler flags."""
-    h = hashlib.sha1(name.encode() + " ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.glob("*.cu*")):
-        h.update(path.name.encode() + path.read_bytes())
-    return h.hexdigest()[:12]
-
-
 def build_all(names=tuple(LIBRARIES)) -> dict[str, tuple[ctypes.CDLL, str]]:
-    """Compile the named kernel libraries that are not built yet — one
-    ``nvcc`` per source, all started together — and load them.  A library
-    is compiled once per version of its sources (its file name carries
-    :func:`_tag`) and loaded once per process.  Returns ``{name: (library,
-    compiler log)}``; a log holds ptxas's register and shared-memory report
-    (empty when nothing was compiled)."""
-    todo = [name for name in names if name not in _loaded]
-    paths, jobs, logs = {}, {}, {}
-    if todo:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    for name in todo:
-        so = paths[name] = BUILD_DIR / f"{name}_{_tag(name)}.so"
-        if so.exists():
-            continue
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        jobs[name] = (proc, tmp, so)
-    for name, (proc, tmp, so) in jobs.items():
-        logs[name] = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name}.cu:\n{logs[name]}")
-        os.replace(tmp, so)
-    for name in todo:
-        lib = ctypes.CDLL(str(paths[name]))
-        LIBRARIES[name](lib)
-        _loaded[name] = lib
-    return {name: (_loaded[name], logs.get(name, "")) for name in names}
+    """Compile the netsim tick libraries that are not built yet (one
+    ``nvcc`` per source, all started together) and load them; see
+    :func:`repro_torch.kernels._build.build_all`."""
+    return _build.build_all(names)
 
 
 def build(name: str = "netsim_tick") -> tuple[ctypes.CDLL, str]:
     """The loaded kernel library ``name``, compiled first if need be.
     Returns ``(library, compiler log)``."""
-    if name in _loaded:
-        return _loaded[name], ""
-    return build_all((name,))[name]
+    return _build.build(name)
+
+
+def _round16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+class HotSplit(NamedTuple):
+    """Where one lane's hot-stage scratch lives: ``smem`` bytes of shared
+    memory per block, and ``ids`` bytes per lane of global workspace for
+    the link ids and flags (0 when they fit in shared memory)."""
+    smem: int
+    ids: int
+
+
+def hot_smem_split(FW: int, H: int, L1: int, J: int, DJ: int,
+                   extra: int = 0) -> HotSplit:
+    """The split of ``csrc/netsim_hot.cuh``: the link, job and Symphony
+    rows (and ``extra`` bytes of a kernel's own rows) always take shared
+    memory; the uint16 link id of every (instance, hop) and the flag byte
+    of every instance follow them there when everything fits in
+    :data:`SMEM_LIMIT`, and take a per-lane global workspace otherwise.
+    Mirrors ``hot_rows_bytes``/``hot_ids_raw``/``hot_smem_bytes`` of the
+    header."""
+    rows = 4 * (6 * L1 + J + 2 * DJ)
+    ids = 2 * ((FW * H + 1) & ~1) + FW
+    if _round16(rows) + extra > SMEM_LIMIT:
+        raise ValueError(
+            f"one lane's {L1} link rows and {DJ} Symphony rows need "
+            f"{_round16(rows) + extra} bytes of shared memory (limit "
+            f"{SMEM_LIMIT})")
+    if _round16(rows + ids) + extra <= SMEM_LIMIT:
+        return HotSplit(_round16(rows + ids) + extra, 0)
+    return HotSplit(_round16(rows) + extra, _round16(ids))
+
+
+def ids_workspace(B: int, split: HotSplit, device) -> torch.Tensor:
+    """The per-lane global workspace of a split (one byte when unused)."""
+    return torch.empty(B, max(split.ids, 1), dtype=torch.uint8,
+                       device=device)
 
 
 def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,
@@ -212,12 +207,11 @@ def netsim_tick(step, sent, rate, done_upto, q_prev,
         raise ValueError(f"netsim_tick: {L1} link rows exceed the kernel's "
                          "uint16 link ids")
     lib, _ = build("netsim_tick")
-    smem = lib.netsim_tick_smem_bytes(FW, H, L1, J, DJ)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"netsim_tick: one lane needs {smem} bytes of shared memory "
-            f"(limit {SMEM_LIMIT}); fabrics this large need the tiled "
-            "kernel, a later slice of the port")
+    split = hot_smem_split(FW, H, L1, J, DJ)
+    smem = lib.netsim_tick_smem_bytes(FW, H, L1, J, DJ, int(not split.ids))
+    if smem != split.smem:
+        raise RuntimeError(f"netsim_tick: the library sizes shared memory "
+                           f"at {smem} bytes, the wrapper at {split.smem}")
     out = TickOut(
         iroute=torch.empty(B, FW, H, dtype=i32, device=dev),
         eff=torch.empty(B, FW, dtype=f32, device=dev),
@@ -231,11 +225,13 @@ def netsim_tick(step, sent, rate, done_upto, q_prev,
         s_cntop=torch.empty(B, DJ, dtype=f32, device=dev))
     ws_wire = torch.empty(B, FW, dtype=i32, device=dev)
     ws_f = torch.empty(B, FW, dtype=f32, device=dev)
-    ptrs = [x.data_ptr() for x in (*operands, *out, ws_wire, ws_f)]
+    ws_ids = ids_workspace(B, split, dev)
+    ptrs = [x.data_ptr() for x in (*operands, *out, ws_wire, ws_f, ws_ids)]
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.netsim_tick_launch(
         *ptrs, B, F, FW // F, H, P, L1, J, SEG, DJ, float(dt), float(mtu),
-        int(bool(per_step_ecmp)), int(policy == "pq"), stream)
+        int(bool(per_step_ecmp)), int(policy == "pq"), int(not split.ids),
+        stream)
     if rc != 0:
         raise RuntimeError(f"netsim_tick kernel launch failed: CUDA error {rc}")
     netsim_tick.launches += 1

@@ -3,12 +3,16 @@
 `stages.engine_tick` dispatches here when ``cfg.backend == "cuda"``:
 :func:`engine_tick_fused` runs the hot stages (instance view, route
 selection, bandwidth sharing, queue/RED, Symphony update) in the CUDA
-kernel of :mod:`.kernel` and composes the remaining cheap stages (marking,
-progress, rate control, segment barriers, metrics) around it in torch.
+kernel of :mod:`.kernel` (with ``segsum="onehot"``: the tiled kernel of
+:mod:`.tiled`, over ``blk``-instance blocks or one whole-axis block) and
+composes the remaining cheap stages (marking, progress, rate control,
+segment barriers, metrics) around it in torch.
 With ``tick_window > 1`` the simulator calls :func:`engine_window_fused`
 instead, which runs whole ticks, many per launch, in the window kernel of
 :mod:`.window`.  On CPU tensors both wrappers run their plain torch
-versions, which are bit-for-bit equal to the eager tick.
+versions; those of the single-tick and window kernels are bit-for-bit
+equal to the eager tick, that of the tiled kernel adds its float sums block
+by block (``segsum="onehot"``'s allclose contract).
 """
 from __future__ import annotations
 
@@ -20,10 +24,11 @@ from ...core.netsim.stages import (EngineState, instance_view, stage_marking,
                                    stage_starts)
 from ...core.netsim.params import plan_tiling
 from .kernel import TickOut, kernel_policy, netsim_tick
+from .tiled import netsim_tiled
 from .window import netsim_window
 
-__all__ = ["kernel_policy", "tick_operands", "fused_tick", "compose_tick",
-           "engine_tick_fused", "engine_window_fused"]
+__all__ = ["kernel_policy", "tick_operands", "tiled_operands", "fused_tick",
+           "compose_tick", "engine_tick_fused", "engine_window_fused"]
 
 
 def tick_operands(ctx, cfg, starts, state: EngineState, tick: int
@@ -51,8 +56,29 @@ def tick_operands(ctx, cfg, starts, state: EngineState, tick: int
     return args, kwargs
 
 
+def tiled_operands(ctx, cfg, starts, state: EngineState, tick: int,
+                   blk: int) -> tuple[tuple, dict]:
+    """The tiled kernel's operands for this tick: ``(args, kwargs)`` of
+    :func:`.tiled.netsim_tiled` (and of its plain version)."""
+    (step, sent, rate, done_upto, q, smin, spsn, salpha, scnt, scntop,
+     _routes, _paths, _npaths, cap, _dom, bg_base, bg_amp,
+     inst_job, inst_flow, sps, phase, nph, off, _chunk, iscal, fscal), kw = \
+        tick_operands(ctx, cfg, starts, state, tick)
+    args = (step, sent, rate, done_upto, q, smin, spsn, salpha, scnt, scntop,
+            cap, bg_base, bg_amp, inst_job, inst_flow, sps, phase, nph, off,
+            ctx.tables, iscal, fscal)
+    return args, dict(kw, n_jobs=ctx.J, blk=blk)
+
+
 def fused_tick(ctx, cfg, starts, state: EngineState, tick: int) -> TickOut:
-    """Marshal the engine state into the kernel's operands and run it."""
+    """Marshal the engine state into the kernel's operands and run it:
+    the tiled kernel for ``segsum="onehot"`` (``plan_tiling``'s ``blk``, or
+    one block of the whole instance axis), else the single-tick kernel."""
+    blk = plan_tiling(ctx.FW, cfg.blk, cfg.segsum, cfg.tick_window)
+    if cfg.segsum == "onehot":
+        args, kwargs = tiled_operands(ctx, cfg, starts, state, tick,
+                                      blk or ctx.FW)
+        return netsim_tiled(*args, **kwargs)
     args, kwargs = tick_operands(ctx, cfg, starts, state, tick)
     return netsim_tick(*args, **kwargs)
 

@@ -9,6 +9,11 @@ CPU it equals the staged eager tick bit for bit.  The kernel wrapper runs
 it for CPU tensors; ``chip_smoke.py`` holds the kernel against it on the
 card.
 
+:func:`tiled_tick_ref` is the tiled tick's plain version (the counterpart
+of the reference's ``_tiled_tick_kernel``, ``segsum="onehot"`` with
+``blk``): the same tick with every float sum taken per ``blk``-instance
+block and the block partials folded in ascending block order.
+
 :func:`window_ref` is the multi-tick window kernel's plain version: ``n``
 staged eager ticks, returning the last tick's sample.
 """
@@ -18,9 +23,11 @@ from typing import NamedTuple
 
 import torch
 
-from ...core.netsim.stages import (BIG, WIRE_SEG, div_scalar, ecmp_routes,
+from ...core.netsim.stages import (BIG, WIRE_SEG, div_scalar, ecmp_choice,
+                                   ecmp_hash_base, ecmp_routes,
                                    engine_tick_eager, lane_take,
-                                   ordered_segment_sum, per_hop, segment_min,
+                                   ordered_segment_sum, per_hop,
+                                   segment_max_into, segment_min,
                                    symphony_epoch, symphony_rows)
 
 
@@ -124,6 +131,147 @@ def hot_tick(step, sent, rate, done_upto, q_prev,
         lane_take(s_stepmin, dj), active, newly_done, active & (eff > 1.0),
         iwire, ipsn, pkts)
 
+    s_psnwin, s_alpha, s_cnt, s_cntop = symphony_epoch(
+        s_alpha, cnt, cntop, psnwin, torch.remainder(tick, sym_win) ==
+        sym_win - 1, n_sample, tau, alpha_max)
+    return TickOut(iroute=iroute.to(torch.int32), eff=eff, offered=offered,
+                   q=q, p_red=p_red, s_stepmin=stepmin, s_psnwin=s_psnwin,
+                   s_alpha=s_alpha, s_cnt=s_cnt, s_cntop=s_cntop)
+
+
+def tiled_tick_ref(step, sent, rate, done_upto, q_prev,
+                   s_stepmin, s_psnwin, s_alpha, s_cnt, s_cntop,
+                   cap, bg_base, bg_amp,
+                   inst_job, inst_flow, sps, phase, nph, off, tables,
+                   iscal, fscal, *, n_jobs: int, blk: int, dt: float,
+                   mtu: float, per_step_ecmp: bool, policy: str) -> TickOut:
+    """One tick over ``blk``-instance blocks; operands as
+    ``tiled.netsim_tiled`` documents them.
+
+    The reference's four sweeps compute per-block partials of the link
+    loads (proportional, hi and lo class) and of the Symphony ``cnt`` and
+    ``cntop`` rows.  Here each partial is the block's entries added in
+    ascending (instance, hop) order from zero, and a row's total is its
+    partials added in ascending block order; offered loads then add the
+    background and the Symphony rows add the partial sum to the state.
+    Integer reductions (job min-wire, step-min candidates) and the psn
+    window (a max) do not depend on the order.  Route ids, domains and
+    chunk sizes come from the packed per-instance tables."""
+    chunk, n_paths = tables.chunk, tables.n_paths
+    B, FW = step.shape
+    F = done_upto.shape[1]
+    W = FW // F
+    H = tables.routes.shape[-1]
+    SEG = chunk.shape[-1]
+    J = int(n_jobs)
+    DJ = s_stepmin.shape[1]
+    L1 = cap.shape[1]
+    blk = min(int(blk), FW)
+    NB = -(-FW // blk)
+    dev = step.device
+    tick, seed, bg_period, sym_win, pq_on = iscal.unbind(1)
+    bg_duty, kmin, kmax, pmax, tau, n_sample, alpha_max = fscal.unbind(1)
+    job = inst_job.long()
+
+    # ---- instance view (sweep 0 of the reference)
+    iseg = torch.div(step, sps, rounding_mode="floor") * nph + phase
+    segc = torch.clamp(iseg, 0, SEG - 1).long()
+    ichunk = torch.gather(chunk, 2, segc[..., None])[..., 0]
+    iwire = iseg * WIRE_SEG + torch.remainder(step, sps) + off
+    occupied = step >= 0
+    retired = occupied & (step < done_upto.repeat_interleave(W, dim=1))
+    complete = occupied & (sent >= ichunk)
+    active = occupied & ~complete & ~retired
+    ipsn = div_scalar(sent, mtu)
+    if per_step_ecmp:
+        choice = ecmp_choice(ecmp_hash_base(inst_flow.long(), seed), step,
+                             n_paths.long())
+        pick = choice[..., None, None].expand(B, FW, 1, H)
+        iroute = torch.gather(tables.cand, 2, pick)[:, :, 0]
+        idom = torch.gather(tables.cand_dom, 2, pick)[:, :, 0]
+    else:
+        iroute, idom = tables.routes, tables.route_dom
+    iroute_l = iroute.long()
+    # block of each (instance, hop) entry, in flat entry order
+    eblk = (torch.arange(FW, device=dev) // blk).repeat_interleave(H)
+
+    def block_sum(rows, R, vals):
+        """Per-row sums of ``vals`` ``[B, FW*H]`` over the entries whose
+        row is ``rows`` ``[B, FW*H]``: block partials folded in order."""
+        part = ordered_segment_sum(
+            torch.zeros(B, NB * R, dtype=torch.float32, device=dev),
+            eblk * R + rows, vals).reshape(B, NB, R)
+        acc = part[:, 0]
+        for b in range(1, NB):
+            acc = acc + part[:, b]
+        return acc
+
+    flat_links = iroute_l.reshape(B, -1)
+
+    def lsum(vals):
+        return block_sum(flat_links, L1, per_hop(vals, H))
+
+    # ---- sweeps 0-1: link loads of both classes
+    bg_on = torch.remainder(tick, bg_period).to(torch.float32) < \
+        bg_duty * bg_period.to(torch.float32)
+    bg = bg_base + torch.where(bg_on[:, None], bg_amp, 0.0)
+    w_rate = torch.where(active, rate, 0.0)
+    off_p = lsum(w_rate) + bg
+    job_min_wire = segment_min(BIG, J, job[None],
+                               torch.where(active, iwire, BIG))
+    is_hi = active & (iwire <= job_min_wire[:, job])
+    off_hi = lsum(torch.where(is_hi, rate, 0.0)) + bg
+    off_lo = lsum(torch.where(active & ~is_hi, rate, 0.0))
+
+    # ---- sweep 2: link scales, eff, Symphony counters and candidates
+    s_l = torch.clamp(cap / torch.clamp(off_p, min=1.0), max=1.0)
+    s_hi = torch.clamp(cap / torch.clamp(off_hi, min=1.0), max=1.0)
+    rem = torch.clamp(cap - off_hi * s_hi, min=0.0)
+    s_lo = rem / torch.clamp(off_lo, min=1.0)
+    eff_p = w_rate * lane_take(s_l, iroute_l).amin(dim=2)
+    share = torch.where(is_hi[..., None], lane_take(s_hi, iroute_l),
+                        torch.clamp(lane_take(s_lo, iroute_l), max=1.0))
+    eff_q = w_rate * share.amin(dim=2)
+    off_q = off_hi + off_lo
+    if policy == "pq":
+        eff, offered = eff_q, off_q
+    else:
+        gate = (pq_on != 0)[:, None]
+        eff = torch.where(gate, eff_q, eff_p)
+        offered = torch.where(gate, off_q, off_p)
+
+    dj = idom.long() * J + job[None, :, None]
+    djf = dj.reshape(B, -1)
+    pkts = div_scalar(eff * dt, mtu)
+    done = active & (sent + eff * dt >= ichunk)
+    send = active & (eff > 1.0)
+
+    def hops(x):
+        return x[..., None].expand(B, FW, H).reshape(B, FW * H)
+
+    pk_act = torch.where(active, pkts, 0.0)
+    cnt = s_cnt + block_sum(djf, DJ, hops(pk_act))
+    over = iwire[..., None] > lane_take(s_stepmin, dj)
+    cntop = s_cntop + block_sum(
+        djf, DJ, torch.where(over, pk_act[..., None], 0.0).reshape(B, -1))
+    cand_row = segment_max_into(torch.zeros_like(s_stepmin), djf,
+                                hops(torch.where(done, iwire + 1, 0)))
+    cand_row = torch.maximum(s_stepmin, cand_row)
+    min_act = segment_min(BIG, DJ, djf,
+                          hops(torch.where(active & ~done, iwire, BIG)))
+
+    # ---- sweep 3: step-min, psn window; then the flush
+    stepmin = torch.where(min_act < BIG, torch.minimum(cand_row, min_act),
+                          cand_row)
+    at_min = iwire[..., None] == lane_take(stepmin, dj)
+    psnwin = segment_max_into(
+        s_psnwin, djf,
+        torch.where(at_min & (send & ~done)[..., None],
+                    (ipsn + pkts)[..., None], 0.0).reshape(B, -1))
+    q = torch.clamp(q_prev + (offered - cap) * dt, min=0.0)
+    q[:, L1 - 1] = 0.0
+    p_red = torch.clamp((q - kmin[:, None]) / (kmax - kmin)[:, None],
+                        0.0, 1.0) * pmax[:, None]
     s_psnwin, s_alpha, s_cnt, s_cntop = symphony_epoch(
         s_alpha, cnt, cntop, psnwin, torch.remainder(tick, sym_win) ==
         sym_win - 1, n_sample, tau, alpha_max)

@@ -19,10 +19,12 @@ import ctypes
 import torch
 
 from ...core.netsim.stages import EngineState
-from .kernel import POLICIES, SMEM_LIMIT, _check, build, kernel_policy
+from .kernel import (POLICIES, _check, build, hot_smem_split,
+                     ids_workspace, kernel_policy)
 from .ref import window_ref
 
-__all__ = ["netsim_window", "window_operands", "kernel_math"]
+__all__ = ["netsim_window", "window_operands", "kernel_math",
+           "window_smem_split"]
 
 # WLArrays fields the kernel reads, in csrc/netsim_window.cu's order
 _WL_FIELDS = ("pred", "job", "phase", "sps", "pass_steps", "total_steps",
@@ -31,7 +33,7 @@ _WL_FIELDS = ("pred", "job", "phase", "sps", "pass_steps", "total_steps",
 _CTX_FIELDS = ("inst_job", "inst_flow", "sps_i", "phase_i", "nph_i", "off_i")
 _STATIC_FIELDS = ("routes", "path_table", "n_paths", "cap", "link_dom",
                   "bg_base", "bg_amp")
-_N_PTRS = 78
+_N_PTRS = 79
 
 
 def window_operands(ctx, cfg) -> tuple[torch.Tensor, torch.Tensor]:
@@ -53,14 +55,25 @@ def window_operands(ctx, cfg) -> tuple[torch.Tensor, torch.Tensor]:
     return iscal, fscal
 
 
+def window_smem_split(F: int, FW: int, H: int, L1: int, J: int, DJ: int):
+    """Shared and global bytes one lane of the window kernel needs
+    (:func:`.kernel.hot_smem_split` plus the window's own rows: two sets
+    of Symphony rows, the RED profile, a flag per flow, six job rows and a
+    float per warp, as ``win_rows_bytes`` in ``csrc/netsim_window.cu``)."""
+    extra = 10 * DJ * 4 + L1 * 4 + F * 4 + 6 * J * 4 + 32 * 4
+    return hot_smem_split(FW, H, L1, J, DJ, extra)
+
+
 def netsim_window(ctx, cfg, state: EngineState, base_tick: int, n: int):
     """Run ``n`` engine ticks from ``base_tick`` for every lane of ``ctx``.
 
     Returns ``(state after n ticks, metric sample of tick base_tick+n-1)``
     with :func:`stages.engine_tick`'s state and sample layout.  ``cfg`` is
     the merged :class:`~repro_torch.core.netsim.params.EngineParams`; the
-    kernel covers the ``proportional`` and ``pq`` share policies and
-    ``segsum="scatter"``.
+    kernel covers the ``proportional`` and ``pq`` share policies.  It adds
+    every float sum in ascending (instance, hop) order, which is also one
+    valid association under ``segsum="onehot"``'s allclose contract, so
+    both modes run it unchanged.
     """
     n = int(n)
     base_tick = int(base_tick)
@@ -69,9 +82,6 @@ def netsim_window(ctx, cfg, state: EngineState, base_tick: int, n: int):
     if cfg.share_policy not in POLICIES:
         raise ValueError(f"the window kernel's share policy must be one of "
                          f"{POLICIES}, got {cfg.share_policy!r}")
-    if cfg.segsum != "scatter":
-        raise ValueError(f"the window kernel runs segsum='scatter', got "
-                         f"{cfg.segsum!r}")
     dev = ctx.device
     if dev.type == "cpu":
         return window_ref(ctx, cfg, state, base_tick, n)
@@ -119,12 +129,12 @@ def _launch(lib, ctx, cfg, state: EngineState, base_tick: int, n: int):
     if L1 > 65535:
         raise ValueError(f"netsim_window: {L1} link rows exceed the kernel's "
                          "uint16 link ids")
-    smem = lib.netsim_window_smem_bytes(F, FW, H, L1, J, DJ)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"netsim_window: one lane needs {smem} bytes of shared memory "
-            f"(limit {SMEM_LIMIT}); fabrics this large need the tiled "
-            "kernel, a later slice of the port")
+    split = window_smem_split(F, FW, H, L1, J, DJ)
+    smem = lib.netsim_window_smem_bytes(F, FW, H, L1, J, DJ,
+                                        int(not split.ids))
+    if smem != split.smem:
+        raise RuntimeError(f"netsim_window: the library sizes shared memory "
+                           f"at {smem} bytes, the wrapper at {split.smem}")
     iscal, fscal = window_operands(ctx, cfg)
     new = EngineState(*(torch.empty_like(x) for x in state))
     sample = (torch.empty(B, J, dtype=i32, device=dev),
@@ -137,12 +147,12 @@ def _launch(lib, ctx, cfg, state: EngineState, base_tick: int, n: int):
           torch.empty(B, FW, dtype=f32, device=dev),
           torch.empty(B, FW, dtype=f32, device=dev))
     tensors = [*state, *new, *wl_x, *ctx_x, *st_x, iscal, fscal, *sample,
-               *ws]
+               *ws, ids_workspace(B, split, dev)]
     assert len(tensors) == _N_PTRS
     ptrs = (ctypes.c_void_p * _N_PTRS)(*(x.data_ptr() for x in tensors))
-    dims = (ctypes.c_int * 13)(
+    dims = (ctypes.c_int * 14)(
         B, F, W, H, P, L1, J, SEG, DJ, int(bool(cfg.per_step_ecmp)),
-        int(kernel_policy(cfg) == "pq"), base_tick, n)
+        int(kernel_policy(cfg) == "pq"), base_tick, n, int(not split.ids))
     fdims = (ctypes.c_float * 2)(float(cfg.dt), float(cfg.mtu))
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.netsim_window_launch(ptrs, dims, fdims, stream)

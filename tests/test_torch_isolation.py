@@ -33,9 +33,12 @@ def test_port_imports_no_jax_and_no_reference():
                        "JAX_PLATFORMS": "cpu"}, timeout=300)
     assert proc.returncode == 0, proc.stderr
     names, bad = proc.stdout.strip().split("\n")
-    assert len(names.split()) >= 19, names
+    assert len(names.split()) >= 24, names
     for mod in ("core.netsim.control", "kernels.netsim_tick.window",
-                "kernels.netsim_tick.ops", "kernels.netsim_tick.ref"):
+                "kernels.netsim_tick.ops", "kernels.netsim_tick.ref",
+                "kernels.netsim_tick.tiled", "kernels._build",
+                "kernels.switch_pipeline.kernel",
+                "kernels.switch_pipeline.ref"):
         assert f"repro_torch.{mod}" in names, names
     assert bad == "[]", f"port pulled in {bad}"
 

@@ -152,10 +152,12 @@ def test_default_device_needs_a_card():
 
 
 @pytest.mark.parametrize("opt,exc", [
-    (dict(segsum="onehot"), NotImplementedError),
-    (dict(blk=64), NotImplementedError),
-    # ported now, but only on the fused share policies: drr runs the eager
-    # tick, which has no multi-tick window
+    # these options are ported; each case is a use of one that stays
+    # invalid.  onehot tiles need a positive blk
+    (dict(segsum="onehot", blk=0), ValueError),
+    # blk tiles only the onehot tick (FW = 64 here, so blk=16 tiles)
+    (dict(blk=16), ValueError),
+    # drr runs the eager tick, which has no multi-tick window
     (dict(tick_window=5, share_policy="drr"), ValueError)],
     ids=["onehot", "blk", "tick_window"])
 def test_unported_options_raise(opt, exc):
