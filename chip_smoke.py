@@ -5,7 +5,9 @@ Drives the port's main paths — the fluid network simulator with the fused
 netsim tick (``backend="cuda"``, ``tick_window=1``), with the multi-tick
 window kernel (``tick_window > 1``), with the tiled tick
 (``segsum="onehot"``, ``blk``) on the 512-host grid, the online controller,
-and the Alg. 1 switch pipeline — phase by phase, one line per phase, and
+the Alg. 1 switch pipeline, and the serving path of h2o-danube-3-4b at full
+width (a 32,768-token prefill through the flash attention kernel, then the
+continuous-batching engine) — phase by phase, one line per phase, and
 exits non-zero at the first phase that fails:
 
 1. build    compile every kernel library from the checkout (one nvcc per
@@ -29,26 +31,49 @@ exits non-zero at the first phase that fails:
 7. switch   the switch-pipeline kernel against its plain version at 8,000
             packets on both marking paths; then the entry point on a
             1,000,000-packet trace (its main path, launches counted)
-8. goldens  Table 1, 20,000 ticks, seed 3: the ecmp_base and ecmp_sym golden
+8. flash    the flash attention kernel against its plain version in bf16
+            and float32: the reference's five FLASH_CASES and danube's head
+            layout (32 query heads, 8 KV heads, D 120) at S = 4,096 with
+            windows 1,024 and 8,192, each as [BH, S, D] tensors and as
+            strided [B, H, S, D] views of [B, S, H, D] activations; then
+            the prefill's shape (S = 32,768, window 8,192, bf16) on N(0,1)
+            inputs against the chunked plain version, and five planted
+            faults that must fail the same check
+9. prefill  h2o-danube-3-4b at full width (24 layers, d_model 3,840, bf16
+            weights drawn on the card from seed 0), build_model(cfg,
+            use_flash=True): one prefill of 1 x 32,768 tokens (24 flash
+            launches counted), layer 0's attention through the kernel
+            against the chunked plain attention, and the whole prefill
+            again without the kernel (last-token logits compared: at this
+            init a check that the path runs, not of attention)
+10. serve   the same model behind ServeEngine (8 slots, 4,096 positions):
+            12 requests of 32-96 prompt tokens, 32 new tokens each, drained
+            with slots refilled; a 256-token prompt's decode against its
+            prefill, and layer 0's attention over decode's cache against
+            the kernel at its last token
+11. goldens Table 1, 20,000 ticks, seed 3: the ecmp_base and ecmp_sym golden
             finish ticks (two lanes of one grid run) through
             backend="cuda" with tick_window 1 (one tick launch per tick),
             20 (1,000 window launches) and 7 (3,000), and through the tiled
             tick with blk=256 (20,000 tiled launches)
-9. multipod 128-host fat_tree_multipod, 8 seeds as lanes, 2,000 ticks:
+12. multipod 128-host fat_tree_multipod, 8 seeds as lanes, 2,000 ticks:
             backend="cuda" with tick_window 1 and 20 (the main-path runs
             whose launches are counted) against backend="eager"
-10. grid512 the 512-host grid (16 pods; sym off/on x 4 seeds as lanes),
+13. grid512 the 512-host grid (16 pods; sym off/on x 4 seeds as lanes),
             1,000 ticks: the tiled tick (blk=2048, tick_window=1) and the
             window kernel (tick_window=20), their launches counted, against
             their plain versions on the card and against eager
-11. control SimController on the card (Table 1, window_ticks=640,
+14. control SimController on the card (Table 1, window_ticks=640,
             tick_window=20): stepping equals one-shot simulate, tau retuned
             mid-run, checkpoint/restore replays bit for bit
-12. timing  each kernel's device time per launch against its plain
-            version's and its bound, at the main paths' shapes
-13. profile main-path ticks/s (Table 1 with 1 lane through ``simulate``,
+15. timing  each kernel's device time per launch against its plain
+            version's and its bound, at the main paths' shapes (the flash
+            kernel also against one scaled_dot_product_attention call)
+16. profile main-path ticks/s (Table 1 with 1 lane through ``simulate``,
             128 hosts x 8 lanes, 512 hosts x 8 lanes) and where a tick's
-            time goes: wall and device-busy time, the busiest kernels
+            time goes: wall and device-busy time, the busiest kernels; one
+            profiled 32,768-token prefill: the flash kernel's, the matrix
+            products' and the rest's share of device time
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -70,6 +95,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12           # H100 SXM float32 rate outside tensor cores
+BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor-core rate
 SM_HZ = 1.98e9                  # H100 SXM boost clock: sizes spin kernels
 
 # Table-1 golden constants (seed 3, 20,000 ticks, window 64), the same
@@ -95,13 +121,32 @@ RTOL_TPUT = 1e-5
 INT_SERIES = ("finish_ticks", "job_finish_ticks", "ts_min_wire",
               "ts_max_wire", "ts_done_min", "ts_alpha_max")
 PHASES = ("build", "math", "kernel", "window", "tiled", "large", "switch",
-          "goldens", "multipod", "grid512", "control", "timing", "profile")
+          "flash", "prefill", "serve", "goldens", "multipod", "grid512",
+          "control", "timing", "profile")
 # instance tile of the tiled tick at each shape (a multiple of the window)
 BLK = {"table1": 256, "multipod128": 1024, "multipod512": 2048}
 # the shape of each kernel's main path, whose timing goes in the report
 MAIN_SHAPE = {"netsim_tick": "multipod128", "netsim_window": "multipod128",
               "netsim_tiled": "multipod512",
-              "switch_pipeline": "P=1000000"}
+              "switch_pipeline": "P=1000000", "flash_fwd": "S=32768"}
+# the reference's FLASH_CASES (tests/test_kernels.py:19-26):
+# (BH, query rows per KV row, S, D, window)
+FLASH_CASES = ((4, 2, 256, 64, 0), (2, 1, 512, 128, 0), (4, 4, 256, 64, 128),
+               (2, 2, 384, 64, 0), (8, 1, 256, 64, 64))
+# the tolerances of the reference's flash tests: (o, lse) by dtype
+FLASH_TOL = {"bfloat16": (2e-2, 1e-2), "float32": (2e-5, 1e-5)}
+# Held on top of those, against plain versions computed in float32: each
+# row's max |error| over the head dim against that row's max |o| (the
+# absolute 2e-2 is above |o| itself where thousands of keys average out,
+# while a kernel's bf16 output is within 2^-8 of each value), and lse to
+# 1e-4 (float32 sums of the same bf16 products).
+ROW_TOL = 2e-2
+LSE_ABS = 1e-4
+# the model tolerance of tests/test_models.py:108-110 (bf16 weights,
+# different contraction orders)
+MODEL_ATOL, MODEL_RTOL = 0.15, 0.1
+PREFILL_S = 32768               # prefill_32k's sequence, cut to batch 1
+FLASH_S = 4096                  # danube-headed checks of the plain version
 WARM = 300                      # eager ticks before the kernel checks
 
 
@@ -151,6 +196,36 @@ def lane_knobs(T, cfg):
     return T.stack_knobs([
         cfg._replace(sym_on=bool(i % 2), pq_on=bool(i // 2)).knobs()
         for i in range(4)])
+
+
+def row_err(o, ref) -> float:
+    """The largest row error of ``o`` against ``ref`` ([..., D]): each
+    row's max |difference| over the last dim over that row's max |ref|."""
+    r = ref.float()
+    d = (o.float() - r).abs().amax(-1)
+    return (d / r.abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+def chunked_lse(torch, q, k, window: int, scale: float, chunk: int = 512):
+    """lse [B, S, Hq] float32 of causal attention (with a sliding window
+    when ``window``) of q [B, S, Hq, D] over k [B, S, Hkv, D], ``chunk``
+    query rows at a time: the plain check of the kernel's lse at lengths
+    whose [S, S] scores do not fit."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    kf = k.float()
+    pos = torch.arange(S, device=q.device)
+    out = torch.empty((B, S, Hq), dtype=torch.float32, device=q.device)
+    for i in range(0, S, chunk):
+        qg = q[:, i:i + chunk].float().reshape(B, -1, Hkv, Hq // Hkv, D)
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qg, kf) * scale
+        qp, kp = pos[i:i + chunk, None], pos[None]
+        ok = kp <= qp
+        if window:
+            ok &= kp > qp - window
+        s.masked_fill_(~ok[None, :, None, None], -1e30)
+        out[:, i:i + chunk] = torch.logsumexp(s, -1).reshape(B, -1, Hq)
+    return out
 
 
 def tensor_bytes(xs) -> int:
@@ -219,13 +294,16 @@ class Smoke:
         from repro_torch.kernels.netsim_tick import tiled as Tl
         from repro_torch.kernels.netsim_tick import window as Wn
         from repro_torch.kernels import switch_pipeline as Sp
-        self.T, self.K, self.Rf, self.Wn, self.Tl, self.Sp = \
-            T, K, Rf, Wn, Tl, Sp
+        from repro_torch.kernels import flash_attention as Fa
+        self.T, self.K, self.Rf, self.Wn, self.Tl, self.Sp, self.Fa = \
+            T, K, Rf, Wn, Tl, Sp, Fa
         self.dev = torch.device("cuda")
         self.card = "nvidia-smi unavailable"
         self.mid = {}           # (shape, ecmp) -> (ctx, cfg, state, tick)
         self.max_err = {"netsim_tick": 0.0, "netsim_window": 0.0,
-                        "netsim_tiled": 0.0, "switch_pipeline": 0.0}
+                        "netsim_tiled": 0.0, "switch_pipeline": 0.0,
+                        "flash_fwd": 0.0}
+        self.danube = None      # the full-width model of prefill and serve
         self.launches = {}
         self.rates = {}
         self.reports = []
@@ -538,7 +616,323 @@ class Smoke:
                       "same state trajectory; first 50,000 packets equal the"
                       " plain version")
 
-    # ------------------------------------------------------- 8. goldens
+    # -------------------------------------------- 8. flash kernel vs plain
+    def attn_inputs(self, B, Hq, Hkv, S, D, dtype, seed=0):
+        """q [B, S, Hq, D], k/v [B, S, Hkv, D] on the card, from numpy."""
+        import numpy as np
+        rng = np.random.default_rng(seed)
+        return [self.torch.from_numpy(
+                    rng.standard_normal((B, S, h, D), np.float32)).to(
+                    self.dev, getattr(self.torch, dtype))
+                for h in (Hq, Hkv, Hkv)]
+
+    def attn_close(self, o, lse, o_ref, l_ref, tol_o, tol_l):
+        """(ok, max abs error of o, message): o and lse against their plain
+        versions at the reference's tolerances and at ROW_TOL / LSE_ABS."""
+        torch = self.torch
+        eo = (o.float() - o_ref.float()).abs().max().item()
+        er = row_err(o, o_ref)
+        el = (lse - l_ref).abs().max().item()
+        ok = bool(torch.isfinite(o).all() and torch.isfinite(lse).all()
+                  and torch.allclose(o.float(), o_ref.float(), atol=tol_o,
+                                     rtol=tol_o)
+                  and torch.allclose(lse, l_ref, atol=tol_l, rtol=tol_l)) \
+            and er <= ROW_TOL and el <= LSE_ABS
+        return ok, eo, f"o {eo:.3g} (row {er:.3g}) lse {el:.3g}"
+
+    def flash(self):
+        Fa = self.Fa
+        shapes = [(f"BH={bh} group={g} S={S} D={D} window={w}", bh, bh // g,
+                   S, D, w) for bh, g, S, D, w in FLASH_CASES]
+        shapes += [(f"danube heads 32/8 D=120 S={FLASH_S} window={w}", 32, 8,
+                    FLASH_S, 120, w) for w in (1024, 8192)]
+        saved = Fa.flash_fwd.launches
+        for name, hq, hkv, S, D, w in shapes:
+            for dtype, (tol_o, tol_l) in FLASH_TOL.items():
+                q, k, v = self.attn_inputs(1, hq, hkv, S, D, dtype)
+                flat = [x.transpose(1, 2).reshape(-1, S, D).contiguous()
+                        for x in (q, k, v)]
+                # the plain version in float32 on the same values
+                o_ref, l_ref = Fa.attention_ref(*(x.float() for x in flat),
+                                                window=w)
+                o3, l3 = Fa.flash_fwd(*flat, window=w)
+                # strided [B, H, S, D] views of [B, S, H, D]: no copy
+                o4, l4 = Fa.flash_fwd(*(x.transpose(1, 2) for x in (q, k, v)),
+                                      window=w)
+                self.torch.cuda.synchronize()
+                errs = []
+                for layout, o, lse in (("[BH,S,D]", o3, l3),
+                                       ("[B,S,H,D] view", o4.reshape(-1, S, D),
+                                        l4.reshape(-1, S))):
+                    ok, eo, msg = self.attn_close(o, lse, o_ref, l_ref, tol_o,
+                                                  tol_l)
+                    errs.append(f"{layout} {msg}")
+                    self.max_err["flash_fwd"] = max(self.max_err["flash_fwd"],
+                                                    eo)
+                    if not ok:
+                        fail("flash", f"{name} {dtype} {layout}: {msg}")
+                say("flash", f"{name} {dtype}: max abs err {'; '.join(errs)}"
+                             f" (tolerance o {tol_o}, lse {tol_l}, row "
+                             f"{ROW_TOL}, lse abs {LSE_ABS})")
+        self.flash_main()
+        Fa.flash_fwd.launches = saved
+        say("flash", "max abs error of o, kernel vs plain: "
+                     f"{self.max_err['flash_fwd']}")
+
+    def flash_main(self):
+        """Danube's heads at the main path's shape (S 32,768, window 8,192,
+        bf16, strided views of [B, S, H, D] as the model passes them) on
+        N(0, 1) inputs, whose scores spread (the model's init gives nearly
+        flat ones), against the chunked plain attention and lse in float32;
+        then outputs of planted faults, made with the plain version, must
+        fail the same check."""
+        import math
+        torch, Fa = self.torch, self.Fa
+        from repro_torch.models.attention import ref_attention_chunked
+        S, W, D = PREFILL_S, 8192, 120
+        q, k, v = self.attn_inputs(1, 32, 8, S, D, "bfloat16")
+        o, lse = Fa.flash_fwd(*(x.transpose(1, 2) for x in (q, k, v)),
+                              window=W)
+        o, lse = o.transpose(1, 2), lse.transpose(1, 2)   # [B, S, H, ...]
+        kf, vf = k.float(), v.float()
+        pos = torch.arange(S, device=self.dev)[None]
+
+        def plain(window=W, scale=1 / math.sqrt(D)):
+            qs = q.float() * (scale * math.sqrt(D))
+            return (ref_attention_chunked(qs, kf, vf, pos, pos,
+                                          window=window),
+                    chunked_lse(torch, qs, kf, window, 1 / math.sqrt(D)))
+
+        def zero_rows():
+            oz = o.clone()
+            oz[:, W:] = 0
+            return oz, lse
+
+        o_ref, l_ref = plain()
+        tols = FLASH_TOL["bfloat16"]
+        ok, eo, msg = self.attn_close(o, lse, o_ref, l_ref, *tols)
+        self.max_err["flash_fwd"] = max(self.max_err["flash_fwd"], eo)
+        name = f"danube heads 32/8 D={D} S={S} window={W} bf16 [B,S,H,D] view"
+        if not ok:
+            fail("flash", f"{name}: {msg}")
+        say("flash", f"{name}, N(0,1) inputs, vs the chunked plain version "
+                     f"in float32: max abs err {msg}; |o| rms "
+                     f"{o_ref.pow(2).mean().sqrt().item():.3g}")
+        caught = []
+        for fault, make in (
+                ("window one key tile wider", lambda: plain(W + 64)),
+                ("window one key tile narrower", lambda: plain(W - 64)),
+                ("window ignored", lambda: plain(0)),
+                ("scale 1/sqrt(128)", lambda: plain(W, 1 / math.sqrt(128))),
+                (f"rows past {W:,} zeroed", zero_rows)):
+            fo, fl = make()
+            passes, _, fmsg = self.attn_close(fo, fl, o_ref, l_ref, *tols)
+            if passes:
+                fail("flash", f"planted fault passes the check: {fault}: "
+                              f"{fmsg}")
+            caught.append(f"{fault}: {fmsg}")
+        say("flash", "planted faults at that shape, each failing the check: "
+                     + "; ".join(caught))
+
+    # ------------------------------------------ 9. full-width prefill
+    def danube_model(self):
+        """h2o-danube-3-4b at full width, bf16 weights drawn on the card from
+        seed 0, with the flash kernel on."""
+        if self.danube is None:
+            from repro_torch.configs import registry
+            from repro_torch.models import build_model
+            torch = self.torch
+            cfg = registry.get_config("h2o_danube_3_4b")
+            t0 = time.time()
+            self.danube = build_model(cfg, use_flash=True, seed=0)
+            torch.cuda.synchronize()
+            n = sum(p.numel() for p in self.danube.parameters())
+            say("prefill", f"{cfg.name}: {cfg.num_layers} layers, d_model "
+                           f"{cfg.d_model}, heads {cfg.num_heads}/"
+                           f"{cfg.num_kv_heads}, head dim "
+                           f"{cfg.resolved_head_dim}, window "
+                           f"{cfg.sliding_window}; {n:,} parameters drawn "
+                           f"on the card in {time.time() - t0:.1f} s")
+        return self.danube
+
+    def prefill(self):
+        import numpy as np
+        torch, Fa = self.torch, self.Fa
+        from repro_torch.models.attention import (project_qkv,
+                                                  ref_attention_chunked)
+        from repro_torch.models.layers import apply_embed, apply_norm
+        model = self.danube_model()
+        cfg = model.cfg
+        S = PREFILL_S
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (1, S))).to(self.dev)
+        with torch.inference_mode():
+            model.apply(tokens[:, :1024])        # warm-up: cuBLAS, caches
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            Fa.flash_fwd.launches = 0                # main path starts
+            t0 = time.time()
+            logits, _ = model.apply(tokens)
+            last = logits[:, -1].float()
+            torch.cuda.synchronize()
+            secs = time.time() - t0
+            n = Fa.flash_fwd.launches                # main path ends
+            peak = torch.cuda.max_memory_allocated()
+            shape_ok = tuple(logits.shape) == (1, S, model.vocab_padded)
+            del logits
+            if n != cfg.num_layers or not shape_ok or \
+                    not torch.isfinite(last).all():
+                fail("prefill", f"{n} flash launches for {cfg.num_layers} "
+                                f"layers, logits shape ok: {shape_ok}, "
+                                "finite: "
+                                f"{bool(torch.isfinite(last).all())}")
+            self.launches["flash_fwd"] = n
+            self.rates["prefill"] = S / secs
+            say("prefill", f"1 x {S} tokens: {n} flash launches, "
+                           f"{secs:.3f} s, {S / secs:,.0f} tokens/s, peak "
+                           f"memory {peak / 2**30:.2f} GiB; card {self.card}")
+            # layer 0's attention at full length: kernel vs chunked plain
+            blk = model.blocks[0]
+            pos = torch.arange(S, device=self.dev)[None]
+            h = apply_norm(blk.ln1, apply_embed(model.embed, tokens).to(
+                torch.bfloat16), cfg)
+            q, k, v = project_qkv(blk.attn, h, cfg, pos)
+            saved = Fa.flash_fwd.launches
+            o_k = Fa.flash_attention(q, k, v, window=cfg.sliding_window)
+            Fa.flash_fwd.launches = saved
+            # the plain version in float32 on the same bf16 values
+            o_r = ref_attention_chunked(q.float(), k.float(), v.float(), pos,
+                                        pos, window=cfg.sliding_window)
+            torch.cuda.synchronize()
+            err = (o_k.float() - o_r).abs().max().item()
+            rerr = row_err(o_k, o_r)
+            self.max_err["flash_fwd"] = max(self.max_err["flash_fwd"], err)
+            tol = FLASH_TOL["bfloat16"][0]
+            if not torch.allclose(o_k.float(), o_r, atol=tol, rtol=tol) or \
+                    rerr > ROW_TOL:
+                fail("prefill", f"layer 0 attention: kernel vs chunked plain "
+                                f"max abs err {err}, row err {rerr}")
+            say("prefill", f"layer 0 attention {list(q.shape)}: kernel vs "
+                           f"chunked plain max abs err {err:.3g}, row err "
+                           f"{rerr:.3g} (tolerance {tol}, row {ROW_TOL}; |o| "
+                           f"rms {o_r.pow(2).mean().sqrt().item():.3g})")
+            del q, k, v, h, o_k, o_r
+            # the whole prefill without the kernel
+            model.use_flash = False
+            torch.cuda.synchronize()
+            t0 = time.time()
+            logits, _ = model.apply(tokens)
+            last_ref = logits[:, -1].float()
+            torch.cuda.synchronize()
+            secs_ref = time.time() - t0
+            del logits
+            model.use_flash = True
+        err = (last - last_ref).abs().max().item()
+        same = bool(last.argmax(-1).eq(last_ref.argmax(-1)).all())
+        echo = bool(last.argmax(-1).eq(tokens[:, -1]).all())
+        if not torch.allclose(last, last_ref, atol=MODEL_ATOL,
+                              rtol=MODEL_RTOL):
+            fail("prefill", f"last-token logits, flash vs plain: max abs err "
+                            f"{err}")
+        say("prefill", f"without the kernel: {secs_ref:.3f} s "
+                       f"({S / secs_ref:,.0f} tokens/s); last-token logits "
+                       f"flash vs plain max abs err {err:.4g} (|logit| max "
+                       f"{last_ref.abs().max().item():.4g}; tolerance atol "
+                       f"{MODEL_ATOL} rtol {MODEL_RTOL}), argmax "
+                       f"{'agrees' if same else 'differs'}, argmax is the "
+                       f"last input token: {echo}")
+
+    # ---------------------------------------------------- 10. serving
+    def serve(self):
+        import numpy as np
+        torch = self.torch
+        from repro_torch.models.attention import cached_attention, project_qkv
+        from repro_torch.models.layers import apply_embed, apply_norm
+        from repro_torch.config import ServeConfig
+        from repro_torch.runtime import Request, ServeEngine
+        model = self.danube_model()
+        cfg = model.cfg
+        eng = ServeEngine(model, ServeConfig(batch=8, max_seq=4096))
+        rng = np.random.default_rng(0)
+        reqs = [Request(i, rng.integers(0, cfg.vocab_size,
+                                        int(rng.integers(32, 97))).astype(
+                                            np.int32), max_new_tokens=32)
+                for i in range(12)]
+        for r in reqs:
+            eng.submit(r)
+        calls = [0]
+        decode = eng._decode
+
+        def counted(tokens):
+            calls[0] += 1
+            return decode(tokens)
+
+        eng._decode = counted
+        torch.cuda.synchronize()
+        t0 = time.time()
+        done = eng.run_until_drained()
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        outs = [len(r.out) for r in reqs]
+        if len(done) != 12 or outs != [32] * 12 or not all(
+                0 <= t < model.vocab_padded for r in reqs for t in r.out):
+            fail("serve", f"{len(done)} of 12 requests done, tokens {outs}")
+        n_prompt = sum(len(r.prompt) for r in reqs)
+        n_new = sum(outs)
+        steps = calls[0] - n_prompt
+        say("serve", f"12 requests ({n_prompt} prompt tokens, 8 slots) "
+                     f"drained in {secs:.2f} s: {calls[0]} decode_step "
+                     f"calls ({calls[0] / secs:.1f}/s), {steps} decode steps "
+                     f"({steps / secs:.2f} steps/s), {n_new} new tokens "
+                     f"({n_new / secs:.1f} tokens/s)")
+        self.rates["serve"] = (calls[0] / secs, n_new / secs)
+        del eng
+        # decode against prefill at full width
+        S = 256
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, S))).to(
+            self.dev)
+        with torch.inference_mode():
+            full, _ = model.apply(toks)
+            cache = model.init_cache(1, S)
+            for t in range(S):
+                lg, cache = model.decode_step(
+                    cache, toks[:, t:t + 1],
+                    torch.full((1,), t, dtype=torch.int32, device=self.dev))
+        a, b = lg[:, 0].float(), full[:, -1].float()
+        err = (a - b).abs().max().item()
+        if not torch.isfinite(a).all() or not torch.allclose(
+                a, b, atol=MODEL_ATOL, rtol=MODEL_RTOL):
+            fail("serve", f"decode vs prefill, last logits: max abs err {err}")
+        same = bool(a.argmax() == b.argmax())
+        say("serve", f"{S}-token prompt: decode_step token by token vs the "
+                     f"flash prefill, last logits max abs err {err:.4g} "
+                     f"(atol {MODEL_ATOL} rtol {MODEL_RTOL}); argmax "
+                     f"{'agrees' if same else 'differs'}, argmax is the last "
+                     f"input token: {bool(a.argmax() == toks[0, -1])}")
+        # What attention moves at the last token (the logits above hardly
+        # see it at this init): layer 0's attention over the cache that
+        # decode_step wrote, against the flash kernel over the prompt.
+        blk = model.blocks[0]
+        pos = torch.arange(S, device=self.dev)[None]
+        with torch.inference_mode():
+            h = apply_norm(blk.ln1, apply_embed(model.embed, toks).to(
+                torch.bfloat16), cfg)
+            q, k, v = project_qkv(blk.attn, h, cfg, pos)
+            saved = self.Fa.flash_fwd.launches
+            o_pre = self.Fa.flash_attention(q, k, v,
+                                            window=cfg.sliding_window)[:, -1:]
+            self.Fa.flash_fwd.launches = saved
+            o_dec = cached_attention(q[:, -1:], cache[0], pos[:, -1],
+                                     window=cfg.sliding_window)
+        rerr = row_err(o_dec, o_pre)
+        if not torch.isfinite(o_dec).all() or rerr > ROW_TOL:
+            fail("serve", f"layer 0 attention at the last token, decode cache "
+                          f"vs flash prefill: row err {rerr}")
+        say("serve", f"layer 0 attention at token {S - 1}: over decode_step's "
+                     f"cache vs the flash kernel, row err {rerr:.3g} "
+                     f"(tolerance {ROW_TOL})")
+
+    # ------------------------------------------------------- 11. goldens
     def goldens(self):
         torch, T, K, Wn = self.torch, self.T, self.K, self.Wn
         topo, wl, cfg = table1(T)
@@ -583,7 +977,7 @@ class Smoke:
                            f"ticks, {nt} tick + {nw} window + {ntl} tiled "
                            f"launches, {cfg.n_ticks / secs:.1f} ticks/s")
 
-    # ---------------------------------------------- 9. 128-host, 8 lanes
+    # --------------------------------------------- 12. 128-host, 8 lanes
     def multipod(self):
         torch, T, K, Wn = self.torch, self.T, self.K, self.Wn
         topo, wl, cfg = multipod128(T)
@@ -628,7 +1022,7 @@ class Smoke:
                             f"{rate:.1f} ticks/s ({rate * 8:.1f} "
                             "lane-ticks/s)")
 
-    # --------------------------------------- 10. 512 hosts, 8 lanes, tiled
+    # --------------------------------------- 13. 512 hosts, 8 lanes, tiled
     def grid512(self):
         torch, T, Tl, Wn, Rf = self.torch, self.T, self.Tl, self.Wn, self.Rf
         from repro_torch.kernels.netsim_tick import ops
@@ -704,7 +1098,7 @@ class Smoke:
                        + (f", first at tick {first}" if first is not None
                           else "") + f"; throughput max abs diff {err}")
 
-    # ------------------------------------------------------- 11. control
+    # ------------------------------------------------------- 14. control
     def control(self):
         torch, T, Wn = self.torch, self.T, self.Wn
         topo, wl, cfg = table1(T)
@@ -754,7 +1148,7 @@ class Smoke:
                        f"for bit (alpha max {oa.stats.alpha_max:.0f}, queue "
                        f"max {oa.stats.qmax:.0f} B)")
 
-    # -------------------------------------------------------- 12. timing
+    # -------------------------------------------------------- 15. timing
     def timing(self):
         torch, K, Rf, Wn, Tl = self.torch, self.K, self.Rf, self.Wn, self.Tl
         from repro_torch.core.netsim.stages import stage_starts
@@ -859,11 +1253,71 @@ class Smoke:
                         k_dev, k_wall, p_wall, p_wall, 36 * P + 64,
                         20 * P, 1, note="(plain version: wall time; its "
                                         "state walk runs on the host)")
+        self.timing_flash()
+
+    def timing_flash(self):
+        """The flash kernel at the main path's shape (danube's heads, S =
+        32,768, window 8,192, bf16, strided [B, S, H, D] views), its plain
+        version at S = 4,096 (its [BH, S, S] scores do not fit at 32,768)
+        and one scaled_dot_product_attention call at the main shape."""
+        torch, Fa = self.torch, self.Fa
+        hq, hkv, D, w = 32, 8, 120, 8192
+        item = 2
+        for S in (FLASH_S, PREFILL_S):
+            q, k, v = self.attn_inputs(1, hq, hkv, S, D, "bfloat16")
+            views = [x.transpose(1, 2) for x in (q, k, v)]
+            saved = Fa.flash_fwd.launches
+            k_dev, k_wall = timed(lambda: Fa.flash_fwd(*views, window=w),
+                                  10 if S == PREFILL_S else 30, torch)
+            Fa.flash_fwd.launches = saved
+            if S == PREFILL_S:
+                p_dev = p_wall = self.plain_flash_ms
+                lib = self.sdpa_ms(q, k, v, w)
+            else:
+                flat = [x.reshape(-1, S, D).contiguous() for x in views]
+                p_dev, p_wall = timed(
+                    lambda: Fa.attention_ref(*flat, window=w), 3, torch)
+                self.plain_flash_ms = p_dev
+                lib = None
+                del flat
+            # q, k, v and o once each, and lse; 4 D flops per visible pair
+            nbytes = item * S * D * (2 * hq + 2 * hkv) + 4 * hq * S
+            pairs = sum(min(i + 1, w) for i in range(S))
+            ops = 4 * D * pairs * hq
+            self.report(f"S={S}", "flash_fwd", "flash_fwd.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:44",
+                        k_dev, k_wall, p_dev, p_wall, nbytes, ops, 1,
+                        peak=BF16_OPS_PER_S, library_ms=lib,
+                        note=f"(BH=32, KV heads 8, D=120, window {w}, bf16"
+                             + (f"; plain version timed at S={FLASH_S})"
+                                if S == PREFILL_S else ")"))
+            del q, k, v, views
+
+    def sdpa_ms(self, q, k, v, window):
+        """One scaled_dot_product_attention call on the same inputs: the KV
+        heads repeated to the query heads before the call (PyTorch's GQA
+        path has no kernel for a mask) and a boolean window mask, on the
+        memory-efficient (or cuDNN) backend.  Device ms per call."""
+        torch = self.torch
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        import torch.nn.functional as F
+        S, g = q.shape[1], q.shape[2] // k.shape[2]
+        qh = q.transpose(1, 2)
+        kh, vh = (x.transpose(1, 2).repeat_interleave(g, dim=1)
+                  for x in (k, v))
+        i = torch.arange(S, device=self.dev)
+        mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION]):
+            ms, _ = timed(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask), 5, torch)
+        return ms
 
     def report(self, shape, name, src, replaces, k_dev, k_wall, p_dev,
-               p_wall, nbytes, ops, n, note=""):
+               p_wall, nbytes, ops, n, note="", peak=F32_OPS_PER_S,
+               library_ms=None):
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / F32_OPS_PER_S * 1e3
+        ops_ms = ops / peak * 1e3
         bound = max(bytes_ms, ops_ms)
         per_tick = f", {k_dev / n:.4f} ms/tick" if n > 1 else ""
         say("timing", f"{name} {shape}{' ' + note if note else ''}: kernel "
@@ -871,10 +1325,13 @@ class Smoke:
                       f"({k_wall:.4f} ms wall per call), plain version "
                       f"{p_dev:.4f} ms device ({p_wall:.4f} ms wall), bound "
                       f"{bound:.6f} ms ({nbytes} bytes: {bytes_ms:.6f} ms; "
-                      f"{ops:.0f} ops: {ops_ms:.6f} ms), card {self.card}")
+                      f"{ops:.0f} ops: {ops_ms:.6f} ms)"
+                      + (f", scaled_dot_product_attention {library_ms:.4f} ms"
+                         if library_ms is not None else "")
+                      + f", card {self.card}")
         if shape == MAIN_SHAPE[name]:
-            pkg = "switch_pipeline" if name == "switch_pipeline" \
-                else "netsim_tick"
+            pkg = {"switch_pipeline": "switch_pipeline",
+                   "flash_fwd": "flash_attention"}.get(name, "netsim_tick")
             self.reports.append(dict(
                 name=name, route="cuda",
                 source=f"src/repro_torch/kernels/{pkg}/csrc/"
@@ -883,9 +1340,9 @@ class Smoke:
                 max_abs_err=self.max_err[name], ms=k_dev, plain_ms=p_dev,
                 bound_ms=bound,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                library_ms=None))
+                library_ms=library_ms))
 
-    # ------------------------------------------------------- 13. profile
+    # ------------------------------------------------------ 16. profile
     def profile(self):
         torch, T = self.torch, self.T
         from repro_torch.core.netsim.simulator import _window_body
@@ -944,6 +1401,39 @@ class Smoke:
                        f"{r.get(('multipod512', 1), 0):.1f} (tiled, "
                        f"tick_window=1), {r.get(('multipod512', 20), 0):.1f}"
                        f" (tick_window=20); card {self.card}")
+        self.profile_prefill()
+
+    def profile_prefill(self):
+        """One profiled 32,768-token prefill of the full-width model: the
+        flash kernel's, the matrix products' and the rest's device time."""
+        import numpy as np
+        torch = self.torch
+        model = self.danube_model()
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            0, model.cfg.vocab_size, (1, PREFILL_S))).to(self.dev)
+        with torch.inference_mode():
+            model.apply(tokens[:, :1024])
+            wall_us, by_name = profile_ticks(lambda: model.apply(tokens),
+                                             torch)
+        busy = sum(t for _, t in by_name.values())
+        flash = sum(t for name, (_, t) in by_name.items()
+                    if "flash_fwd" in name)
+        mm = sum(t for name, (_, t) in by_name.items()
+                 if "flash_fwd" not in name and any(
+                     w in name.lower() for w in ("gemm", "xmma", "nvjet",
+                                                 "cutlass", "matmul")))
+        rest = busy - flash - mm
+        say("profile", f"prefill 1 x {PREFILL_S} tokens (flash): "
+                       f"{wall_us / 1e3:.1f} ms wall, device busy "
+                       f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}% "
+                       f"busy), {sum(n for n, _ in by_name.values())} device "
+                       f"kernels; flash kernel {flash / 1e3:.1f} ms "
+                       f"({100 * flash / busy:.1f}%), matrix products "
+                       f"{mm / 1e3:.1f} ms ({100 * mm / busy:.1f}%), rest "
+                       f"{rest / 1e3:.1f} ms ({100 * rest / busy:.1f}%)")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+        for name, (n, t) in top:
+            say("profile", f"  {t / 1e3:.3f} ms  {n} launches  {name[:80]}")
 
 
 def main(argv) -> int:

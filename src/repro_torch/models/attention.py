@@ -1,0 +1,190 @@
+"""Attention: GQA (+ sliding window), full prefill path and cached decode
+path.
+
+The port of ``repro/models/attention.py``.  The prefill softmax attention
+dispatches to the flash kernel when enabled, else to the plain torch
+version.  Shapes: activations are [batch, seq, d_model]; q/k/v are
+[batch, seq, heads, head_dim].  Decode KV caches are
+[batch, kv_heads, max_seq, head_dim] and are written in place.  Decode
+attention stays plain torch, as the reference computes it outside any
+Pallas kernel.  M-RoPE waits for its model (ROADMAP queue 1).
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from ..config import ModelConfig
+from ..kernels.flash_attention.ops import flash_attention
+from ..parallel.sharding import padded
+from .layers import apply_rope
+from .params import ParamSpec
+
+__all__ = ["NEG_INF", "attn_spec", "effective_kv_heads", "ref_attention",
+           "ref_attention_chunked", "flash_or_ref", "KVCache", "project_qkv",
+           "attention_block", "decode_attention", "cached_attention"]
+
+NEG_INF = -1e30
+CHUNK = 512             # query rows per step of the chunked plain version
+CHUNK_ABOVE = 2048      # sequences longer than this take the chunked one
+
+
+def attn_spec(cfg: ModelConfig, tp: int, layers: int | None = None) -> dict:
+    d, hd, stack = cfg.d_model, cfg.resolved_head_dim, layers or 1
+    nh = padded(cfg.num_heads, tp)
+    # MHA: pad kv heads with q heads; GQA: kv heads stay
+    nkv = nh if cfg.num_kv_heads == cfg.num_heads else cfg.num_kv_heads
+    return {
+        "wq": ParamSpec((d, nh, hd), ("embed", "heads", "head_dim"),
+                        stack=stack),
+        "wk": ParamSpec((d, nkv, hd), ("embed", "kv_heads", "head_dim"),
+                        stack=stack),
+        "wv": ParamSpec((d, nkv, hd), ("embed", "kv_heads", "head_dim"),
+                        stack=stack),
+        "wo": ParamSpec((nh, hd, d), ("heads", "head_dim", "embed"),
+                        stack=stack),
+    }
+
+
+def effective_kv_heads(cfg: ModelConfig, tp: int) -> int:
+    """KV head count after TP padding (matches attn_spec)."""
+    nh = padded(cfg.num_heads, tp)
+    return nh if cfg.num_kv_heads == cfg.num_heads else cfg.num_kv_heads
+
+
+def _mask_bias(q_pos, k_pos, window: int) -> torch.Tensor:
+    """[.., Sq, Sk] additive mask: causal (+ sliding window if window>0)."""
+    ok = k_pos[..., None, :] <= q_pos[..., :, None]
+    if window:
+        ok &= k_pos[..., None, :] > q_pos[..., :, None] - window
+    zero = torch.zeros((), dtype=torch.float32, device=ok.device)
+    return torch.where(ok, zero, zero + NEG_INF)
+
+
+def ref_attention(q, k, v, q_pos, k_pos, window: int = 0) -> torch.Tensor:
+    """Reference softmax attention with GQA head-group mapping.
+
+    q: [B, Sq, Hq, D]; k/v: [B, Sk, Hkv, D].  fp32 softmax.
+    """
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    g = Hq // Hkv
+    qg = q.reshape(B, Sq, Hkv, g, D)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                          k.float()) / math.sqrt(D)
+    logits = logits + _mask_bias(q_pos, k_pos, window)[:, None, None]
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", w, v.float())
+    return out.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def ref_attention_chunked(q, k, v, q_pos, k_pos, window: int = 0,
+                          chunk: int = CHUNK) -> torch.Tensor:
+    """Streaming reference: one block of ``chunk`` query rows at a time, so
+    the logits transient is [B, Hq, chunk, Sk] instead of [B, Hq, Sq, Sk].
+    Same FLOPs, bounded memory."""
+    B, Sq, Hq, D = q.shape
+    if Sq % chunk:
+        raise ValueError(f"sequence {Sq} is not a multiple of chunk {chunk}")
+    out = torch.empty_like(q)
+    for i in range(0, Sq, chunk):
+        out[:, i:i + chunk] = ref_attention(q[:, i:i + chunk], k, v,
+                                            q_pos[..., i:i + chunk], k_pos,
+                                            window=window)
+    return out
+
+
+def flash_or_ref(q, k, v, q_pos, k_pos, window: int = 0,
+                 use_flash: bool = False) -> torch.Tensor:
+    if use_flash:
+        return flash_attention(q, k, v, q_pos, k_pos, window=window)
+    if q.shape[1] > CHUNK_ABOVE:
+        return ref_attention_chunked(q, k, v, q_pos, k_pos, window=window)
+    return ref_attention(q, k, v, q_pos, k_pos, window=window)
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor     # [B, Hkv, S, D]
+    v: torch.Tensor     # [B, Hkv, S, D]
+
+
+def _proj(x, w) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk", x, w) as one matrix product."""
+    return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+
+
+def project_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions):
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if cfg.pos_emb == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.pos_emb == "mrope":
+        raise NotImplementedError("M-RoPE: ROADMAP queue 1 item 1, left 3")
+    return q, k, v
+
+
+def _out(o, wo) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd", o, wo) as one matrix product, in the
+    promoted dtype (a bf16 cache read meets float32 weights in decode)."""
+    dt = torch.promote_types(o.dtype, wo.dtype)
+    return o.flatten(-2).to(dt) @ wo.reshape(-1, wo.shape[-1]).to(dt)
+
+
+def attention_block(p, x: torch.Tensor, cfg: ModelConfig,
+                    positions: torch.Tensor, use_flash: bool = False
+                    ) -> torch.Tensor:
+    """Full (prefill) self-attention."""
+    q, k, v = project_qkv(p, x, cfg, positions)
+    o = flash_or_ref(q, k, v, positions, positions,
+                     window=cfg.sliding_window, use_flash=use_flash)
+    return _out(o, p["wo"])
+
+
+def decode_attention(p, x: torch.Tensor, cfg: ModelConfig, cache: KVCache,
+                     pos: torch.Tensor) -> tuple[torch.Tensor, KVCache]:
+    """One-token decode against a KV cache, written in place.
+
+    x: [B, 1, d]; pos: [B] current position.  Sliding windows write a ring
+    buffer at ``pos % window``.
+    """
+    B = x.shape[0]
+    q, k_new, v_new = project_qkv(p, x, cfg, pos[:, None])
+    wpos = (pos % cfg.sliding_window) if cfg.sliding_window else pos
+    bidx = torch.arange(B, device=x.device)
+    # cache layout [B, Hkv, S, D]; k_new[:, 0] is [B, Hkv, D]
+    cache.k[bidx, :, wpos] = k_new[:, 0].to(cache.k.dtype)
+    cache.v[bidx, :, wpos] = v_new[:, 0].to(cache.v.dtype)
+    o = cached_attention(q, cache, pos, window=cfg.sliding_window)
+    return _out(o, p["wo"]), cache
+
+
+def cached_attention(q: torch.Tensor, cache: KVCache, pos: torch.Tensor,
+                     window: int = 0) -> torch.Tensor:
+    """q: [B, 1, Hq, D]; cache k/v: [B, Hkv, S, D]; pos: [B].
+
+    Computes softmax(q k^T) v with masking of unwritten / out-of-window slots,
+    in the numerically safe two-pass (max, exp-sum) form.
+    """
+    B, _, Hq, D = q.shape
+    Hkv, S = cache.k.shape[1], cache.k.shape[2]
+    g = Hq // Hkv
+    qg = q[:, 0].reshape(B, Hkv, g, D).float()
+    logits = torch.einsum("bhgd,bhsd->bhgs", qg,
+                          cache.k.float()) / math.sqrt(D)
+    slot = torch.arange(S, device=q.device)
+    if window:
+        # ring buffer of length `window`: once pos >= window every slot holds
+        # an in-window position; before that only slots <= pos are written.
+        valid = (slot[None] <= pos[:, None]) | (pos[:, None] >= window)
+    else:
+        valid = slot[None] <= pos[:, None]
+    logits = torch.where(valid[:, None, None, :], logits,
+                         torch.full((), NEG_INF, device=q.device))
+    m = logits.amax(-1, keepdim=True)
+    e = torch.exp(logits - m)
+    num = torch.einsum("bhgs,bhsd->bhgd", e, cache.v.float())
+    den = e.sum(-1, keepdim=True)
+    out = num / den.clamp_min(1e-30)
+    return out.reshape(B, 1, Hq, D).to(cache.v.dtype)

@@ -1,0 +1,55 @@
+"""Carry a reference parameter tree into the port's model.
+
+The reference (``repro.models.lm.LM``) keeps each period position's
+parameters under ``block_<i>`` with a leading ``[n_groups]`` axis; the
+dense models of this slice have period 1, so layer ``l`` is
+``block_0[l]``.  The port keeps one :class:`~repro_torch.models.lm.Block`
+per layer.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import ModelConfig
+from ..device import resolve_device
+from .lm import LM
+from .model import check_ported
+from .params import param_at, tree_leaves_with_path
+
+__all__ = ["params_from_reference"]
+
+
+def _reference_leaf(tree: dict, path: tuple) -> np.ndarray:
+    """The reference's leaf for the port's ``path``."""
+    if path[0] == "blocks":               # ("blocks", l, ...) -> block_0[l]
+        node = tree["block_0"]
+        for k in path[2:]:
+            node = node[k]
+        return node[int(path[1])]
+    node = tree
+    for k in path:
+        node = node[k]
+    return node
+
+
+@torch.no_grad()
+def params_from_reference(cfg: ModelConfig, tree: dict, device=None, *,
+                          use_flash: bool = False) -> LM:
+    """The port's model of ``cfg`` holding the reference's parameters.
+
+    ``tree`` is the reference's parameter tree as nested dicts of float32
+    numpy arrays (``np.asarray(x, np.float32)`` of each leaf, which is exact
+    for bf16 leaves); each is cast to its ``ParamSpec``'s dtype on
+    ``device`` (``None`` is the CUDA card).
+    """
+    dev = resolve_device(device)
+    check_ported(cfg)
+    model = LM(cfg, use_flash=use_flash, device=dev)
+    for path, spec in tree_leaves_with_path(model.param_spec()):
+        src = np.array(_reference_leaf(tree, path), np.float32)
+        if src.shape != spec.shape:
+            raise ValueError(f"{'/'.join(path)}: reference shape "
+                             f"{src.shape}, port shape {spec.shape}")
+        param_at(model, path).copy_(torch.from_numpy(src).to(spec.dtype))
+    return model

@@ -1,0 +1,142 @@
+"""Decoder-only LM assembly for the dense family with GQA attention.
+
+The port of ``repro/models/lm.py`` for ``family == "dense"``,
+``attention == "gqa"`` (period 1).  The reference stacks every layer's
+parameters on a leading ``[n_groups]`` axis and scans over it; the port
+keeps one :class:`Block` per layer in an ``nn.ModuleList`` and loops
+(``models/convert.py`` maps the reference's stacked tree onto it).  The
+model owns its parameters: ``apply``, ``init_cache`` and ``decode_step``
+take no parameter tree.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..config import ModelConfig
+from ..parallel.sharding import padded
+from . import params as prm
+from .attention import (KVCache, attention_block, attn_spec, decode_attention,
+                        effective_kv_heads)
+from .layers import (apply_embed, apply_mlp, apply_norm, apply_unembed,
+                     embed_spec, mlp_spec, norm_spec)
+
+__all__ = ["LM", "Block"]
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+class Block(nn.Module):
+    """One layer: norm, attention, norm, MLP, each a dict of parameters
+    under the reference's names."""
+
+    def __init__(self, spec: dict, device):
+        super().__init__()
+        for name, sub in spec.items():
+            self.add_module(name, prm.module_from_spec(sub, device))
+
+
+class LM(nn.Module):
+    """Dense GQA decoder: embedding, ``num_layers`` blocks, final norm,
+    (tied) unembedding.  Built without values; :meth:`init` draws them."""
+
+    def __init__(self, cfg: ModelConfig, use_flash: bool = False,
+                 device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.use_flash = use_flash
+        self.tp = 1                     # no mesh: one card
+        self.vocab_padded = padded(cfg.vocab_size, self.tp * 128)
+        spec = self.param_spec()
+        self.embed = prm.module_from_spec(spec["embed"], device)
+        self.blocks = nn.ModuleList(
+            Block(spec["blocks"][str(i)], device)
+            for i in range(cfg.num_layers))
+        self.final_norm = prm.module_from_spec(spec["final_norm"], device)
+
+    # ------------------------------------------------------------ specs
+    def _block_spec(self) -> dict:
+        cfg, n = self.cfg, self.cfg.num_layers
+        d: dict = {"ln1": norm_spec(cfg, n), "attn": attn_spec(cfg, self.tp, n)}
+        if cfg.d_ff:
+            d["ln2"] = norm_spec(cfg, n)
+            d["mlp"] = mlp_spec(cfg, cfg.d_ff, n)
+        return d
+
+    def param_spec(self) -> dict:
+        """The parameter tree, one entry per layer under ``blocks``."""
+        cfg = self.cfg
+        return {"embed": embed_spec(cfg, self.vocab_padded),
+                "blocks": {str(i): self._block_spec()
+                           for i in range(cfg.num_layers)},
+                "final_norm": norm_spec(cfg)}
+
+    def init(self, generator: torch.Generator) -> "LM":
+        """Draw every parameter by the reference's rules from ``generator``
+        (on the parameters' device)."""
+        prm.init_tree(self, self.param_spec(), generator)
+        return self
+
+    # ------------------------------------------------------------ forward
+    def _apply_block(self, bp: Block, x: torch.Tensor,
+                     positions: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = apply_norm(bp.ln1, x, cfg)
+        x = x + attention_block(bp.attn, h, cfg, positions, self.use_flash)
+        if cfg.d_ff:
+            x = x + apply_mlp(bp.mlp, apply_norm(bp.ln2, x, cfg), cfg)
+        return x
+
+    def apply(self, tokens: torch.Tensor | None = None,
+              positions: torch.Tensor | None = None,
+              embeds: torch.Tensor | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Prefill forward.
+
+        tokens: [B, S] integer (or ``embeds`` [B, S, d]).  positions: [B, S].
+        Returns (logits [B, S, padded vocab], aux = 0).
+        """
+        cfg = self.cfg
+        dt = _dtype(cfg.dtype)
+        x = (apply_embed(self.embed, tokens) if embeds is None
+             else embeds).to(dt)
+        B, S = x.shape[:2]
+        if positions is None:
+            positions = torch.arange(S, dtype=torch.int32,
+                                     device=x.device).expand(B, S)
+        for bp in self.blocks:
+            x = self._apply_block(bp, x, positions)
+        x = apply_norm(self.final_norm, x, cfg)
+        logits = apply_unembed(self.embed, x, cfg)
+        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    # ------------------------------------------------------------ decode
+    def init_cache(self, batch: int, max_seq: int) -> list[KVCache]:
+        """One bf16 KV cache per layer, ``[batch, kv_heads, S, head_dim]``
+        with ``S = min(max_seq, window)`` for sliding windows."""
+        cfg = self.cfg
+        nkv = effective_kv_heads(cfg, self.tp)
+        s = min(max_seq, cfg.sliding_window) if cfg.sliding_window \
+            else max_seq
+        dev = self.final_norm["scale"].device
+        shape = (batch, nkv, s, cfg.resolved_head_dim)
+        return [KVCache(torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+                        torch.zeros(shape, dtype=torch.bfloat16, device=dev))
+                for _ in range(cfg.num_layers)]
+
+    def decode_step(self, cache: list[KVCache], tokens: torch.Tensor,
+                    pos: torch.Tensor) -> tuple[torch.Tensor, list[KVCache]]:
+        """tokens: [B, 1]; pos: [B] absolute positions.  Writes the caches
+        in place and returns (logits [B, 1, padded vocab], cache)."""
+        cfg = self.cfg
+        x = apply_embed(self.embed, tokens).to(_dtype(cfg.dtype))
+        for bp, c in zip(self.blocks, cache):
+            h = apply_norm(bp.ln1, x, cfg)
+            h, _ = decode_attention(bp.attn, h, cfg, c, pos)
+            x = x + h
+            if cfg.d_ff:
+                x = x + apply_mlp(bp.mlp, apply_norm(bp.ln2, x, cfg), cfg)
+        x = apply_norm(self.final_norm, x, cfg)
+        return apply_unembed(self.embed, x, cfg), cache

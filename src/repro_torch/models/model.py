@@ -1,0 +1,46 @@
+"""Model factory: ModelConfig -> LM, on the caller's device."""
+from __future__ import annotations
+
+import torch
+
+from ..config import ModelConfig
+from ..device import resolve_device
+from .lm import LM
+
+__all__ = ["build_model", "check_ported", "NOT_PORTED"]
+
+# what this slice of the port does not build yet, and the ROADMAP item
+# (queue 1 item 1, "left" list) that ports it
+NOT_PORTED = {
+    "moe": "moe.py: ROADMAP queue 1 item 1, left 3",
+    "ssm": "ssm.py with _ssd_kernel: ROADMAP queue 1 item 1, left 2",
+    "hybrid": "ssm.py and moe.py: ROADMAP queue 1 item 1, left 2-3",
+    "encdec": "encdec.py: ROADMAP queue 1 item 1, left 3",
+    "vlm": "M-RoPE: ROADMAP queue 1 item 1, left 3",
+    "mla": "mla.py: ROADMAP queue 1 item 1, left 3",
+}
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` unless this slice builds ``cfg``."""
+    for key in (cfg.family, cfg.attention):
+        if key in NOT_PORTED:
+            raise NotImplementedError(
+                f"{cfg.name}: {key} is not ported yet ({NOT_PORTED[key]})")
+    if cfg.family != "dense" or cfg.attention != "gqa" or \
+            cfg.pos_emb != "rope":
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r}, attention "
+            f"{cfg.attention!r}, positions {cfg.pos_emb!r} are not ported")
+
+
+def build_model(cfg: ModelConfig, use_flash: bool = False, device=None,
+                seed: int = 0) -> LM:
+    """The model of ``cfg`` with its parameters drawn on ``device`` (``None``
+    is the CUDA card; raises without one) from a generator seeded with
+    ``seed``, by the reference's initializers.  ``use_flash`` routes the
+    prefill attention through the flash kernel."""
+    check_ported(cfg)
+    dev = resolve_device(device)
+    model = LM(cfg, use_flash=use_flash, device=dev)
+    return model.init(torch.Generator(device=dev).manual_seed(seed))
