@@ -5,10 +5,12 @@ Drives the port's main paths — the fluid network simulator with the fused
 netsim tick (``backend="cuda"``, ``tick_window=1``), with the multi-tick
 window kernel (``tick_window > 1``), with the tiled tick
 (``segsum="onehot"``, ``blk``) on the 512-host grid, the online controller,
-the Alg. 1 switch pipeline, and the serving path of h2o-danube-3-4b at full
+the Alg. 1 switch pipeline, the serving path of h2o-danube-3-4b at full
 width (a 32,768-token prefill through the flash attention kernel, then the
-continuous-batching engine) — phase by phase, one line per phase, and
-exits non-zero at the first phase that fails:
+continuous-batching engine) and its training path at full width (train_4k's
+sequence through the flash forward and backward kernels, AdamW) — phase by
+phase, one line per phase, and exits non-zero at the first phase that
+fails:
 
 1. build    compile every kernel library from the checkout (one nvcc per
             source, in parallel, sm_90a); print the card's name and power
@@ -39,54 +41,78 @@ exits non-zero at the first phase that fails:
             the prefill's shape (S = 32,768, window 8,192, bf16) on N(0,1)
             inputs against the chunked plain version, and five planted
             faults that must fail the same check
-9. prefill  h2o-danube-3-4b at full width (24 layers, d_model 3,840, bf16
+9. flash_bwd the flash backward kernels (dq, dk/dv) against the plain
+            backward computed in float32 on the same values, in bf16 and
+            float32, as [BH, S, D] tensors and as strided [B, H, S, D]
+            views: the five FLASH_CASES and the training shape (B 2, heads
+            32/8, S 4,096, D 120) with danube's window (8,192) and with
+            1,024; each row held to ROW_TOL, float32 also to the reference's
+            5e-4, two launches bit-equal; then six planted faults that must
+            fail the same check
+10. prefill h2o-danube-3-4b at full width (24 layers, d_model 3,840, bf16
             weights drawn on the card from seed 0), build_model(cfg,
             use_flash=True): one prefill of 1 x 32,768 tokens (24 flash
             launches counted), layer 0's attention through the kernel
             against the chunked plain attention, and the whole prefill
             again without the kernel (last-token logits compared: at this
             init a check that the path runs, not of attention)
-10. serve   the same model behind ServeEngine (8 slots, 4,096 positions):
+11. serve   the same model behind ServeEngine (8 slots, 4,096 positions):
             12 requests of 32-96 prompt tokens, 32 new tokens each, drained
             with slots refilled; a 256-token prompt's decode against its
             prefill, and layer 0's attention over decode's cache against
             the kernel at its last token
-11. goldens Table 1, 20,000 ticks, seed 3: the ecmp_base and ecmp_sym golden
+12. train   the same model trained (remat per block, AdamW with float32
+            m/v and master weights: danube's ARCH_POLICY) on SyntheticLM
+            batches of 2 x 4,096 tokens: one step's gradients through the
+            flash kernels against the plain path's, per leaf; a warm-up
+            step (lr 0: every parameter unchanged) and 6 steps of
+            make_train_step whose flash launches are counted (24 forward,
+            24 recompute, 24 dq, 24 dk/dv a step), finite losses, tokens/s
+            and peak memory; then the smoke-width Trainer on the card: the
+            loss falls over 30 steps, a checkpoint restart replays the
+            straight run, an injected failure recovers
+13. goldens Table 1, 20,000 ticks, seed 3: the ecmp_base and ecmp_sym golden
             finish ticks (two lanes of one grid run) through
             backend="cuda" with tick_window 1 (one tick launch per tick),
             20 (1,000 window launches) and 7 (3,000), and through the tiled
             tick with blk=256 (20,000 tiled launches)
-12. multipod 128-host fat_tree_multipod, 8 seeds as lanes, 2,000 ticks:
+14. multipod 128-host fat_tree_multipod, 8 seeds as lanes, 2,000 ticks:
             backend="cuda" with tick_window 1 and 20 (the main-path runs
             whose launches are counted) against backend="eager"
-13. grid512 the 512-host grid (16 pods; sym off/on x 4 seeds as lanes),
+15. grid512 the 512-host grid (16 pods; sym off/on x 4 seeds as lanes),
             1,000 ticks: the tiled tick (blk=2048, tick_window=1) and the
             window kernel (tick_window=20), their launches counted, against
             their plain versions on the card and against eager
-14. control SimController on the card (Table 1, window_ticks=640,
+16. control SimController on the card (Table 1, window_ticks=640,
             tick_window=20): stepping equals one-shot simulate, tau retuned
             mid-run, checkpoint/restore replays bit for bit
-15. timing  each kernel's device time per launch against its plain
+17. timing  each kernel's device time per launch against its plain
             version's and its bound, at the main paths' shapes (the flash
-            kernel also against one scaled_dot_product_attention call)
-16. profile main-path ticks/s (Table 1 with 1 lane through ``simulate``,
+            forward also against one scaled_dot_product_attention call,
+            the backward kernels against one autograd.grad through it)
+18. profile main-path ticks/s (Table 1 with 1 lane through ``simulate``,
             128 hosts x 8 lanes, 512 hosts x 8 lanes) and where a tick's
             time goes: wall and device-busy time, the busiest kernels; one
             profiled 32,768-token prefill: the flash kernel's, the matrix
-            products' and the rest's share of device time
+            products' and the rest's share of device time; one profiled
+            training step: flash forward, dq, dk/dv, matrix products, the
+            optimizer and the rest
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
 
     python3 chip_smoke.py              # every phase
     python3 chip_smoke.py build tiled  # a subset (no report lines)
+    python3 chip_smoke.py build flash_bwd train   # the training path
 
 It needs one CUDA card and the CUDA toolkit; without a card it exits
 non-zero before printing any result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -121,14 +147,15 @@ RTOL_TPUT = 1e-5
 INT_SERIES = ("finish_ticks", "job_finish_ticks", "ts_min_wire",
               "ts_max_wire", "ts_done_min", "ts_alpha_max")
 PHASES = ("build", "math", "kernel", "window", "tiled", "large", "switch",
-          "flash", "prefill", "serve", "goldens", "multipod", "grid512",
-          "control", "timing", "profile")
+          "flash", "flash_bwd", "prefill", "serve", "train", "goldens",
+          "multipod", "grid512", "control", "timing", "profile")
 # instance tile of the tiled tick at each shape (a multiple of the window)
 BLK = {"table1": 256, "multipod128": 1024, "multipod512": 2048}
 # the shape of each kernel's main path, whose timing goes in the report
 MAIN_SHAPE = {"netsim_tick": "multipod128", "netsim_window": "multipod128",
               "netsim_tiled": "multipod512",
-              "switch_pipeline": "P=1000000", "flash_fwd": "S=32768"}
+              "switch_pipeline": "P=1000000", "flash_fwd": "S=32768",
+              "flash_dq": "B=2 S=4096", "flash_dkv": "B=2 S=4096"}
 # the reference's FLASH_CASES (tests/test_kernels.py:19-26):
 # (BH, query rows per KV row, S, D, window)
 FLASH_CASES = ((4, 2, 256, 64, 0), (2, 1, 512, 128, 0), (4, 4, 256, 64, 128),
@@ -145,7 +172,24 @@ LSE_ABS = 1e-4
 # the model tolerance of tests/test_models.py:108-110 (bf16 weights,
 # different contraction orders)
 MODEL_ATOL, MODEL_RTOL = 0.15, 0.1
+# The backward against its plain version: rows as for the forward, except
+# that a row whose exact gradient is 0 (query 0 sees only key 0, so its ds
+# is 0) has nothing to be relative to: each row's denominator is floored at
+# ROW_FLOOR of the tensor's largest |value|.  float32 also at the
+# reference's gradient tolerance (tests/test_kernels.py:49-70).
+ROW_FLOOR = 1e-3
+REF_GRAD_TOL = 5e-4
+# one step's gradients at full width, flash kernels against the plain path
+# (bf16 activations on both, attention rounded differently): relative L2
+# distance per parameter leaf (2.5e-3 at most when measured), and the loss
+GRAD_REL_L2 = 1e-2
+GRAD_LOSS_RTOL = 1e-3
 PREFILL_S = 32768               # prefill_32k's sequence, cut to batch 1
+TRAIN_B = 2                     # train_4k's batch of 256, cut to 2
+TRAIN_S = 4096                  # train_4k's sequence
+TRAIN_STEPS = 6                 # timed steps after one warm-up step
+BWD_WINDOWS = (8192, 1024)      # danube's window (no bite at S 4,096) and
+                                # one that bites
 FLASH_S = 4096                  # danube-headed checks of the plain version
 WARM = 300                      # eager ticks before the kernel checks
 
@@ -302,7 +346,7 @@ class Smoke:
         self.mid = {}           # (shape, ecmp) -> (ctx, cfg, state, tick)
         self.max_err = {"netsim_tick": 0.0, "netsim_window": 0.0,
                         "netsim_tiled": 0.0, "switch_pipeline": 0.0,
-                        "flash_fwd": 0.0}
+                        "flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
         self.danube = None      # the full-width model of prefill and serve
         self.launches = {}
         self.rates = {}
@@ -734,17 +778,174 @@ class Smoke:
         say("flash", "planted faults at that shape, each failing the check: "
                      + "; ".join(caught))
 
-    # ------------------------------------------ 9. full-width prefill
+    # ------------------------------------------- 9. flash backward vs plain
+    def bwd_inputs(self, B, hq, hkv, S, D, dtype, window):
+        """q, k, v, do [B, S, H, D] on the card (N(0, 1), from numpy), and
+        the forward kernel's o [B, S, Hq, D] and lse [B, Hq, S] for them."""
+        Fa = self.Fa
+        q, k, v = self.attn_inputs(B, hq, hkv, S, D, dtype)
+        do = self.attn_inputs(B, hq, hq, S, D, dtype, seed=1)[0]
+        saved = Fa.flash_fwd.launches
+        o, lse = Fa.flash_fwd(*(x.transpose(1, 2) for x in (q, k, v)),
+                              window=window)
+        Fa.flash_fwd.launches = saved
+        return q, k, v, o.transpose(1, 2), lse, do
+
+    def bwd_close(self, got, want, dtype):
+        """(ok, (max abs error of dq, of dk/dv), message): the kernels'
+        (dq, dk, dv) against the plain backward's in float32, each row to
+        ROW_TOL of its max |value| (floored at ROW_FLOOR of the tensor's),
+        and in float32 also at the reference's REF_GRAD_TOL."""
+        torch = self.torch
+        ok, errs, msgs = True, [], []
+        for name, a, r in zip(("dq", "dk", "dv"), got, want):
+            a, r = a.float(), r.float()
+            d = (a - r).abs()
+            den = r.abs().amax(-1).clamp_min(ROW_FLOOR * r.abs().max())
+            row = (d.amax(-1) / den).max().item()
+            good = bool(torch.isfinite(a).all()) and row <= ROW_TOL
+            if dtype == "float32":
+                good &= bool(torch.allclose(a, r, atol=REF_GRAD_TOL,
+                                            rtol=REF_GRAD_TOL))
+            ok &= good
+            errs.append(d.max().item())
+            msgs.append(f"{name} {errs[-1]:.3g} (row {row:.3g})")
+        return ok, (errs[0], max(errs[1:])), ", ".join(msgs)
+
+    def flash_bwd(self):
+        torch, Fa = self.torch, self.Fa
+        shapes = [(f"BH={bh} group={g} S={S} D={D} window={w}", 1, bh,
+                   bh // g, S, D, w) for bh, g, S, D, w in FLASH_CASES]
+        shapes += [(f"training shape B={TRAIN_B} heads 32/8 D=120 "
+                    f"S={TRAIN_S} window={w}", TRAIN_B, 32, 8, TRAIN_S, 120,
+                    w) for w in BWD_WINDOWS]
+        saved = (Fa.flash_bwd.launches_dq, Fa.flash_bwd.launches_dkv)
+        for name, B, hq, hkv, S, D, w in shapes:
+            for dtype in FLASH_TOL:
+                q, k, v, o, lse, do = self.bwd_inputs(B, hq, hkv, S, D,
+                                                      dtype, w)
+                flat = [x.transpose(1, 2).reshape(-1, S, D).contiguous()
+                        for x in (q, k, v, o, do)]
+                lse3 = lse.reshape(-1, S)
+                # the plain version in float32 on the same values
+                want = Fa.attention_bwd_ref(*flat[:4], lse3, flat[4],
+                                            window=w)
+                g3 = Fa.flash_bwd(*flat[:4], lse3, flat[4], window=w)
+                again = Fa.flash_bwd(*flat[:4], lse3, flat[4], window=w)
+                # strided [B, H, S, D] views of [B, S, H, D]: no copy
+                views = [x.transpose(1, 2) for x in (q, k, v, o, do)]
+                g4 = Fa.flash_bwd(*views[:4], lse, views[4], window=w)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(g3, again)):
+                    fail("flash_bwd", f"{name} {dtype}: two launches give "
+                                      "different bits")
+                msgs = []
+                for layout, g in (("[BH,S,D]", g3),
+                                  ("[B,S,H,D] view",
+                                   [x.reshape(-1, S, D) for x in g4])):
+                    ok, (eq, ekv), msg = self.bwd_close(g, want, dtype)
+                    self.max_err["flash_dq"] = max(self.max_err["flash_dq"],
+                                                   eq)
+                    self.max_err["flash_dkv"] = max(
+                        self.max_err["flash_dkv"], ekv)
+                    if not ok:
+                        fail("flash_bwd", f"{name} {dtype} {layout}: {msg}")
+                    msgs.append(f"{layout} {msg}")
+                say("flash_bwd", f"{name} {dtype}: max abs err "
+                                 f"{'; '.join(msgs)}; bit-equal on a second "
+                                 f"launch (row tolerance {ROW_TOL}, floor "
+                                 f"{ROW_FLOOR}"
+                                 + (f", allclose {REF_GRAD_TOL})"
+                                    if dtype == "float32" else ")"))
+                del q, k, v, o, lse, do, flat, want, g3, again, g4, views
+        self.bwd_faults()
+        Fa.flash_bwd.launches_dq, Fa.flash_bwd.launches_dkv = saved
+        say("flash_bwd", "max abs error, kernel vs plain: dq "
+                         f"{self.max_err['flash_dq']}, dk/dv "
+                         f"{self.max_err['flash_dkv']}")
+
+    def bwd_faults(self):
+        """Outputs of planted faults, made from the plain version at the
+        training shape with the window that bites (bf16), must fail the
+        check that the kernels pass."""
+        import math
+        torch, Fa = self.torch, self.Fa
+        hq, hkv, S, D, w = 32, 8, TRAIN_S, 120, BWD_WINDOWS[1]
+        g = hq // hkv
+        q, k, v, o, lse, do = self.bwd_inputs(TRAIN_B, hq, hkv, S, D,
+                                              "bfloat16", w)
+        fq, fk, fv, fo, fdo = [x.transpose(1, 2).reshape(-1, S, D)
+                               .contiguous() for x in (q, k, v, o, do)]
+        lse3 = lse.reshape(-1, S)
+        del q, k, v, o, do
+
+        def plain(qq=fq, kk=fk, vv=fv, oo=fo, window=w):
+            return Fa.attention_bwd_ref(qq, kk, vv, oo, lse3, fdo,
+                                        window=window)
+
+        want = plain()
+
+        def no_group_sum():          # each KV row's first query head only
+            dq, dk, dv = plain(kk=fk.repeat_interleave(g, 0),
+                               vv=fv.repeat_interleave(g, 0))
+            return dq, dk[::g], dv[::g]
+
+        def scale_128():             # scores and ds scaled by 1/sqrt(128)
+            c = math.sqrt(D / 128)
+            dq, dk, dv = plain(qq=fq.float() * c)
+            return dq * c, dk, dv
+
+        def dq_without_last_tile():
+            # the dq kernel's last visible key tile of each 64-row query
+            # tile is the diagonal one: take its share out of dq
+            T, n = 64, S // 64
+            qt = fq.float().view(-1, n, T, D)
+            kt = fk.float().repeat_interleave(g, 0).view(-1, n, T, D)
+            vt = fv.float().repeat_interleave(g, 0).view(-1, n, T, D)
+            dot = fdo.float().view(-1, n, T, D)
+            delta = (fdo.float() * fo.float()).sum(-1).view(-1, n, T, 1)
+            s = torch.einsum("btqd,btkd->btqk", qt, kt) / math.sqrt(D)
+            tri = torch.ones(T, T, dtype=torch.bool, device=self.dev).tril()
+            p = torch.where(tri, torch.exp(s - lse3.view(-1, n, T, 1)),
+                            torch.zeros((), device=self.dev))
+            dp = torch.einsum("btqd,btkd->btqk", dot, vt)
+            ds = p * (dp - delta) / math.sqrt(D)
+            share = torch.einsum("btqk,btkd->btqd", ds, kt)
+            return want[0] - share.reshape(want[0].shape), want[1], want[2]
+
+        caught = []
+        for fault, make in (
+                ("dk/dv without the group sum", no_group_sum),
+                ("delta = 0", lambda: plain(oo=torch.zeros_like(fo))),
+                ("window one key tile wider", lambda: plain(window=w + 64)),
+                ("window one key tile narrower",
+                 lambda: plain(window=w - 64)),
+                ("scale 1/sqrt(128)", scale_128),
+                ("dq without its last visible key tile",
+                 dq_without_last_tile)):
+            passes, _, msg = self.bwd_close(make(), want, "bfloat16")
+            if passes:
+                fail("flash_bwd", f"planted fault passes the check: {fault}:"
+                                  f" {msg}")
+            caught.append(f"{fault}: {msg}")
+        say("flash_bwd", f"planted faults at B={TRAIN_B} S={S} window={w}, "
+                         "each failing the check: " + "; ".join(caught))
+
+    # ------------------------------------------ 10. full-width prefill
     def danube_model(self):
         """h2o-danube-3-4b at full width, bf16 weights drawn on the card from
-        seed 0, with the flash kernel on."""
+        seed 0, with the flash kernels on and danube's training policy
+        (remat per block, which only acts when gradients are taken)."""
         if self.danube is None:
             from repro_torch.configs import registry
+            from repro_torch.launch.steps import make_parallel_config
             from repro_torch.models import build_model
             torch = self.torch
             cfg = registry.get_config("h2o_danube_3_4b")
             t0 = time.time()
-            self.danube = build_model(cfg, use_flash=True, seed=0)
+            self.danube = build_model(
+                cfg, make_parallel_config("h2o_danube_3_4b", "train_4k"),
+                use_flash=True, seed=0)
             torch.cuda.synchronize()
             n = sum(p.numel() for p in self.danube.parameters())
             say("prefill", f"{cfg.name}: {cfg.num_layers} layers, d_model "
@@ -842,7 +1043,7 @@ class Smoke:
                        f"{'agrees' if same else 'differs'}, argmax is the "
                        f"last input token: {echo}")
 
-    # ---------------------------------------------------- 10. serving
+    # ---------------------------------------------------- 11. serving
     def serve(self):
         import numpy as np
         torch = self.torch
@@ -932,7 +1133,176 @@ class Smoke:
                      f"cache vs the flash kernel, row err {rerr:.3g} "
                      f"(tolerance {ROW_TOL})")
 
-    # ------------------------------------------------------- 11. goldens
+    # -------------------------------------------- 12. full-width training
+    def train_batches(self, n: int) -> list:
+        """The first ``n`` SyntheticLM batches (seed 0) of danube's train_4k
+        shape cut to TRAIN_B sequences, on the card."""
+        from repro_torch.data import DataConfig, SyntheticLM
+        data = SyntheticLM(DataConfig(self.danube_model().cfg.vocab_size,
+                                      TRAIN_S, TRAIN_B, seed=0))
+        out = []
+        for step in range(n):
+            toks, labs = data.batch(step)
+            out.append({"tokens": self.torch.from_numpy(toks).to(self.dev),
+                        "labels": self.torch.from_numpy(labs).to(self.dev)})
+        return out
+
+    def train_config(self):
+        from repro_torch.config import LM_SHAPES
+        from repro_torch.launch.steps import make_train_config
+        spec = next(sp for sp in LM_SHAPES if sp.name == "train_4k")
+        return dataclasses.replace(make_train_config("h2o_danube_3_4b",
+                                                     spec),
+                                   global_batch=TRAIN_B)
+
+    def train(self):
+        torch, Fa = self.torch, self.Fa
+        from repro_torch.optim import init_opt_state
+        from repro_torch.runtime import make_loss_fn, make_train_step
+        model = self.danube_model()
+        cfg = model.cfg
+        tcfg = self.train_config()
+        batches = self.train_batches(TRAIN_STEPS + 1)
+        params = dict(model.named_parameters())
+        # one step's gradients through the flash kernels and the plain path
+        loss_fn = make_loss_fn(model, cfg)
+
+        def grads(use_flash):
+            model.use_flash = use_flash
+            torch.cuda.synchronize()
+            t0 = time.time()
+            loss = loss_fn(batches[0])
+            g = torch.autograd.grad(loss, list(params.values()))
+            torch.cuda.synchronize()
+            return float(loss.detach()), g, time.time() - t0
+
+        lf, gf, tf = grads(True)
+        lp, gp, tp = grads(False)
+        model.use_flash = True
+        rel = {}
+        for name, a, b in zip(params, gf, gp):
+            a, b = a.float(), b.float()
+            rel[name] = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+            if not torch.isfinite(a).all():
+                fail("train", f"non-finite gradient in {name}")
+        del gf, gp
+        worst = max(rel, key=rel.get)
+        by_kind: dict = {}
+        for name, r in rel.items():
+            kind = name.split(".")[-1] if "blocks" in name else name
+            by_kind[kind] = max(by_kind.get(kind, 0.0), r)
+        if rel[worst] > GRAD_REL_L2 or abs(lf - lp) > GRAD_LOSS_RTOL * abs(lp):
+            fail("train", f"flash vs plain gradients: {worst} rel L2 "
+                          f"{rel[worst]}; losses {lf} vs {lp}")
+        say("train", f"{cfg.name} at full width, {TRAIN_B} x {TRAIN_S} "
+                     f"tokens: step 0's loss {lf:.4f} through the flash "
+                     f"kernels ({tf:.2f} s), {lp:.4f} through the plain path"
+                     f" ({tp:.2f} s); gradients' relative L2 distance per "
+                     f"leaf at most {rel[worst]:.3g} ({worst}; tolerance "
+                     f"{GRAD_REL_L2}); by leaf kind: "
+                     + ", ".join(f"{k} {v:.3g}" for k, v in by_kind.items()))
+        # the main path: make_train_step with AdamW
+        opt = init_opt_state(params, tcfg)
+        step = make_train_step(model, cfg, tcfg, model.par)
+        host = {n: p.detach().cpu() for n, p in params.items()}
+        opt, met = step(opt, batches[0])              # warm-up step, lr 0
+        loss0, lr0 = float(met["loss"]), float(met["lr"])
+        same = [n for n, p in params.items()
+                if torch.equal(p.detach().cpu(), host[n])]
+        del host
+        if len(same) != len(params) or lr0 != 0.0:
+            fail("train", f"step 0 (lr {lr0}) changed "
+                          f"{len(params) - len(same)} of {len(params)} "
+                          "parameters")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        Fa.flash_fwd.launches = 0                     # main path starts
+        Fa.flash_bwd.launches_dq = Fa.flash_bwd.launches_dkv = 0
+        t0 = time.time()
+        losses, lrs = [], []
+        for b in batches[1:]:
+            opt, met = step(opt, b)
+            losses.append(float(met["loss"]))
+            lrs.append(float(met["lr"]))
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        n_fwd = Fa.flash_fwd.launches                 # main path ends
+        n_dq, n_dkv = Fa.flash_bwd.launches_dq, Fa.flash_bwd.launches_dkv
+        peak = torch.cuda.max_memory_allocated()
+        want = cfg.num_layers * TRAIN_STEPS
+        finite = all(x == x and abs(x) != float("inf") for x in losses)
+        if (n_fwd, n_dq, n_dkv) != (2 * want, want, want) or not finite:
+            fail("train", f"{n_fwd} forward, {n_dq} dq, {n_dkv} dk/dv "
+                          f"launches in {TRAIN_STEPS} steps (want "
+                          f"{2 * want}, {want}, {want}); losses {losses}")
+        self.launches["flash_dq"], self.launches["flash_dkv"] = n_dq, n_dkv
+        tokens = TRAIN_STEPS * TRAIN_B * TRAIN_S
+        self.rates["train"] = (tokens / secs, 1e3 * secs / TRAIN_STEPS, peak)
+        say("train", f"warm-up step: loss {loss0:.4f}, lr 0, all "
+                     f"{len(params)} parameters bit-equal to their initial "
+                     f"values; {TRAIN_STEPS} steps of make_train_step: "
+                     f"losses {[round(x, 4) for x in losses]}, lr "
+                     f"{lrs[0]:.3g}..{lrs[-1]:.3g}; {n_fwd} flash forward "
+                     f"launches (forward and remat recompute), {n_dq} dq, "
+                     f"{n_dkv} dk/dv; {1e3 * secs / TRAIN_STEPS:.1f} ms a "
+                     f"step, {tokens / secs:,.0f} tokens/s, peak memory "
+                     f"{peak / 2**30:.2f} GiB; card {self.card}")
+        del opt, step
+        self.train_smoke()
+
+    def train_smoke(self):
+        """The smoke-width Trainer on the card, as tests/test_runtime.py
+        runs it: the loss falls, a restart replays the straight run, an
+        injected failure recovers."""
+        import numpy as np
+        from repro_torch.config import ParallelConfig, TrainConfig
+        from repro_torch.configs import registry
+        from repro_torch.models import build_model
+        from repro_torch.runtime import SimulatedFailure, Trainer
+        cfg = registry.get_config("h2o_danube_3_4b", smoke=True)
+        par = ParallelConfig(remat="none", scan_layers=False)
+        root = ROOT / "build" / "chip_smoke_ckpt"
+        shutil.rmtree(root, ignore_errors=True)
+
+        def trainer(name, steps, every, injector=None):
+            tcfg = TrainConfig(global_batch=4, seq_len=32, lr=1e-2,
+                               warmup_steps=2, total_steps=steps,
+                               ckpt_every=every, ckpt_keep=2,
+                               ckpt_dir=str(root / name), ckpt_async=False,
+                               seed=1)
+            return Trainer(model, cfg, tcfg, par, failure_injector=injector)
+
+        model = build_model(cfg, par, seed=0)
+        rep = trainer("loss", 30, 100).run()
+        first, last = np.mean(rep.losses[:5]), np.mean(rep.losses[-5:])
+        if not last < first - 0.2:
+            fail("train", f"smoke Trainer: loss {first} -> {last}")
+        straight = trainer("a", 8, 4).run()
+        trainer("b", 8, 4).run(steps=5)
+        resumed = trainer("b", 8, 4).run(steps=8)
+        a, b = resumed.losses[-1], straight.losses[-1]
+        if abs(a - b) > 1e-4 * abs(b):
+            fail("train", f"smoke Trainer: restart {a} vs straight {b}")
+        exact = resumed.losses == straight.losses[5:]
+        crashed = []
+
+        def injector(s):
+            if s == 5 and not crashed:
+                crashed.append(s)
+                raise SimulatedFailure("node lost")
+
+        rec = trainer("f", 8, 2, injector).run()
+        if rec.restarts != 1 or not np.isfinite(rec.final_loss):
+            fail("train", f"smoke Trainer: {rec.restarts} restarts, final "
+                          f"loss {rec.final_loss}")
+        shutil.rmtree(root, ignore_errors=True)
+        say("train", f"smoke Trainer on the card: loss {first:.3f} -> "
+                     f"{last:.3f} over 30 steps; restart from step 4 replays"
+                     f" steps 5-7 {'exactly' if exact else 'within rel 1e-4'}"
+                     f" (last loss {a!r} vs {b!r}); one injected failure at "
+                     f"step 5 recovered, final loss {rec.final_loss:.4f}")
+
+    # ------------------------------------------------------- 13. goldens
     def goldens(self):
         torch, T, K, Wn = self.torch, self.T, self.K, self.Wn
         topo, wl, cfg = table1(T)
@@ -977,7 +1347,7 @@ class Smoke:
                            f"ticks, {nt} tick + {nw} window + {ntl} tiled "
                            f"launches, {cfg.n_ticks / secs:.1f} ticks/s")
 
-    # --------------------------------------------- 12. 128-host, 8 lanes
+    # --------------------------------------------- 14. 128-host, 8 lanes
     def multipod(self):
         torch, T, K, Wn = self.torch, self.T, self.K, self.Wn
         topo, wl, cfg = multipod128(T)
@@ -1022,7 +1392,7 @@ class Smoke:
                             f"{rate:.1f} ticks/s ({rate * 8:.1f} "
                             "lane-ticks/s)")
 
-    # --------------------------------------- 13. 512 hosts, 8 lanes, tiled
+    # --------------------------------------- 15. 512 hosts, 8 lanes, tiled
     def grid512(self):
         torch, T, Tl, Wn, Rf = self.torch, self.T, self.Tl, self.Wn, self.Rf
         from repro_torch.kernels.netsim_tick import ops
@@ -1098,7 +1468,7 @@ class Smoke:
                        + (f", first at tick {first}" if first is not None
                           else "") + f"; throughput max abs diff {err}")
 
-    # ------------------------------------------------------- 14. control
+    # ------------------------------------------------------- 16. control
     def control(self):
         torch, T, Wn = self.torch, self.T, self.Wn
         topo, wl, cfg = table1(T)
@@ -1148,7 +1518,7 @@ class Smoke:
                        f"for bit (alpha max {oa.stats.alpha_max:.0f}, queue "
                        f"max {oa.stats.qmax:.0f} B)")
 
-    # -------------------------------------------------------- 15. timing
+    # -------------------------------------------------------- 17. timing
     def timing(self):
         torch, K, Rf, Wn, Tl = self.torch, self.K, self.Rf, self.Wn, self.Tl
         from repro_torch.core.netsim.stages import stage_starts
@@ -1254,6 +1624,7 @@ class Smoke:
                         20 * P, 1, note="(plain version: wall time; its "
                                         "state walk runs on the host)")
         self.timing_flash()
+        self.timing_flash_bwd()
 
     def timing_flash(self):
         """The flash kernel at the main path's shape (danube's heads, S =
@@ -1293,6 +1664,85 @@ class Smoke:
                                 if S == PREFILL_S else ")"))
             del q, k, v, views
 
+    def timing_flash_bwd(self):
+        """The backward kernels at the training shape (B 2, heads 32/8, S
+        4,096, D 120, danube's window, bf16, strided [B, S, H, D] views),
+        each launched alone; the plain backward (dq, dk and dv in one call)
+        at the same shape, or at B 1 when it does not fit; and the backward
+        of one scaled_dot_product_attention call."""
+        torch, Fa = self.torch, self.Fa
+        hq, hkv, S, D, w = 32, 8, TRAIN_S, 120, BWD_WINDOWS[0]
+        B, item = TRAIN_B, 2
+        q, k, v, o, lse, do = self.bwd_inputs(B, hq, hkv, S, D, "bfloat16",
+                                              w)
+        views = [x.transpose(1, 2) for x in (q, k, v, o, do)]
+        call = Fa.BwdCall(*views[:4], lse, views[4], window=w, causal=True)
+        saved = (Fa.flash_bwd.launches_dq, Fa.flash_bwd.launches_dkv)
+        dq_dev, dq_wall = timed(call.dq, 10, torch)
+        dkv_dev, dkv_wall = timed(call.dkv, 10, torch)
+        Fa.flash_bwd.launches_dq, Fa.flash_bwd.launches_dkv = saved
+        lib = self.sdpa_bwd_ms(q, k, v, do)
+        plain_b = B
+        try:
+            flat = [x.transpose(1, 2).reshape(-1, S, D).contiguous()
+                    for x in (q, k, v, o, do)]
+            p_dev, p_wall = timed(lambda: Fa.attention_bwd_ref(
+                *flat[:4], lse.reshape(-1, S), flat[4], window=w), 1, torch)
+        except torch.OutOfMemoryError:
+            plain_b = 1
+            torch.cuda.empty_cache()
+            flat = [x[:1].transpose(1, 2).reshape(-1, S, D).contiguous()
+                    for x in (q, k, v, o, do)]
+            p_dev, p_wall = timed(lambda: Fa.attention_bwd_ref(
+                *flat[:4], lse[:1].reshape(-1, S), flat[4], window=w), 1,
+                torch)
+        del flat
+        # visible (query, key) pairs of every head; bytes: q, k, v, dO,
+        # lse and delta read once, the outputs written once
+        pairs = B * hq * sum(min(i + 1, w) for i in range(S))
+        stats = 2 * 4 * B * hq * S
+        note = (f"(BH={B * hq}, KV heads {hkv}, D={D}, causal, window {w}, "
+                f"bf16; plain: dq, dk and dv in one call at B={plain_b}; "
+                "library: the backward of one scaled_dot_product_attention "
+                "call)")
+        self.report(f"B={B} S={S}", "flash_dq", "flash_bwd.cu",
+                    "src/repro/kernels/flash_attention/kernel.py:124",
+                    dq_dev, dq_wall, p_dev, p_wall,
+                    item * B * S * D * (3 * hq + 2 * hkv) + stats,
+                    6 * D * pairs, 1, note=note, peak=BF16_OPS_PER_S,
+                    library_ms=lib)
+        self.report(f"B={B} S={S}", "flash_dkv", "flash_bwd.cu",
+                    "src/repro/kernels/flash_attention/kernel.py:159",
+                    dkv_dev, dkv_wall, p_dev, p_wall,
+                    item * B * S * D * (2 * hq + 4 * hkv) + stats,
+                    8 * D * pairs, 1, note=note, peak=BF16_OPS_PER_S,
+                    library_ms=lib)
+        del q, k, v, o, lse, do, views, call
+        if "train" in self.rates:
+            tps, ms, peak = self.rates["train"]
+            say("timing", f"training (phase train, host clock): {ms:.1f} ms"
+                          f" a step of {TRAIN_B} x {TRAIN_S} tokens, "
+                          f"{tps:,.0f} tokens/s, peak memory "
+                          f"{peak / 2**30:.2f} GiB; card {self.card}")
+
+    def sdpa_bwd_ms(self, q, k, v, do):
+        """One torch.autograd.grad through one causal
+        scaled_dot_product_attention call on the same inputs, the KV heads
+        repeated to the query heads before the call (PyTorch picks the
+        backend).  Device ms per call."""
+        torch = self.torch
+        import torch.nn.functional as F
+        g = q.shape[2] // k.shape[2]
+        qh = q.transpose(1, 2).detach().requires_grad_()
+        kh, vh = (x.transpose(1, 2).repeat_interleave(g, dim=1).detach()
+                  .requires_grad_() for x in (k, v))
+        out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+        doh = do.transpose(1, 2)
+        ms, _ = timed(lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
+                                                  retain_graph=True), 5,
+                      torch)
+        return ms
+
     def sdpa_ms(self, q, k, v, window):
         """One scaled_dot_product_attention call on the same inputs: the KV
         heads repeated to the query heads before the call (PyTorch's GQA
@@ -1330,8 +1780,9 @@ class Smoke:
                          if library_ms is not None else "")
                       + f", card {self.card}")
         if shape == MAIN_SHAPE[name]:
-            pkg = {"switch_pipeline": "switch_pipeline",
-                   "flash_fwd": "flash_attention"}.get(name, "netsim_tick")
+            pkg = {"switch_pipeline": "switch_pipeline"}.get(
+                name, "flash_attention" if name.startswith("flash")
+                else "netsim_tick")
             self.reports.append(dict(
                 name=name, route="cuda",
                 source=f"src/repro_torch/kernels/{pkg}/csrc/"
@@ -1342,7 +1793,7 @@ class Smoke:
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 library_ms=library_ms))
 
-    # ------------------------------------------------------ 16. profile
+    # ------------------------------------------------------ 18. profile
     def profile(self):
         torch, T = self.torch, self.T
         from repro_torch.core.netsim.simulator import _window_body
@@ -1402,6 +1853,7 @@ class Smoke:
                        f"tick_window=1), {r.get(('multipod512', 20), 0):.1f}"
                        f" (tick_window=20); card {self.card}")
         self.profile_prefill()
+        self.profile_train()
 
     def profile_prefill(self):
         """One profiled 32,768-token prefill of the full-width model: the
@@ -1435,6 +1887,67 @@ class Smoke:
         for name, (n, t) in top:
             say("profile", f"  {t / 1e3:.3f} ms  {n} launches  {name[:80]}")
 
+
+    def profile_train(self):
+        """One profiled training step of the full-width model (after a
+        warm-up step): the loss and its gradients, then the AdamW update,
+        each under the profiler; the flash forward's, dq's, dk/dv's, the
+        matrix products', the optimizer's and the rest's device time."""
+        torch = self.torch
+        from repro_torch.optim import adamw_update, init_opt_state
+        from repro_torch.runtime import make_loss_fn
+        model = self.danube_model()
+        tcfg = self.train_config()
+        params = dict(model.named_parameters())
+        opt = init_opt_state(params, tcfg)
+        loss_fn = make_loss_fn(model, model.cfg)
+        batch = self.train_batches(2)[1]
+        held = {}
+
+        def fwd_bwd():
+            loss = loss_fn(batch)
+            held["g"] = dict(zip(params, torch.autograd.grad(
+                loss, list(params.values()))))
+
+        def update():
+            held["opt"] = adamw_update(params, held.pop("g"), held["opt"],
+                                       tcfg)[0]
+
+        held["opt"] = opt
+        del opt
+        fwd_bwd()
+        update()                                     # warm-up step
+        wall_a, by_a = profile_ticks(fwd_bwd, torch)
+        wall_b, by_b = profile_ticks(update, torch)
+        del held
+        busy_a = sum(t for _, t in by_a.values())
+        busy_b = sum(t for _, t in by_b.values())
+
+        def named(word):
+            return sum(t for name, (_, t) in by_a.items() if word in name)
+
+        fwd, dq, dkv = named("flash_fwd"), named("flash_dq"), \
+            named("flash_dkv")
+        mm = sum(t for name, (_, t) in by_a.items()
+                 if "flash_" not in name and any(
+                     w in name.lower() for w in ("gemm", "xmma", "nvjet",
+                                                 "cutlass", "matmul")))
+        busy, wall = busy_a + busy_b, wall_a + wall_b
+        rest = busy_a - fwd - dq - dkv - mm
+        parts = [("flash forward", fwd), ("dq", dq), ("dk/dv", dkv),
+                 ("matrix products", mm), ("optimizer", busy_b),
+                 ("rest", rest)]
+        say("profile", f"training step {TRAIN_B} x {TRAIN_S} tokens: "
+                       f"{wall / 1e3:.1f} ms wall (loss and gradients "
+                       f"{wall_a / 1e3:.1f}, AdamW {wall_b / 1e3:.1f}), "
+                       f"device busy {busy / 1e3:.1f} ms "
+                       f"({100 * busy / wall:.1f}% busy); "
+                       + ", ".join(f"{n} {t / 1e3:.1f} ms "
+                                   f"({100 * t / busy:.1f}%)"
+                                   for n, t in parts))
+        top = sorted(by_a.items(), key=lambda kv: -kv[1][1])[:6]
+        for name, (n, t) in top:
+            say("profile", f"  {t / 1e3:.3f} ms  {n} launches  {name[:80]}")
 
 def main(argv) -> int:
     import torch

@@ -1,10 +1,10 @@
-"""Configuration system: model / parallelism / serving configs.
+"""Configuration system: model / parallelism / training / serving configs.
 
 The port's own copy of the reference's ``config.py`` (the port imports
 nothing of the JAX package).  Every assigned architecture is a
 `ModelConfig` in `repro_torch.configs.<id>`; `repro_torch.configs.registry`
 maps ``--arch`` ids to them.  Configs are frozen dataclasses so they hash
-and serialize to JSON.  The training config comes with the training slice.
+and serialize to JSON.
 """
 from __future__ import annotations
 
@@ -125,6 +125,28 @@ class ParallelConfig:
     ring_bidirectional: bool = False
     compress_interpod: bool = False    # int8 error-feedback across 'pod'
     seq_shard_decode: bool = True      # shard KV cache over 'data' for decode
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    global_batch: int = 256
+    seq_len: int = 4096
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    adam_b1: float = 0.9
+    adam_b2: float = 0.95
+    adam_eps: float = 1e-8
+    opt_state_dtype: str = "float32"   # bfloat16 for >=300B models
+    master_weights: bool = True        # keep fp32 master copy
+    seed: int = 0
+    # checkpointing / resilience
+    ckpt_every: int = 100
+    ckpt_keep: int = 3
+    ckpt_dir: str = "/tmp/repro_ckpt"
+    ckpt_async: bool = True
 
 
 @dataclass(frozen=True)

@@ -1,7 +1,8 @@
-"""Flash attention forward as a CUDA kernel (``kernel``) beside its plain
-torch version (``ref``), with the model-side entry (``ops``)."""
-from .kernel import build, flash_fwd
+"""Flash attention forward and backward as CUDA kernels (``kernel``) beside
+their plain torch versions (``ref``), with the model-side entry (``ops``)."""
+from .kernel import BwdCall, build, flash_bwd, flash_fwd
 from .ops import flash_attention
-from .ref import attention_ref
+from .ref import attention_bwd_ref, attention_ref
 
-__all__ = ["flash_attention", "flash_fwd", "attention_ref", "build"]
+__all__ = ["flash_attention", "flash_fwd", "flash_bwd", "BwdCall",
+           "attention_ref", "attention_bwd_ref", "build"]

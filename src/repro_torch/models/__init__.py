@@ -1,7 +1,7 @@
 """The model path of the port: parameter trees, layers, attention, the
 dense GQA decoder and its factory."""
-from .convert import params_from_reference
+from .convert import params_from_reference, params_to_reference
 from .lm import LM
 from .model import build_model
 
-__all__ = ["build_model", "LM", "params_from_reference"]
+__all__ = ["build_model", "LM", "params_from_reference", "params_to_reference"]

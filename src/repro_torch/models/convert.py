@@ -1,23 +1,25 @@
-"""Carry a reference parameter tree into the port's model.
+"""Carry parameter trees between the reference and the port's model.
 
 The reference (``repro.models.lm.LM``) keeps each period position's
 parameters under ``block_<i>`` with a leading ``[n_groups]`` axis; the
 dense models of this slice have period 1, so layer ``l`` is
 ``block_0[l]``.  The port keeps one :class:`~repro_torch.models.lm.Block`
-per layer.
+per layer.  :func:`params_from_reference` carries the reference's tree in;
+:func:`params_to_reference` gives the port's parameters back in the
+reference's layout (to compare models trained on both sides).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..config import ModelConfig
+from ..config import ModelConfig, ParallelConfig
 from ..device import resolve_device
 from .lm import LM
 from .model import check_ported
 from .params import param_at, tree_leaves_with_path
 
-__all__ = ["params_from_reference"]
+__all__ = ["params_from_reference", "params_to_reference"]
 
 
 def _reference_leaf(tree: dict, path: tuple) -> np.ndarray:
@@ -35,7 +37,8 @@ def _reference_leaf(tree: dict, path: tuple) -> np.ndarray:
 
 @torch.no_grad()
 def params_from_reference(cfg: ModelConfig, tree: dict, device=None, *,
-                          use_flash: bool = False) -> LM:
+                          use_flash: bool = False,
+                          par: ParallelConfig | None = None) -> LM:
     """The port's model of ``cfg`` holding the reference's parameters.
 
     ``tree`` is the reference's parameter tree as nested dicts of float32
@@ -45,7 +48,7 @@ def params_from_reference(cfg: ModelConfig, tree: dict, device=None, *,
     """
     dev = resolve_device(device)
     check_ported(cfg)
-    model = LM(cfg, use_flash=use_flash, device=dev)
+    model = LM(cfg, par, use_flash=use_flash, device=dev)
     for path, spec in tree_leaves_with_path(model.param_spec()):
         src = np.array(_reference_leaf(tree, path), np.float32)
         if src.shape != spec.shape:
@@ -53,3 +56,27 @@ def params_from_reference(cfg: ModelConfig, tree: dict, device=None, *,
                              f"{src.shape}, port shape {spec.shape}")
         param_at(model, path).copy_(torch.from_numpy(src).to(spec.dtype))
     return model
+
+
+@torch.no_grad()
+def params_to_reference(model: LM) -> dict:
+    """The model's parameters as the reference's tree (nested dicts; layer
+    ``l`` of each block leaf stacked at ``block_0[...][l]``) of float32
+    numpy arrays: the inverse of :func:`params_from_reference`."""
+    out: dict = {}
+    stacked: dict = {}
+    for path, _ in tree_leaves_with_path(model.param_spec()):
+        x = param_at(model, path).detach().float().cpu().numpy()
+        if path[0] == "blocks":
+            stacked.setdefault(path[2:], {})[int(path[1])] = x
+            continue
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = x
+    for sub, layers in stacked.items():
+        node = out.setdefault("block_0", {})
+        for k in sub[:-1]:
+            node = node.setdefault(k, {})
+        node[sub[-1]] = np.stack([layers[i] for i in range(len(layers))])
+    return out

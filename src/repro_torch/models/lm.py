@@ -6,14 +6,17 @@ parameters on a leading ``[n_groups]`` axis and scans over it; the port
 keeps one :class:`Block` per layer in an ``nn.ModuleList`` and loops
 (``models/convert.py`` maps the reference's stacked tree onto it).  The
 model owns its parameters: ``apply``, ``init_cache`` and ``decode_step``
-take no parameter tree.
+take no parameter tree.  With ``par.remat`` other than ``"none"`` each
+block runs under ``torch.utils.checkpoint`` when gradients are taken: the
+reference's per-group ``jax.checkpoint``, a group being one layer here.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from ..config import ModelConfig
+from ..config import ModelConfig, ParallelConfig
 from ..parallel.sharding import padded
 from . import params as prm
 from .attention import (KVCache, attention_block, attn_spec, decode_attention,
@@ -42,10 +45,11 @@ class LM(nn.Module):
     """Dense GQA decoder: embedding, ``num_layers`` blocks, final norm,
     (tied) unembedding.  Built without values; :meth:`init` draws them."""
 
-    def __init__(self, cfg: ModelConfig, use_flash: bool = False,
-                 device=None):
+    def __init__(self, cfg: ModelConfig, par: ParallelConfig | None = None,
+                 use_flash: bool = False, device=None):
         super().__init__()
         self.cfg = cfg
+        self.par = par or ParallelConfig()
         self.use_flash = use_flash
         self.tp = 1                     # no mesh: one card
         self.vocab_padded = padded(cfg.vocab_size, self.tp * 128)
@@ -106,8 +110,13 @@ class LM(nn.Module):
         if positions is None:
             positions = torch.arange(S, dtype=torch.int32,
                                      device=x.device).expand(B, S)
+        remat = self.par.remat != "none" and torch.is_grad_enabled()
         for bp in self.blocks:
-            x = self._apply_block(bp, x, positions)
+            if remat:
+                x = checkpoint(self._apply_block, bp, x, positions,
+                               use_reentrant=False)
+            else:
+                x = self._apply_block(bp, x, positions)
         x = apply_norm(self.final_norm, x, cfg)
         logits = apply_unembed(self.embed, x, cfg)
         return logits, torch.zeros((), dtype=torch.float32, device=x.device)

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from ..config import ModelConfig
+from ..config import ModelConfig, ParallelConfig
 from ..device import resolve_device
 from .lm import LM
 
@@ -34,13 +34,15 @@ def check_ported(cfg: ModelConfig) -> None:
             f"{cfg.attention!r}, positions {cfg.pos_emb!r} are not ported")
 
 
-def build_model(cfg: ModelConfig, use_flash: bool = False, device=None,
-                seed: int = 0) -> LM:
+def build_model(cfg: ModelConfig, par: ParallelConfig | None = None,
+                use_flash: bool = False, device=None, seed: int = 0) -> LM:
     """The model of ``cfg`` with its parameters drawn on ``device`` (``None``
     is the CUDA card; raises without one) from a generator seeded with
-    ``seed``, by the reference's initializers.  ``use_flash`` routes the
-    prefill attention through the flash kernel."""
+    ``seed``, by the reference's initializers.  ``par.remat`` other than
+    ``"none"`` recomputes each block in the backward; ``use_flash`` routes
+    the full-sequence attention (prefill and training) through the flash
+    kernels."""
     check_ported(cfg)
     dev = resolve_device(device)
-    model = LM(cfg, use_flash=use_flash, device=dev)
+    model = LM(cfg, par, use_flash=use_flash, device=dev)
     return model.init(torch.Generator(device=dev).manual_seed(seed))

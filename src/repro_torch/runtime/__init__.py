@@ -1,4 +1,8 @@
-"""Runtime of the port: the continuous-batching serving engine."""
+"""Runtime of the port: the continuous-batching serving engine and the
+training driver."""
 from .serve import Request, ServeEngine
+from .train import (SimulatedFailure, StragglerMonitor, Trainer,
+                    TrainerReport, make_loss_fn, make_train_step)
 
-__all__ = ["Request", "ServeEngine"]
+__all__ = ["Request", "ServeEngine", "SimulatedFailure", "StragglerMonitor",
+           "Trainer", "TrainerReport", "make_loss_fn", "make_train_step"]
