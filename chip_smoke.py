@@ -7,10 +7,11 @@ window kernel (``tick_window > 1``), with the tiled tick
 (``segsum="onehot"``, ``blk``) on the 512-host grid, the online controller,
 the Alg. 1 switch pipeline, the serving path of h2o-danube-3-4b at full
 width (a 32,768-token prefill through the flash attention kernel, then the
-continuous-batching engine) and its training path at full width (train_4k's
-sequence through the flash forward and backward kernels, AdamW) — phase by
-phase, one line per phase, and exits non-zero at the first phase that
-fails:
+continuous-batching engine), its training path at full width (train_4k's
+sequence through the flash forward and backward kernels, AdamW) and the
+serving path of mamba2-130m at full width (8 x 32,768 tokens through the
+SSD scan kernel, then the engine) — phase by phase, one line per phase,
+and exits non-zero at the first phase that fails:
 
 1. build    compile every kernel library from the checkout (one nvcc per
             source, in parallel, sm_90a); print the card's name and power
@@ -71,32 +72,52 @@ fails:
             and peak memory; then the smoke-width Trainer on the card: the
             loss falls over 30 steps, a checkpoint restart replays the
             straight run, an injected failure recovers
-13. goldens Table 1, 20,000 ticks, seed 3: the ecmp_base and ecmp_sym golden
+13. ssd     the SSD scan kernel against its plain version on the card
+            (y and the final state at the reference's 5e-4): the
+            reference's four SSD_CASES (ragged S 200 included) with float32
+            and with bf16 B/C, through ops.ssd's strided views and on
+            contiguous [B, H, S, P] copies; the main shape (B 8, H 24, S 32,768, P 64,
+            N 128, chunk 128, bf16 B/C); layer 0's own inputs captured from
+            a full-width mamba2 prefill; each launched twice, bit-equal;
+            then five planted faults that must fail the same check
+14. mamba   mamba2-130m at full width (24 layers, d_model 768, bf16
+            weights drawn on the card from seed 0; param_count checked),
+            build_model(cfg, use_ssd_kernel=True): one prefill of 8 x
+            32,768 tokens (24 SSD launches counted) against the plain path's
+            last-token logits, a 256-token prompt decoded token by token
+            against its prefill (both also in float32, where a prefill with
+            a planted scan fault must fail), and 12 requests drained
+            through ServeEngine (8 slots, 4,096 positions), slot 0 against
+            a 1-slot replay of the tokens it was fed
+15. goldens Table 1, 20,000 ticks, seed 3: the ecmp_base and ecmp_sym golden
             finish ticks (two lanes of one grid run) through
             backend="cuda" with tick_window 1 (one tick launch per tick),
             20 (1,000 window launches) and 7 (3,000), and through the tiled
             tick with blk=256 (20,000 tiled launches)
-14. multipod 128-host fat_tree_multipod, 8 seeds as lanes, 2,000 ticks:
+16. multipod 128-host fat_tree_multipod, 8 seeds as lanes, 2,000 ticks:
             backend="cuda" with tick_window 1 and 20 (the main-path runs
             whose launches are counted) against backend="eager"
-15. grid512 the 512-host grid (16 pods; sym off/on x 4 seeds as lanes),
+17. grid512 the 512-host grid (16 pods; sym off/on x 4 seeds as lanes),
             1,000 ticks: the tiled tick (blk=2048, tick_window=1) and the
             window kernel (tick_window=20), their launches counted, against
             their plain versions on the card and against eager
-16. control SimController on the card (Table 1, window_ticks=640,
+18. control SimController on the card (Table 1, window_ticks=640,
             tick_window=20): stepping equals one-shot simulate, tau retuned
             mid-run, checkpoint/restore replays bit for bit
-17. timing  each kernel's device time per launch against its plain
+19. timing  each kernel's device time per launch against its plain
             version's and its bound, at the main paths' shapes (the flash
             forward also against one scaled_dot_product_attention call,
-            the backward kernels against one autograd.grad through it)
-18. profile main-path ticks/s (Table 1 with 1 lane through ``simulate``,
+            the backward kernels against one autograd.grad through it;
+            the SSD kernel has no library counterpart)
+20. profile main-path ticks/s (Table 1 with 1 lane through ``simulate``,
             128 hosts x 8 lanes, 512 hosts x 8 lanes) and where a tick's
             time goes: wall and device-busy time, the busiest kernels; one
             profiled 32,768-token prefill: the flash kernel's, the matrix
             products' and the rest's share of device time; one profiled
             training step: flash forward, dq, dk/dv, matrix products, the
-            optimizer and the rest
+            optimizer and the rest; one profiled mamba2 prefill of 8 x
+            32,768 tokens: the SSD kernel's, the matrix products' and the
+            rest's share
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -104,12 +125,14 @@ The line before the last is the kernel report (JSON); the last line is
     python3 chip_smoke.py              # every phase
     python3 chip_smoke.py build tiled  # a subset (no report lines)
     python3 chip_smoke.py build flash_bwd train   # the training path
+    python3 chip_smoke.py build ssd mamba         # the SSM serving path
 
 It needs one CUDA card and the CUDA toolkit; without a card it exits
 non-zero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import shutil
@@ -147,15 +170,16 @@ RTOL_TPUT = 1e-5
 INT_SERIES = ("finish_ticks", "job_finish_ticks", "ts_min_wire",
               "ts_max_wire", "ts_done_min", "ts_alpha_max")
 PHASES = ("build", "math", "kernel", "window", "tiled", "large", "switch",
-          "flash", "flash_bwd", "prefill", "serve", "train", "goldens",
-          "multipod", "grid512", "control", "timing", "profile")
+          "flash", "flash_bwd", "prefill", "serve", "train", "ssd", "mamba",
+          "goldens", "multipod", "grid512", "control", "timing", "profile")
 # instance tile of the tiled tick at each shape (a multiple of the window)
 BLK = {"table1": 256, "multipod128": 1024, "multipod512": 2048}
 # the shape of each kernel's main path, whose timing goes in the report
 MAIN_SHAPE = {"netsim_tick": "multipod128", "netsim_window": "multipod128",
               "netsim_tiled": "multipod512",
               "switch_pipeline": "P=1000000", "flash_fwd": "S=32768",
-              "flash_dq": "B=2 S=4096", "flash_dkv": "B=2 S=4096"}
+              "flash_dq": "B=2 S=4096", "flash_dkv": "B=2 S=4096",
+              "ssd": "B=8 S=32768"}
 # the reference's FLASH_CASES (tests/test_kernels.py:19-26):
 # (BH, query rows per KV row, S, D, window)
 FLASH_CASES = ((4, 2, 256, 64, 0), (2, 1, 512, 128, 0), (4, 4, 256, 64, 128),
@@ -192,6 +216,47 @@ BWD_WINDOWS = (8192, 1024)      # danube's window (no bite at S 4,096) and
                                 # one that bites
 FLASH_S = 4096                  # danube-headed checks of the plain version
 WARM = 300                      # eager ticks before the kernel checks
+# the reference's SSD_CASES (tests/test_kernels.py:75-80): (B, S, H, P, N,
+# chunk, x drawn in bf16), each run with float32 and with bf16 B/C
+SSD_CASES = ((2, 256, 3, 32, 16, 64, False), (1, 128, 2, 64, 32, 32, False),
+             (2, 200, 2, 32, 16, 64, False), (2, 256, 4, 64, 16, 128, True))
+# the reference's SSD tolerance (tests/test_kernels.py:101-104), atol and
+# rtol, on y and the final state
+SSD_TOL = 5e-4
+# the main path's scan: mamba2-130m's heads, state, head dim and chunk at
+# prefill_32k's sequence, batch cut to MAMBA_B: (B, S, H, P, N, chunk)
+MAMBA_B = 8                     # prefill_32k's batch of 32, cut to 8
+SSD_MAIN = (MAMBA_B, 32768, 24, 64, 128, 128)
+# planted faults of the SSD check, at B = H (so that row bh % H exists)
+SSD_FAULT_SHAPE = (4, 4096, 4, 64, 128, 128)
+SSD_FAULTS = ("state not carried", "diagonal of L dropped",
+              "B/C row bh % H", "off-chunk term without exp(cum)",
+              "state decayed by exp(cum[0])")
+# the reference's bf16 tolerance for the SSM's decode against prefill
+# (tests/test_models.py:127-130: the chunked scan against the per-token
+# recurrence).  At full width bf16 roundings amplify through 24 layers (the
+# gated RMSNorm rescales near-zero head vectors): on an H100, decode vs
+# prefill exceeds it on 10,328 of 12.9 M logits and the kernel vs plain
+# prefill on 45 of 402,432, while every layer's scan passes the kernel
+# check.  So both comparisons are held in float32 to the CPU tests' float32
+# model tolerance (decode vs prefill: 1.1e-3 on logits up to 777 on an
+# H100), and in bf16 as follows, the counts beyond the tolerances above
+# reported.  At this init each row's largest logit is the input token's own
+# (about 776, where a bf16 ulp is 4), so that one logit is held alone,
+# relative to itself, to ECHO_RTOL (four ulps at the foot of its binade);
+# the rest of each row as a relative L2 distance, to BF16_REL_L2; every
+# argmax must agree (on an H100: 0.0055 kernel vs plain, 0.0075 decode vs
+# prefill).  The scan adds little to the logits at this init: a control
+# prefill whose scan in FAULT_LAYER drops the diagonal of L reads 0.0067
+# there, so it is held to fail the float32 check, its bf16 reading
+# reported.
+DECODE_ATOL, DECODE_RTOL = 0.3, 0.15
+F32_ATOL, F32_RTOL = 1e-3, 1e-4
+ECHO_RTOL = 2.0 ** -6
+BF16_REL_L2 = 2e-2
+FAULT_LAYER = 12
+# the served slot replayed alone (slot 0 takes requests 0 and 8)
+REPLAY_SLOT = 0
 
 
 def say(phase: str, msg: str) -> None:
@@ -272,6 +337,37 @@ def chunked_lse(torch, q, k, window: int, scale: float, chunk: int = 512):
     return out
 
 
+def faulty_ssd(torch, x, a, Bm, Cm, chunk: int, n_heads: int, fault: str):
+    """A copy of the plain chunk walk (``ssd_chunked_ref``) with one
+    planted fault of SSD_FAULTS: outputs a broken kernel would give."""
+    BH, S, P = x.shape
+    N, Q = Bm.shape[-1], chunk
+    rows = torch.arange(BH, device=x.device)
+    rows = rows % n_heads if fault == "B/C row bh % H" else rows // n_heads
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril(
+        -1 if fault == "diagonal of L dropped" else 0)
+    zero = torch.zeros((), device=x.device)
+    state = torch.zeros((BH, N, P), device=x.device)
+    y = torch.empty((BH, S, P), device=x.device)
+    for c in range(S // Q):
+        sl = slice(c * Q, (c + 1) * Q)
+        xk = x[:, sl].float()
+        cum = a[:, sl].float().cumsum(-1)
+        Bk, Ck = Bm[rows, sl].float(), Cm[rows, sl].float()
+        if fault == "state not carried":
+            state = torch.zeros_like(state)
+        L = torch.where(tri, torch.exp(cum[:, :, None] - cum[:, None, :]),
+                        zero)
+        off = Ck if fault == "off-chunk term without exp(cum)" else \
+            Ck * torch.exp(cum)[..., None]
+        y[:, sl] = ((Ck @ Bk.transpose(1, 2)) * L) @ xk + off @ state
+        decay = cum[:, 0] if fault == "state decayed by exp(cum[0])" \
+            else cum[:, -1]
+        state = state * torch.exp(decay)[:, None, None] + (
+            Bk * torch.exp(cum[:, -1:] - cum)[..., None]).transpose(1, 2) @ xk
+    return y, state
+
+
 def tensor_bytes(xs) -> int:
     return sum(x.numel() * x.element_size() for x in xs)
 
@@ -339,15 +435,19 @@ class Smoke:
         from repro_torch.kernels.netsim_tick import window as Wn
         from repro_torch.kernels import switch_pipeline as Sp
         from repro_torch.kernels import flash_attention as Fa
+        from repro_torch.kernels import ssd as Sd
         self.T, self.K, self.Rf, self.Wn, self.Tl, self.Sp, self.Fa = \
             T, K, Rf, Wn, Tl, Sp, Fa
+        self.Sd = Sd
         self.dev = torch.device("cuda")
         self.card = "nvidia-smi unavailable"
         self.mid = {}           # (shape, ecmp) -> (ctx, cfg, state, tick)
         self.max_err = {"netsim_tick": 0.0, "netsim_window": 0.0,
                         "netsim_tiled": 0.0, "switch_pipeline": 0.0,
-                        "flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
+                        "flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0,
+                        "ssd": 0.0}
         self.danube = None      # the full-width model of prefill and serve
+        self.mamba_lm = None    # the full-width model of ssd and mamba
         self.launches = {}
         self.rates = {}
         self.reports = []
@@ -1302,7 +1402,457 @@ class Smoke:
                      f" (last loss {a!r} vs {b!r}); one injected failure at "
                      f"step 5 recovered, final loss {rec.final_loss:.4f}")
 
-    # ------------------------------------------------------- 13. goldens
+    # ---------------------------------------- 13. SSD kernel vs plain
+    def ssd_case(self, B, S, H, P, N, bc_dtype, seed=0, x_bf16=False,
+                 a_scale=0.1):
+        """x [B, S, H, P] N(0, 1) float32, a = -|N(0, 1)| * a_scale and B/C
+        [B, S, N] N(0, 1) in ``bc_dtype``, drawn on the card from a
+        torch.Generator seeded with ``seed``: the reference's test inputs
+        (tests/test_kernels.py:86-89)."""
+        torch = self.torch
+        g = torch.Generator(device=self.dev).manual_seed(seed)
+
+        def normal(*shape):
+            return torch.randn(shape, generator=g, device=self.dev)
+
+        x = normal(B, S, H, P)
+        if x_bf16:
+            x = x.bfloat16().float()
+        a = -normal(B, S, H).abs() * a_scale
+        dt = getattr(torch, bc_dtype)
+        return x, a, normal(B, S, N).to(dt), normal(B, S, N).to(dt)
+
+    def plain_ssd(self, x, a, Bm, Cm, chunk, fault=None):
+        """The plain version of ops.ssd on the card: S padded, rows mapped
+        to [B*H, S, P], ``Sd.ssd_chunked_ref`` (or :func:`faulty_ssd` with
+        a planted ``fault``), mapped back.  Returns (y [B, S, H, P], final
+        state [B, H, P, N])."""
+        import torch.nn.functional as F
+        B, S, H, P = x.shape
+        pad = (-S) % chunk
+        if pad:
+            x = F.pad(x, (0, 0, 0, 0, 0, pad))
+            a = F.pad(a, (0, 0, 0, pad))
+            Bm, Cm = F.pad(Bm, (0, 0, 0, pad)), F.pad(Cm, (0, 0, 0, pad))
+        xf = x.transpose(1, 2).reshape(B * H, S + pad, P)
+        af = a.transpose(1, 2).reshape(B * H, S + pad)
+        if fault is None:
+            y, fs = self.Sd.ssd_chunked_ref(xf, af, Bm, Cm, chunk=chunk,
+                                            n_heads=H)
+        else:
+            y, fs = faulty_ssd(self.torch, xf, af, Bm, Cm, chunk, H, fault)
+        return (y.reshape(B, H, S + pad, P).transpose(1, 2)[:, :S],
+                fs.reshape(B, H, -1, P).transpose(-1, -2))
+
+    def ssd_close(self, got, want):
+        """(ok, max abs error, message): y and the final state against the
+        plain version's at the reference's SSD_TOL (atol and rtol)."""
+        torch = self.torch
+        ok, errs = True, []
+        for name, g, w in zip(("y", "state"), got, want):
+            ok &= bool(torch.isfinite(g).all() and torch.allclose(
+                g, w, atol=SSD_TOL, rtol=SSD_TOL))
+            errs.append((g - w).abs().max().item())
+        ymax = want[0].abs().max().item()
+        return ok, max(errs), (f"y {errs[0]:.3g} (|y| max {ymax:.3g}, "
+                               f"relative {errs[0] / max(ymax, 1e-30):.3g}),"
+                               f" state {errs[1]:.3g}")
+
+    def ssd_check(self, name, x, a, Bm, Cm, chunk, layouts=True):
+        """The kernel through ops.ssd (strided [B, H, S, P] views) and, with
+        ``layouts`` (S a multiple of the chunk), through ssd_chunked on
+        contiguous [B, H, S, P] copies, against the plain version; a second
+        launch must give the same bits."""
+        torch, Sd = self.torch, self.Sd
+        want = self.plain_ssd(x, a, Bm, Cm, chunk)
+        got = Sd.ssd(x, a, Bm, Cm, chunk=chunk)
+        again = Sd.ssd(x, a, Bm, Cm, chunk=chunk)
+        runs = [("[B,S,H,P] view", got)]
+        if layouts:
+            y4, fs4 = Sd.ssd_chunked(
+                x.transpose(1, 2).contiguous(), a.transpose(1, 2).contiguous(),
+                Bm, Cm, chunk=chunk, n_heads=x.shape[2])
+            runs.append(("[B,H,S,P] copy", (y4.transpose(1, 2),
+                                            fs4.transpose(-1, -2))))
+        torch.cuda.synchronize()
+        if not all(torch.equal(u, v) for u, v in zip(got, again)):
+            fail("ssd", f"{name}: two launches give different bits")
+        msgs = []
+        for layout, out in runs:
+            ok, err, msg = self.ssd_close(out, want)
+            self.max_err["ssd"] = max(self.max_err["ssd"], err)
+            if not ok:
+                fail("ssd", f"{name} {layout}: {msg}")
+            msgs.append(f"{layout} {msg}")
+        say("ssd", f"{name}: max abs err {'; '.join(msgs)}; bit-equal on a "
+                   f"second launch (tolerance {SSD_TOL})")
+        return want
+
+    def ssd(self):
+        torch, Sd = self.torch, self.Sd
+        saved = Sd.ssd_chunked.launches
+        for B, S, H, P, N, Q, x_bf16 in SSD_CASES:
+            for bc in ("float32", "bfloat16"):
+                x, a, Bm, Cm = self.ssd_case(B, S, H, P, N, bc, x_bf16=x_bf16)
+                self.ssd_check(f"B={B} S={S} H={H} P={P} N={N} chunk={Q} "
+                               f"B/C {bc}", x, a, Bm, Cm, Q,
+                               layouts=S % Q == 0)
+        # the main path's shape
+        B, S, H, P, N, Q = SSD_MAIN
+        x, a, Bm, Cm = self.ssd_case(B, S, H, P, N, "bfloat16")
+        self.ssd_check(f"main shape B={B} H={H} S={S} P={P} N={N} chunk={Q}"
+                       f", B/C bf16, N(0,1) inputs", x, a, Bm, Cm, Q,
+                       layouts=False)
+        del x, a, Bm, Cm
+        # layer 0's own inputs from a full-width prefill
+        x, a, Bm, Cm = self.mamba_layer0_inputs()
+        self.ssd_check(f"layer 0 of a {x.shape[0]} x {x.shape[1]} mamba2 "
+                       f"prefill (a in [{a.min().item():.3g}, "
+                       f"{a.max().item():.3g}], B/C {Bm.dtype})", x, a, Bm,
+                       Cm, Q, layouts=False)
+        del x, a, Bm, Cm
+        self.ssd_faults()
+        Sd.ssd_chunked.launches = saved
+        say("ssd", f"max abs error, kernel vs plain: {self.max_err['ssd']}")
+
+    def ssd_faults(self):
+        """Outputs of planted faults, made with a copy of the plain chunk
+        walk, must fail the check the kernel passes (B = H = 4 so that the
+        row-index fault reads rows that exist)."""
+        B, S, H, P, N, Q = SSD_FAULT_SHAPE
+        x, a, Bm, Cm = self.ssd_case(B, S, H, P, N, "bfloat16", seed=3)
+        want = self.plain_ssd(x, a, Bm, Cm, Q)
+        caught = []
+        for fault in SSD_FAULTS:
+            passes, _, msg = self.ssd_close(
+                self.plain_ssd(x, a, Bm, Cm, Q, fault=fault), want)
+            if passes:
+                fail("ssd", f"planted fault passes the check: {fault}: {msg}")
+            caught.append(f"{fault}: {msg}")
+        say("ssd", f"planted faults at B={B} H={H} S={S} P={P} N={N} chunk="
+                   f"{Q}, each failing the check: " + "; ".join(caught))
+
+    # --------------------------------------------- 14. mamba2 at full width
+    def mamba_model(self):
+        """mamba2-130m at full width, bf16 weights drawn on the card from
+        seed 0, with the SSD kernel on."""
+        if self.mamba_lm is None:
+            from repro_torch.config import param_count
+            from repro_torch.configs import registry
+            from repro_torch.models import build_model
+            cfg = registry.get_config("mamba2_130m")
+            t0 = time.time()
+            self.mamba_lm = build_model(cfg, use_ssd_kernel=True, seed=0)
+            self.torch.cuda.synchronize()
+            n = sum(p.numel() for p in self.mamba_lm.parameters())
+            pad = (self.mamba_lm.vocab_padded - cfg.vocab_size) * cfg.d_model
+            if n - pad != param_count(cfg):
+                fail("mamba", f"{n:,} parameters built, {pad:,} of them "
+                              f"vocab padding; param_count "
+                              f"{param_count(cfg):,}")
+            say("mamba", f"{cfg.name}: {cfg.num_layers} layers, d_model "
+                         f"{cfg.d_model}, state {cfg.ssm.d_state}, head dim "
+                         f"{cfg.ssm.head_dim}, chunk {cfg.ssm.chunk_size}; "
+                         f"{n:,} parameters drawn on the card in "
+                         f"{time.time() - t0:.1f} s: param_count "
+                         f"{param_count(cfg):,} plus {pad:,} of the "
+                         f"embedding's vocab padding ({cfg.vocab_size} -> "
+                         f"{self.mamba_lm.vocab_padded})")
+        return self.mamba_lm
+
+    def mamba_tokens(self):
+        import numpy as np
+        cfg = self.mamba_model().cfg
+        return self.torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (MAMBA_B, PREFILL_S))).to(self.dev)
+
+    def mamba_layer0_inputs(self):
+        """Layer 0's scan inputs (xs, a, Bm, Cm) as the model's prefill of
+        MAMBA_B x 32,768 tokens hands them to ops.ssd, captured there (the
+        prefill stops at that call)."""
+        import repro_torch.models.ssm as ssm_mod
+        torch = self.torch
+        model = self.mamba_model()
+        tokens = self.mamba_tokens()
+        held = {}
+
+        class Captured(Exception):
+            pass
+
+        def capture(*args, **kw):
+            held["args"] = args
+            raise Captured
+
+        real, ssm_mod.ssd = ssm_mod.ssd, capture
+        try:
+            with torch.inference_mode():
+                model.apply(tokens)
+        except Captured:
+            pass
+        finally:
+            ssm_mod.ssd = real
+        return held["args"]
+
+    def logit_spread(self, what, got, want, tokens):
+        """bf16 logits of two paths ([..., vocab], ``tokens`` [...] each
+        row's input token).  (passes, message): the input token's logit
+        within ECHO_RTOL of itself, the rest of each row within
+        BF16_REL_L2 (relative L2), every argmax equal; the message also
+        gives the largest error over the row's median |logit| and the
+        counts beyond the model tolerances."""
+        torch = self.torch
+        got, want = got.float(), want.float()
+        col = tokens.long().unsqueeze(-1)
+        we = want.gather(-1, col)
+        echo = ((got.gather(-1, col) - we).abs() /
+                we.abs().clamp_min(1e-30)).max().item()
+        rest = torch.ones_like(want, dtype=torch.bool).scatter_(-1, col, False)
+        d = (got - want).where(rest, 0)
+        w = want.where(rest, 0)
+        rel = (d.norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)).max().item()
+        med = (d.abs().amax(-1) / w.abs().median(-1).values.clamp_min(1e-30)
+               ).max().item()
+        err = (got - want).abs()
+        out = [int((err > a + r * want.abs()).sum())
+               for a, r in ((MODEL_ATOL, MODEL_RTOL),
+                            (DECODE_ATOL, DECODE_RTOL))]
+        same = bool(got.argmax(-1).eq(want.argmax(-1)).all())
+        ok = bool(torch.isfinite(got).all()) and same and \
+            echo <= ECHO_RTOL and rel <= BF16_REL_L2
+        return ok, (
+            f"{what} in bf16: input token's logit rel err {echo:.3g} "
+            f"(tolerance {ECHO_RTOL}); other logits rel L2 {rel:.3g} "
+            f"(tolerance {BF16_REL_L2}), max abs err {med:.3g} x the row's "
+            f"median |logit|; argmax agrees: {same}; max abs err "
+            f"{err.max().item():.4g} (|logit| max "
+            f"{want.abs().max().item():.4g}); {out[0]} of {err.numel()} "
+            f"outside atol {MODEL_ATOL} rtol {MODEL_RTOL}, {out[1]} outside "
+            f"atol {DECODE_ATOL} rtol {DECODE_RTOL}; argmax is the input "
+            f"token: {bool(want.argmax(-1).eq(tokens).all())}")
+
+    def hold_logits(self, *args):
+        ok, msg = self.logit_spread(*args)
+        say("mamba", msg)
+        if not ok:
+            fail("mamba", msg)
+
+    @contextlib.contextmanager
+    def planted(self, fault):
+        """Within: layer FAULT_LAYER's scan on the kernel route is the plain
+        chunk walk with a planted ``fault`` (one prefill at a time)."""
+        import repro_torch.models.ssm as ssm_mod
+        scan, seen = ssm_mod.ssd, [0]
+
+        def faulty(x, a, Bm, Cm, *, chunk):
+            seen[0] += 1
+            if seen[0] - 1 == FAULT_LAYER:
+                return self.plain_ssd(x, a, Bm, Cm, chunk, fault=fault)
+            return scan(x, a, Bm, Cm, chunk=chunk)
+
+        ssm_mod.ssd = faulty
+        try:
+            yield
+        finally:
+            ssm_mod.ssd = scan
+
+    def mamba_float32(self, fn):
+        """``fn(model)`` on the full-width model in float32 (weights
+        widened, exactly restored after)."""
+        model = self.mamba_model()
+        cfg = model.cfg
+        saved = {n: p.data for n, p in model.named_parameters()}
+        model.cfg = dataclasses.replace(cfg, dtype="float32")
+        for p in model.parameters():
+            p.data = p.data.float()
+        try:
+            return fn(model)
+        finally:
+            model.cfg = cfg
+            for n, p in model.named_parameters():
+                p.data = saved[n]
+
+    def decode_and_prefill(self, model, toks):
+        """Logits of ``toks`` [1, T] decoded token by token
+        (decode_step, ssm_decode) and prefilled through the kernel, float32
+        [1, T, vocab] each."""
+        torch = self.torch
+        T = toks.shape[1]
+        with torch.inference_mode():
+            full, _ = model.apply(toks)
+            cache = model.init_cache(1, T)
+            outs = []
+            for t in range(T):
+                lg, cache = model.decode_step(
+                    cache, toks[:, t:t + 1],
+                    torch.full((1,), t, dtype=torch.int32, device=self.dev))
+                outs.append(lg[:, 0])
+        return torch.stack(outs, 1).float(), full.float()
+
+    def mamba(self):
+        import numpy as np
+        torch, Sd = self.torch, self.Sd
+        from repro_torch.config import ServeConfig
+        from repro_torch.runtime import Request, ServeEngine
+        model = self.mamba_model()
+        cfg = model.cfg
+        tokens = self.mamba_tokens()
+        B, S = tokens.shape
+
+        def last_logits(use_kernel, toks):
+            model.use_ssd_kernel = use_kernel
+            with torch.inference_mode():
+                logits, _ = model.apply(toks)
+                last = logits[:, -1].float()
+            model.use_ssd_kernel = True
+            return last, tuple(logits.shape)
+
+        with torch.inference_mode():
+            model.apply(tokens[:1, :1024])          # warm-up: cuBLAS, caches
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        Sd.ssd_chunked.launches = 0                 # main path starts
+        t0 = time.time()
+        last, shape = last_logits(True, tokens)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        n = Sd.ssd_chunked.launches                 # main path ends
+        peak = torch.cuda.max_memory_allocated()
+        if n != cfg.num_layers or shape != (B, S, model.vocab_padded) or \
+                not torch.isfinite(last).all():
+            fail("mamba", f"{n} SSD launches for {cfg.num_layers} layers, "
+                          f"logits {shape}, finite: "
+                          f"{bool(torch.isfinite(last).all())}")
+        self.launches["ssd"] = n
+        self.rates["mamba_prefill"] = (B * S / secs, peak)
+        say("mamba", f"prefill {B} x {S} tokens: {n} SSD launches, "
+                     f"{secs:.3f} s, {B * S / secs:,.0f} tokens/s, peak "
+                     f"memory {peak / 2**30:.2f} GiB; card {self.card}")
+        # the whole prefill on the plain path
+        torch.cuda.synchronize()
+        t0 = time.time()
+        last_ref, _ = last_logits(False, tokens)
+        torch.cuda.synchronize()
+        secs_ref = time.time() - t0
+        say("mamba", f"plain path: {secs_ref:.3f} s "
+                     f"({B * S / secs_ref:,.0f} tokens/s)")
+        self.hold_logits(f"last-token logits of {B} rows, kernel vs plain",
+                         last, last_ref, tokens[:, -1])
+        # a planted fault's bf16 reading (held in float32 below)
+        saved = Sd.ssd_chunked.launches
+        fault = "diagonal of L dropped"
+        with self.planted(fault):
+            bad, _ = last_logits(True, tokens)
+        say("mamba", "reading only: " + self.logit_spread(
+            f"control ({fault} in layer {FAULT_LAYER}) vs plain", bad,
+            last_ref, tokens[:, -1])[1])
+        # decode against prefill on a fresh 1-slot cache
+        T = 256
+        rng = np.random.default_rng(0)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, T))).to(
+            self.dev)
+        dec, full = self.decode_and_prefill(model, toks)
+        self.hold_logits(f"{T}-token prompt, all logits, decode_step "
+                         "(ssm_decode) vs the kernel's prefill", dec[0],
+                         full[0], toks[0])
+
+        # The same two comparisons in float32, where no bf16 rounding
+        # amplifies the paths' float32 differences through 24 layers: held
+        # to the CPU tests' float32 model tolerance, which the planted
+        # fault must fail.
+        def in_float32(m32):
+            a, _ = last_logits(True, tokens[:1])
+            b, _ = last_logits(False, tokens[:1])
+            with self.planted(fault):
+                c, _ = last_logits(True, tokens[:1])
+            return (a, b), self.decode_and_prefill(m32, toks), (c, b)
+
+        pairs = list(zip((f"last-token logits of 1 x {S}, kernel vs plain",
+                          f"{T}-token prompt, all logits, decode vs prefill",
+                          f"control ({fault} in layer {FAULT_LAYER}) vs "
+                          "plain"), self.mamba_float32(in_float32)))
+        Sd.ssd_chunked.launches = saved
+        for k, (what, (a, b)) in enumerate(pairs):
+            err = (a - b).abs().max().item()
+            ok = bool(torch.isfinite(a).all()) and torch.allclose(
+                a, b, atol=F32_ATOL, rtol=F32_RTOL)
+            if ok == (k == 2):
+                fail("mamba", f"{what} in float32: max abs err {err}")
+            say("mamba", f"{what} in float32: max abs err {err:.3g} (|logit|"
+                         f" max {b.abs().max().item():.4g}; atol {F32_ATOL} "
+                         f"rtol {F32_RTOL}){'; fails, as it must' * (k == 2)}")
+        # serving: danube's serving cell
+        eng = ServeEngine(model, ServeConfig(batch=8, max_seq=4096))
+        reqs = [Request(i, rng.integers(0, cfg.vocab_size,
+                                        int(rng.integers(32, 97))).astype(
+                                            np.int32), max_new_tokens=32)
+                for i in range(12)]
+        for r in reqs:
+            eng.submit(r)
+        calls, fed, last = [0], [], [None]
+        decode = eng._decode
+
+        def counted(tokens):
+            calls[0] += 1
+            fed.append(tokens[REPLAY_SLOT, 0])
+            last[0] = decode(tokens)
+            return last[0]
+
+        eng._decode = counted
+        torch.cuda.synchronize()
+        t0 = time.time()
+        done = eng.run_until_drained()
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        outs = [len(r.out) for r in reqs]
+        finite = all(bool(torch.isfinite(c.state).all()) for c in eng.cache)
+        if len(done) != 12 or outs != [32] * 12 or not finite or not all(
+                0 <= t < model.vocab_padded for r in reqs for t in r.out):
+            fail("mamba", f"serving: {len(done)} of 12 requests done, tokens "
+                          f"{outs}, states finite: {finite}")
+        n_prompt = sum(len(r.prompt) for r in reqs)
+        n_new = sum(outs)
+        steps = calls[0] - n_prompt
+        self.rates["mamba_serve"] = (calls[0] / secs, steps / secs,
+                                     n_new / secs)
+        say("mamba", f"serving 12 requests ({n_prompt} prompt tokens, 8 "
+                     f"slots, max_seq 4096) drained in {secs:.2f} s: "
+                     f"{calls[0]} decode_step calls ({calls[0] / secs:.1f}/s)"
+                     f", {steps} decode steps ({steps / secs:.2f} steps/s), "
+                     f"{n_new} new tokens ({n_new / secs:.1f} tokens/s)")
+        self.serve_replay(model, eng, fed, last[0][REPLAY_SLOT])
+
+    def serve_replay(self, model, eng, fed, logits):
+        """Slot REPLAY_SLOT of the served run (a reused slot, stepped on
+        token 0 while other slots took prompt tokens) against a 1-slot
+        decode of the tokens that slot was fed, call by call: its last
+        logits held as the other bf16 logits are, and every layer's state
+        and conv window to BF16_REL_L2 (relative L2)."""
+        torch = self.torch
+        cache = model.init_cache(1, eng.scfg.max_seq)
+        zero = torch.zeros(1, dtype=torch.int32, device=self.dev)
+        t0 = time.time()
+        with torch.inference_mode():
+            for t in fed:
+                lg, cache = model.decode_step(cache, torch.full(
+                    (1, 1), int(t), dtype=torch.int32, device=self.dev), zero)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        rel = max((u[REPLAY_SLOT].float() - v[0].float()).norm().item() /
+                  max(v[0].float().norm().item(), 1e-30)
+                  for c, r in zip(eng.cache, cache)
+                  for u, v in ((c.state, r.state), (c.conv, r.conv)))
+        self.hold_logits(f"serving slot {REPLAY_SLOT}'s last logits vs a "
+                         f"1-slot replay of its {len(fed)} tokens",
+                         logits[-1], lg[0, -1], torch.tensor(
+                             int(fed[-1]), device=self.dev))
+        say("mamba", f"serving slot {REPLAY_SLOT} vs the 1-slot replay "
+                     f"({secs:.1f} s): every layer's state and conv window "
+                     f"within rel L2 {rel:.3g} (tolerance {BF16_REL_L2})")
+        if not rel <= BF16_REL_L2:
+            fail("mamba", f"serving slot {REPLAY_SLOT}'s caches vs the "
+                          f"1-slot replay: rel L2 {rel}")
+
+    # ------------------------------------------------------- 15. goldens
     def goldens(self):
         torch, T, K, Wn = self.torch, self.T, self.K, self.Wn
         topo, wl, cfg = table1(T)
@@ -1347,7 +1897,7 @@ class Smoke:
                            f"ticks, {nt} tick + {nw} window + {ntl} tiled "
                            f"launches, {cfg.n_ticks / secs:.1f} ticks/s")
 
-    # --------------------------------------------- 14. 128-host, 8 lanes
+    # --------------------------------------------- 16. 128-host, 8 lanes
     def multipod(self):
         torch, T, K, Wn = self.torch, self.T, self.K, self.Wn
         topo, wl, cfg = multipod128(T)
@@ -1392,7 +1942,7 @@ class Smoke:
                             f"{rate:.1f} ticks/s ({rate * 8:.1f} "
                             "lane-ticks/s)")
 
-    # --------------------------------------- 15. 512 hosts, 8 lanes, tiled
+    # --------------------------------------- 17. 512 hosts, 8 lanes, tiled
     def grid512(self):
         torch, T, Tl, Wn, Rf = self.torch, self.T, self.Tl, self.Wn, self.Rf
         from repro_torch.kernels.netsim_tick import ops
@@ -1468,7 +2018,7 @@ class Smoke:
                        + (f", first at tick {first}" if first is not None
                           else "") + f"; throughput max abs diff {err}")
 
-    # ------------------------------------------------------- 16. control
+    # ------------------------------------------------------- 18. control
     def control(self):
         torch, T, Wn = self.torch, self.T, self.Wn
         topo, wl, cfg = table1(T)
@@ -1518,7 +2068,7 @@ class Smoke:
                        f"for bit (alpha max {oa.stats.alpha_max:.0f}, queue "
                        f"max {oa.stats.qmax:.0f} B)")
 
-    # -------------------------------------------------------- 17. timing
+    # -------------------------------------------------------- 19. timing
     def timing(self):
         torch, K, Rf, Wn, Tl = self.torch, self.K, self.Rf, self.Wn, self.Tl
         from repro_torch.core.netsim.stages import stage_starts
@@ -1625,6 +2175,7 @@ class Smoke:
                                         "state walk runs on the host)")
         self.timing_flash()
         self.timing_flash_bwd()
+        self.timing_ssd()
 
     def timing_flash(self):
         """The flash kernel at the main path's shape (danube's heads, S =
@@ -1725,6 +2276,49 @@ class Smoke:
                           f"{tps:,.0f} tokens/s, peak memory "
                           f"{peak / 2**30:.2f} GiB; card {self.card}")
 
+    def timing_ssd(self):
+        """The SSD kernel at the main path's shape (SSD_MAIN, B/C bf16,
+        strided [B, H, S, P] views of [B, S, H, P] as ops.ssd passes them)
+        and its plain version on [B*H, S, P] copies.  No single PyTorch
+        call computes the scan: no library time."""
+        torch, Sd = self.torch, self.Sd
+        B, S, H, P, N, Q = SSD_MAIN
+        x, a, Bm, Cm = self.ssd_case(B, S, H, P, N, "bfloat16")
+        xv, av = x.transpose(1, 2), a.transpose(1, 2)
+        saved = Sd.ssd_chunked.launches
+        k_dev, k_wall = timed(lambda: Sd.ssd_chunked(
+            xv, av, Bm, Cm, chunk=Q, n_heads=H), 5, torch)
+        Sd.ssd_chunked.launches = saved
+        xf = xv.reshape(B * H, S, P).contiguous()
+        af = av.reshape(B * H, S).contiguous()
+        del xv, av
+        p_dev, p_wall = timed(lambda: Sd.ssd_chunked_ref(
+            xf, af, Bm, Cm, chunk=Q, n_heads=H), 1, torch)
+        del xf, af
+        # x, a, B and C read once, y and the final state written once.
+        # What the function needs: C B^T once per (row, chunk), it and
+        # (G * L) x over the causal triangle only, C state from the second
+        # chunk on (the entering state is 0), the state update every chunk.
+        # The kernel does more: C B^T per head and both products over the
+        # full square, C state in every chunk.
+        nbytes = 4 * B * S * H * (2 * P + 1) + 2 * 2 * B * S * N + \
+            4 * B * H * N * P
+        nc = S // Q
+        tri = Q * (Q + 1) // 2
+        ops = B * nc * 2 * tri * N + B * H * (
+            nc * (2 * tri * P + 2 * Q * N * P) + (nc - 1) * 2 * Q * N * P)
+        ops_kernel = B * H * nc * (2 * Q * Q * N + 2 * Q * Q * P +
+                                   4 * Q * N * P)
+        self.report(f"B={B} S={S}", "ssd", "ssd.cu",
+                    "src/repro/kernels/ssd/kernel.py:24", k_dev, k_wall,
+                    p_dev, p_wall, nbytes, ops, 1,
+                    note=f"(H={H}, P={P}, N={N}, chunk {Q}, B/C bf16; bound "
+                         "counts C B^T once per row and the causal triangle;"
+                         " what the kernel does, C B^T per head over the "
+                         "full square, would take "
+                         f"{ops_kernel / F32_OPS_PER_S * 1e3:.6f} ms)")
+        del x, a, Bm, Cm
+
     def sdpa_bwd_ms(self, q, k, v, do):
         """One torch.autograd.grad through one causal
         scaled_dot_product_attention call on the same inputs, the KV heads
@@ -1780,7 +2374,7 @@ class Smoke:
                          if library_ms is not None else "")
                       + f", card {self.card}")
         if shape == MAIN_SHAPE[name]:
-            pkg = {"switch_pipeline": "switch_pipeline"}.get(
+            pkg = {"switch_pipeline": "switch_pipeline", "ssd": "ssd"}.get(
                 name, "flash_attention" if name.startswith("flash")
                 else "netsim_tick")
             self.reports.append(dict(
@@ -1793,7 +2387,7 @@ class Smoke:
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 library_ms=library_ms))
 
-    # ------------------------------------------------------ 18. profile
+    # ------------------------------------------------------ 20. profile
     def profile(self):
         torch, T = self.torch, self.T
         from repro_torch.core.netsim.simulator import _window_body
@@ -1854,6 +2448,7 @@ class Smoke:
                        f" (tick_window=20); card {self.card}")
         self.profile_prefill()
         self.profile_train()
+        self.profile_mamba()
 
     def profile_prefill(self):
         """One profiled 32,768-token prefill of the full-width model: the
@@ -1946,6 +2541,38 @@ class Smoke:
                                    f"({100 * t / busy:.1f}%)"
                                    for n, t in parts))
         top = sorted(by_a.items(), key=lambda kv: -kv[1][1])[:6]
+        for name, (n, t) in top:
+            say("profile", f"  {t / 1e3:.3f} ms  {n} launches  {name[:80]}")
+
+    def profile_mamba(self):
+        """One profiled mamba2-130m prefill of MAMBA_B x 32,768 tokens: the
+        SSD kernel's, the matrix products' and the rest's (conv, SiLU,
+        norms, casts) share of device time."""
+        torch = self.torch
+        model = self.mamba_model()
+        tokens = self.mamba_tokens()
+        with torch.inference_mode():
+            model.apply(tokens[:1, :1024])
+            wall_us, by_name = profile_ticks(lambda: model.apply(tokens),
+                                             torch)
+        busy = sum(t for _, t in by_name.values())
+        ssd = sum(t for name, (_, t) in by_name.items()
+                  if "ssd_kernel" in name)
+        mm = sum(t for name, (_, t) in by_name.items()
+                 if "ssd_kernel" not in name and any(
+                     w in name.lower() for w in ("gemm", "xmma", "nvjet",
+                                                 "cutlass", "matmul")))
+        rest = busy - ssd - mm
+        B, S = tokens.shape
+        say("profile", f"mamba2 prefill {B} x {S} tokens (SSD kernel): "
+                       f"{wall_us / 1e3:.1f} ms wall, device busy "
+                       f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}% "
+                       f"busy), {sum(n for n, _ in by_name.values())} device "
+                       f"kernels; SSD kernel {ssd / 1e3:.1f} ms "
+                       f"({100 * ssd / busy:.1f}%), matrix products "
+                       f"{mm / 1e3:.1f} ms ({100 * mm / busy:.1f}%), rest "
+                       f"{rest / 1e3:.1f} ms ({100 * rest / busy:.1f}%)")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
         for name, (n, t) in top:
             say("profile", f"  {t / 1e3:.3f} ms  {n} launches  {name[:80]}")
 

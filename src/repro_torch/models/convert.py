@@ -2,8 +2,11 @@
 
 The reference (``repro.models.lm.LM``) keeps each period position's
 parameters under ``block_<i>`` with a leading ``[n_groups]`` axis; the
-dense models of this slice have period 1, so layer ``l`` is
-``block_0[l]``.  The port keeps one :class:`~repro_torch.models.lm.Block`
+dense and SSM models ported so far have period 1, so layer ``l`` is
+``block_0[l]`` (mixer leaves under ``attn`` or ``ssm``).  Each leaf takes
+its ``ParamSpec``'s dtype: bf16, or float32 for the norms and the SSM's
+``dt_bias``, ``A_log``, ``D`` and ``norm``, as the reference declares
+them.  The port keeps one :class:`~repro_torch.models.lm.Block`
 per layer.  :func:`params_from_reference` carries the reference's tree in;
 :func:`params_to_reference` gives the port's parameters back in the
 reference's layout (to compare models trained on both sides).
@@ -38,6 +41,7 @@ def _reference_leaf(tree: dict, path: tuple) -> np.ndarray:
 @torch.no_grad()
 def params_from_reference(cfg: ModelConfig, tree: dict, device=None, *,
                           use_flash: bool = False,
+                          use_ssd_kernel: bool = False,
                           par: ParallelConfig | None = None) -> LM:
     """The port's model of ``cfg`` holding the reference's parameters.
 
@@ -48,7 +52,8 @@ def params_from_reference(cfg: ModelConfig, tree: dict, device=None, *,
     """
     dev = resolve_device(device)
     check_ported(cfg)
-    model = LM(cfg, par, use_flash=use_flash, device=dev)
+    model = LM(cfg, par, use_flash=use_flash, use_ssd_kernel=use_ssd_kernel,
+               device=dev)
     for path, spec in tree_leaves_with_path(model.param_spec()):
         src = np.array(_reference_leaf(tree, path), np.float32)
         if src.shape != spec.shape:

@@ -13,8 +13,7 @@ __all__ = ["build_model", "check_ported", "NOT_PORTED"]
 # (queue 1 item 1, "left" list) that ports it
 NOT_PORTED = {
     "moe": "moe.py: ROADMAP queue 1 item 1, left 3",
-    "ssm": "ssm.py with _ssd_kernel: ROADMAP queue 1 item 1, left 2",
-    "hybrid": "ssm.py and moe.py: ROADMAP queue 1 item 1, left 2-3",
+    "hybrid": "moe.py: ROADMAP queue 1 item 1, left 3",
     "encdec": "encdec.py: ROADMAP queue 1 item 1, left 3",
     "vlm": "M-RoPE: ROADMAP queue 1 item 1, left 3",
     "mla": "mla.py: ROADMAP queue 1 item 1, left 3",
@@ -27,22 +26,27 @@ def check_ported(cfg: ModelConfig) -> None:
         if key in NOT_PORTED:
             raise NotImplementedError(
                 f"{cfg.name}: {key} is not ported yet ({NOT_PORTED[key]})")
-    if cfg.family != "dense" or cfg.attention != "gqa" or \
-            cfg.pos_emb != "rope":
+    dense = (cfg.family, cfg.attention, cfg.pos_emb) == ("dense", "gqa",
+                                                         "rope")
+    ssm = (cfg.family, cfg.attention, cfg.pos_emb) == ("ssm", "none", "none")
+    if not (dense or ssm):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r}, attention "
             f"{cfg.attention!r}, positions {cfg.pos_emb!r} are not ported")
 
 
 def build_model(cfg: ModelConfig, par: ParallelConfig | None = None,
-                use_flash: bool = False, device=None, seed: int = 0) -> LM:
+                use_flash: bool = False, use_ssd_kernel: bool = False,
+                device=None, seed: int = 0) -> LM:
     """The model of ``cfg`` with its parameters drawn on ``device`` (``None``
     is the CUDA card; raises without one) from a generator seeded with
     ``seed``, by the reference's initializers.  ``par.remat`` other than
     ``"none"`` recomputes each block in the backward; ``use_flash`` routes
     the full-sequence attention (prefill and training) through the flash
-    kernels."""
+    kernels, ``use_ssd_kernel`` the SSM mixer's prefill scan through the
+    SSD kernel (forward only: training raises there)."""
     check_ported(cfg)
     dev = resolve_device(device)
-    model = LM(cfg, par, use_flash=use_flash, device=dev)
+    model = LM(cfg, par, use_flash=use_flash, use_ssd_kernel=use_ssd_kernel,
+               device=dev)
     return model.init(torch.Generator(device=dev).manual_seed(seed))

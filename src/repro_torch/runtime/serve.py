@@ -4,8 +4,20 @@ The port of ``repro/runtime/serve.py``.  Prompts are prefilled token by
 token through ``model.decode_step`` (as the reference does); decode steps
 run the whole active batch.  Slots free as requests hit max_tokens and are
 refilled from the queue — the standard continuous-batching loop.  Decode
-runs under ``torch.inference_mode()`` and writes the KV caches in place
+runs under ``torch.inference_mode()`` and writes the caches in place
 (where the reference donates them to a jitted step).
+
+As in the reference, admitting a request resets only its slot's position,
+and every prompt token runs the whole batch with token 0 in the other
+slots.  A KV cache is unharmed by that (the stray write lands at the other
+slot's unchanged position and is overwritten by its next real step); an
+SSM cache is not: a reused slot starts from the previous request's state
+and conv window, and each prompt token of a new request steps every other
+active slot's state once on token 0.  The port reproduces this.
+
+Unlike the reference, which drops a KV-cache write past the cache's end
+and attends over stale entries, the engine raises ``ValueError`` on the
+host before a decode step would write such a position.
 """
 from __future__ import annotations
 
@@ -46,6 +58,11 @@ class ServeEngine:
         self.scfg = scfg
         B, S = scfg.batch, scfg.max_seq
         self.cache = model.init_cache(B, S)
+        cfg = model.cfg
+        # positions a KV cache holds (None: the model has no attention)
+        self.kv_len = model.kv_cache_len(S) if any(
+            cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers)) \
+            else None
         self.pos = np.zeros(B, np.int32)
         self.active: list[Request | None] = [None] * B
         self.queue: deque[Request] = deque()
@@ -53,6 +70,14 @@ class ServeEngine:
     @torch.inference_mode()
     def _decode(self, tokens: np.ndarray) -> torch.Tensor:
         """One decode step of every slot; returns logits [B, 1, vocab]."""
+        if self.kv_len is not None:
+            w = self.model.cfg.sliding_window
+            out = (self.pos % w if w else self.pos) >= self.kv_len
+            if out.any():
+                raise ValueError(
+                    f"ServeEngine: position {int(self.pos[out][0])} falls "
+                    f"outside the KV cache of {self.kv_len} positions "
+                    f"(max_seq {self.scfg.max_seq}, window {w or 'none'})")
         dev = self.device
         logits, self.cache = self.model.decode_step(
             self.cache, torch.from_numpy(tokens).to(dev),

@@ -273,11 +273,30 @@ def test_init_matches_reference_distributions(reference):
 
 @pytest.mark.parametrize("arch", [a for a in registry.ARCHS
                                   if a not in (ARCH, "nemotron_4_15b",
-                                               "nemotron_4_340b")])
+                                               "nemotron_4_340b",
+                                               "mamba2_130m")])
 def test_build_model_raises_for_unported(arch):
     cfg = registry.get_config(arch, smoke=True)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 1"):
         build_model(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+def test_build_model_builds_mamba(smoke):
+    """mamba2-130m builds on the CPU with the closed-form count (the
+    reference's), plus the rows that pad its vocabulary to a multiple of
+    128 (50,280 -> 50,304 at full width)."""
+    cfg = registry.get_config("mamba2_130m", smoke=smoke)
+    assert param_count(cfg) == r_param_count(
+        r_registry.get_config("mamba2_130m", smoke=smoke))
+    if not smoke:
+        assert param_count(cfg) == 128_940_480
+    model = build_model(cfg, use_ssd_kernel=True, device="cpu")
+    built = sum(p.numel() for p in model.parameters())
+    pad = (model.vocab_padded - cfg.vocab_size) * cfg.d_model
+    assert built - pad == param_count(cfg)
+    assert model.use_ssd_kernel and len(model.blocks) == cfg.num_layers
+    assert all(set(b._modules) == {"ln1", "ssm"} for b in model.blocks)
 
 
 def test_default_device_needs_a_card(reference):

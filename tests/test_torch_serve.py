@@ -138,3 +138,28 @@ def test_model_on_another_device_raises():
     model = build_model(registry.get_config(ARCH, smoke=True), device="cpu")
     with pytest.raises(ValueError, match="the model is on cpu"):
         ServeEngine(model, ServeConfig(batch=2, max_seq=16), device="meta")
+
+
+@pytest.mark.parametrize("window", [0, 64])
+def test_prompt_past_the_kv_cache_raises(window):
+    """A 9-token prompt into an 8-position KV cache (max_seq 8; with
+    danube's window of 64 the cache still holds min(8, 64) positions)
+    raises on the host before the ninth write, where the reference drops
+    the write silently."""
+    cfg = dataclasses.replace(registry.get_config(ARCH, smoke=True),
+                              sliding_window=window)
+    model = build_model(cfg, device="cpu")
+    eng = ServeEngine(model, ServeConfig(batch=2, max_seq=8), device="cpu")
+    calls = []
+    decode = model.decode_step
+
+    def counted(*args):
+        calls.append(int(args[2].max()))
+        return decode(*args)
+
+    model.decode_step = counted
+    eng.submit(Request(0, np.arange(9, dtype=np.int32)))
+    with pytest.raises(ValueError, match="outside the KV cache of 8"):
+        eng.step()
+    assert calls == list(range(8))      # positions 0-7 written, 8 refused
+
