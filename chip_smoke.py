@@ -15,7 +15,8 @@ and exits non-zero at the first phase that fails:
 
 1. build    compile every kernel library from the checkout (one nvcc per
             source, in parallel, sm_90a); print the card's name and power
-            limit from nvidia-smi
+            limit from nvidia-smi, and each bf16 flash backward kernel's
+            registers, local (spill) bytes, shared memory and threads
 2. math     the window kernel's expf/log1pf against torch's CUDA exp/log1p
             over the ranges the tick feeds them (ulps reported)
 3. kernel   the single-tick kernel against its plain torch version on the
@@ -107,8 +108,9 @@ and exits non-zero at the first phase that fails:
 19. timing  each kernel's device time per launch against its plain
             version's and its bound, at the main paths' shapes (the flash
             forward also against one scaled_dot_product_attention call,
-            the backward kernels against one autograd.grad through it;
-            the SSD kernel has no library counterpart)
+            the backward kernels against one autograd.grad through it,
+            also as the pair's sum over that call's time; the SSD kernel
+            has no library counterpart)
 20. profile main-path ticks/s (Table 1 with 1 lane through ``simulate``,
             128 hosts x 8 lanes, 512 hosts x 8 lanes) and where a tick's
             time goes: wall and device-busy time, the busiest kernels; one
@@ -124,7 +126,7 @@ The line before the last is the kernel report (JSON); the last line is
 
     python3 chip_smoke.py              # every phase
     python3 chip_smoke.py build tiled  # a subset (no report lines)
-    python3 chip_smoke.py build flash_bwd train   # the training path
+    python3 chip_smoke.py build flash_bwd train timing   # training path
     python3 chip_smoke.py build ssd mamba         # the SSM serving path
 
 It needs one CUDA card and the CUDA toolkit; without a card it exits
@@ -465,11 +467,24 @@ class Smoke:
         if smi.stdout.strip():
             self.card = smi.stdout.strip().splitlines()[0]
         for name, (_, log) in libs.items():
-            for line in log.splitlines():
-                if "registers" in line or "spill" in line:
+            for line in log.splitlines():   # C75xx: wgmma serialized
+                if "registers" in line or "spill" in line or "C75" in line:
                     say("build", f"{name}: {line.strip()}")
         say("build", f"{', '.join(libs)} built in {time.time() - t0:.1f} s "
                      "(in parallel)")
+        for which, kname in (("dq", "flash_dq_bf16"),
+                             ("dkv", "flash_dkv_bf16")):
+            for dp in (64, 128):
+                info = self.Fa.bwd_kernel_info(which, torch.bfloat16, dp)
+                say("build", f"flash_bwd: {kname}<{dp}>: "
+                             f"{info['registers']} registers a thread at "
+                             f"launch (setmaxnreg moves them between "
+                             f"warpgroups), {info['local_bytes']} bytes of "
+                             f"local memory (spills), {info['smem_bytes']:,} "
+                             f"bytes of dynamic shared memory, "
+                             f"{info['threads']} threads")
+                if info["local_bytes"]:
+                    fail("build", f"{kname}<{dp}> spills to local memory")
         print(self.card, flush=True)
         from repro_torch.core.netsim.stages import ordered_segment_sum
         g = torch.Generator().manual_seed(0)
@@ -996,17 +1011,28 @@ class Smoke:
             return dq * c, dk, dv
 
         def dq_without_last_tile():
-            # the dq kernel's last visible key tile of each 64-row query
-            # tile is the diagonal one: take its share out of dq
-            T, n = 64, S // 64
-            qt = fq.float().view(-1, n, T, D)
-            kt = fk.float().repeat_interleave(g, 0).view(-1, n, T, D)
-            vt = fv.float().repeat_interleave(g, 0).view(-1, n, T, D)
-            dot = fdo.float().view(-1, n, T, D)
-            delta = (fdo.float() * fo.float()).sum(-1).view(-1, n, T, 1)
+            # the dq kernel's last visible key tile of each query block
+            # (DQ_TILE: TQ query rows a block, TK keys a tile) is the one
+            # that ends on the block's diagonal: take its share out of dq
+            TQ, TK = Fa.DQ_TILE
+            n = S // TQ
+            last = {Fa.visible_tiles("dq", i, S, w)[1] * TK - i * TQ
+                    for i in range(n)}
+            if last != {TQ - TK}:
+                fail("flash_bwd", f"last visible key tiles start at {last} "
+                                  f"within their query blocks, not "
+                                  f"{TQ - TK}")
+            qt = fq.float().view(-1, n, TQ, D)
+            kt, vt = (x.float().repeat_interleave(g, 0).view(
+                -1, n, TQ, D)[:, :, TQ - TK:] for x in (fk, fv))
+            dot = fdo.float().view(-1, n, TQ, D)
+            delta = (fdo.float() * fo.float()).sum(-1).view(-1, n, TQ, 1)
             s = torch.einsum("btqd,btkd->btqk", qt, kt) / math.sqrt(D)
-            tri = torch.ones(T, T, dtype=torch.bool, device=self.dev).tril()
-            p = torch.where(tri, torch.exp(s - lse3.view(-1, n, T, 1)),
+            # key TQ - TK + kk of the block is visible from row qq when
+            # TQ - TK + kk <= qq (the window, w > TQ, does not bite here)
+            r = torch.arange(TQ, device=self.dev)
+            vis = r[None, :TK] + TQ - TK <= r[:, None]
+            p = torch.where(vis, torch.exp(s - lse3.view(-1, n, TQ, 1)),
                             torch.zeros((), device=self.dev))
             dp = torch.einsum("btqd,btkd->btqk", dot, vt)
             ds = p * (dp - delta) / math.sqrt(D)
@@ -2268,6 +2294,10 @@ class Smoke:
                     item * B * S * D * (2 * hq + 4 * hkv) + stats,
                     8 * D * pairs, 1, note=note, peak=BF16_OPS_PER_S,
                     library_ms=lib)
+        say("timing", f"flash backward pair (dq + dk/dv) {dq_dev + dkv_dev:.4f}"
+                      f" ms against one scaled_dot_product_attention "
+                      f"backward {lib:.4f} ms: {(dq_dev + dkv_dev) / lib:.2f}x "
+                      f"its time; card {self.card}")
         del q, k, v, o, lse, do, views, call
         if "train" in self.rates:
             tps, ms, peak = self.rates["train"]

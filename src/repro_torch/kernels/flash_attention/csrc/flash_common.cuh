@@ -1,7 +1,8 @@
-// Helpers shared by the flash attention kernels (flash_fwd.cu, flash_bwd.cu):
-// the causal/window mask, 16-byte tile loads into shared memory with the head
-// dim zero-padded, bf16 fragment loads and packing, mma.sync m16n8k16, and
-// sums over the four threads of a fragment row.
+// Helpers of the flash attention kernels: the causal/window mask and
+// 16-byte tile loads into shared memory with the head dim zero-padded
+// (flash_fwd.cu, and flash_bwd.cu's float32 kernels), bf16 fragment loads
+// and packing, mma.sync m16n8k16, and sums over the four threads of a
+// fragment row (flash_fwd.cu).
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16x16): a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..),
@@ -9,7 +10,7 @@
 //   B (16x8):  b0 = (k 2t..2t+1, n g), b1 = (k 2t+8..2t+9, n g)
 //   C (16x8):  c0, c1 = (g, 2t..2t+1), c2, c3 = (g+8, 2t..2t+1)
 // so the C fragments of two adjacent 8-column blocks are the A fragment of
-// one 16-deep step of the next product (pack_c_as_a).
+// one 16-deep step of the next product.
 
 #pragma once
 
@@ -57,35 +58,6 @@ __device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo,
   h.x = lo;
   h.y = hi;
   return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// The A fragment of the 16x16 tile whose thread-own element (g, 2t) is at
-// `p` (row-major, rows `ld` apart): p = tile + g * ld + 2 * t.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4],
-                                       const __nv_bfloat16* p, int ld) {
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
-
-// The A fragment of a 16x16 tile held as the C fragments of its two 8-column
-// halves (c[0] columns 0-7, c[1] columns 8-15), rounded to bf16.
-__device__ __forceinline__ void pack_c_as_a(uint32_t (&a)[4],
-                                            const float (&c0)[4],
-                                            const float (&c1)[4]) {
-  a[0] = pack2(c0[0], c0[1]);
-  a[1] = pack2(c0[2], c0[3]);
-  a[2] = pack2(c1[0], c1[1]);
-  a[3] = pack2(c1[2], c1[3]);
-}
-
-// The B fragment (k x n = 16 x 8) read from a row-major [k][n] tile at
-// p = tile + 2t * ld + g: two k-adjacent elements per register.
-__device__ __forceinline__ void load_b_kn(uint32_t& b0, uint32_t& b1,
-                                          const __nv_bfloat16* p, int ld) {
-  b0 = pack2(p[0], p[ld]);
-  b1 = pack2(p[8 * ld], p[9 * ld]);
 }
 
 // d += a * b for one 16x8x16 tile (A row-major, B column-major).

@@ -27,12 +27,18 @@ from .. import _build
 from .ref import attention_bwd_ref, attention_ref
 
 __all__ = ["flash_fwd", "flash_bwd", "BwdCall", "build", "BLOCK",
-           "MAX_HEAD_DIM"]
+           "MAX_HEAD_DIM", "DQ_TILE", "DKV_TILE", "visible_tiles",
+           "bwd_kernel_info"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BLOCK = 128            # the reference's sequence block: S must be a multiple
 MAX_HEAD_DIM = 128
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+# The bf16 backward kernels' tiles (csrc/flash_bwd.cu): (query rows, keys).
+# dq: a block of 128 query rows walks stages of 64 keys; dk/dv: a block of
+# 128 keys walks stages of 64 query rows.
+DQ_TILE = (128, 64)
+DKV_TILE = (64, 128)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -49,6 +55,8 @@ def _bind_bwd(lib: ctypes.CDLL) -> None:
     lib.flash_bwd_dq_launch.restype = ctypes.c_int
     lib.flash_bwd_dkv_launch.argtypes = [p] * 8 + tail
     lib.flash_bwd_dkv_launch.restype = ctypes.c_int
+    lib.flash_bwd_kernel_info.argtypes = [ctypes.c_int] * 3 + [p]
+    lib.flash_bwd_kernel_info.restype = ctypes.c_int
 
 
 _build.register("flash_fwd", CSRC, _bind)
@@ -58,6 +66,45 @@ _build.register("flash_bwd", CSRC, _bind_bwd)
 def build() -> tuple[ctypes.CDLL, str]:
     """The loaded forward library, compiled first if need be."""
     return _build.build("flash_fwd")
+
+
+def visible_tiles(kind: str, index: int, S: int, window: int = 0,
+                  causal: bool = True) -> tuple[int, int]:
+    """The first and last tile a bf16 backward block walks, as the kernels
+    compute them (``key_tiles``/``query_tiles`` in ``csrc/flash_bwd.cu``):
+    for ``kind="dq"`` the 64-key tiles that query block ``index`` (128
+    rows) can see, for ``kind="dkv"`` the 64-row query tiles that can see
+    key block ``index`` (128 keys).  Tiles in between may still be wholly
+    masked for one consumer's 64 rows; the kernels skip those too."""
+    if kind == "dq":
+        rows, keys = DQ_TILE
+        q0 = index * rows
+        last = min(S - 1, q0 + rows - 1) if causal else S - 1
+        first = max(0, q0 - window + 1) if window else 0
+        return first // keys, last // keys
+    if kind == "dkv":
+        rows, keys = DKV_TILE
+        k0 = index * keys
+        first = k0 if causal else 0
+        last = min(S - 1, k0 + keys - 1 + window - 1) if window else S - 1
+        return first // rows, last // rows
+    raise ValueError(f"visible_tiles: kind is 'dq' or 'dkv', not {kind!r}")
+
+
+def bwd_kernel_info(which: str, dtype: torch.dtype, head_dim: int
+                    ) -> dict[str, int]:
+    """What the compiler made of a backward kernel (``which`` "dq" or
+    "dkv") for ``dtype`` and ``head_dim``: registers and local (spill)
+    bytes a thread, dynamic shared memory and threads a block.  Builds the
+    library if need be (on a machine with the CUDA toolkit)."""
+    out = (ctypes.c_int * 4)()
+    lib, _ = _build.build("flash_bwd")
+    rc = lib.flash_bwd_kernel_info({"dq": 0, "dkv": 1}[which],
+                                   _DTYPES[dtype], head_dim, out)
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_kernel_info failed: CUDA error {rc}")
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "threads"),
+                    out))
 
 
 def _check(q, k, v, fn: str = "flash_fwd") -> None:
@@ -193,6 +240,18 @@ def flash_bwd(q, k, v, o, lse, do, *, window: int = 0, causal: bool = True):
     return call.grads
 
 
+def _row_stats(lse, o4, do4) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' per-row float32 inputs, [B, Hq, S] and contiguous: lse
+    (copied where it does not start on a 16-byte boundary, since the dk/dv
+    kernel copies its rows in 256-byte bulk loads) and ``delta =
+    rowsum(do * o)``."""
+    B, Hq, S, _ = o4.shape
+    lse = lse.reshape(B, Hq, S).contiguous()
+    if lse.data_ptr() % 16:
+        lse = lse.clone()
+    return lse, (do4.float() * o4.float()).sum(-1).contiguous()
+
+
 class BwdCall:
     """One backward on the card, prepared once: the float32 ``delta =
     rowsum(do * o)`` pre-pass, the outputs (shaped, strided and typed like
@@ -209,8 +268,7 @@ class BwdCall:
             x.unsqueeze(0) if x.dim() == 3 else x
             for x in (q, k, v, o, do) + self.grads)
         B, Hq, S, _ = q4.shape
-        self._lse = lse.reshape(B, Hq, S).contiguous()
-        self._delta = (do4.float() * o4.float()).sum(-1).contiguous()
+        self._lse, self._delta = _row_stats(lse, o4, do4)
         strides = _strides("flash_bwd", (("q", q4), ("k", k4), ("v", v4),
                                          ("do", do4), ("dq", dq4),
                                          ("dk", dk4), ("dv", dv4)))

@@ -17,7 +17,10 @@ is held at 5e-4 in float32 and at bf16's rounding (2e-2) in bf16.
 the reference's ``flash_attention`` at ``test_flash_grads_match_ref``'s
 shape (``tests/test_kernels.py:49-70``: B 2, S 256, 4/2 heads, D 64), at
 its tolerance of 5e-4.  The kernels themselves are held against the plain
-version on the card by ``chip_smoke.py`` (*flash_bwd*).
+version on the card by ``chip_smoke.py`` (*flash_bwd*); here the Python
+that surrounds them is: the tile ranges the bf16 kernels walk
+(``visible_tiles``, against the mask), the tile constants against the CUDA
+source, and the per-row inputs the wrapper prepares.
 """
 import functools
 
@@ -192,3 +195,73 @@ def test_flash_bwd_rejects_what_the_kernels_do_not_take(bad):
         lse = torch.zeros(4, 128, 1)
     with pytest.raises(exc):
         FK.flash_bwd(q, k, k, o, lse, do)
+
+
+def _seen_tiles(kind, index, S, window, causal):
+    """Brute force: the first and last tile of the other side that holds a
+    visible (query, key) pair with block ``index``."""
+    rows, keys = FK.DQ_TILE if kind == "dq" else FK.DKV_TILE
+    q = np.arange(S)[:, None]
+    k = np.arange(S)[None, :]
+    vis = np.ones((S, S), bool)
+    if causal:
+        vis &= k <= q
+    if window:
+        vis &= k > q - window
+    if kind == "dq":
+        seen = np.flatnonzero(vis[index * rows:(index + 1) * rows].any(0))
+        return seen.min() // keys, seen.max() // keys
+    seen = np.flatnonzero(vis[:, index * keys:(index + 1) * keys].any(1))
+    return seen.min() // rows, seen.max() // rows
+
+
+@pytest.mark.parametrize("kind", ["dq", "dkv"])
+@pytest.mark.parametrize("window,causal", [(0, True), (64, True),
+                                           (128, True), (1024, True),
+                                           (0, False), (200, False)])
+def test_visible_tiles_match_the_mask(kind, window, causal):
+    """The tile ranges the bf16 backward kernels walk, mirrored by
+    ``visible_tiles``, are exactly the tiles that hold a visible pair."""
+    S = 1024
+    block = FK.DQ_TILE[0] if kind == "dq" else FK.DKV_TILE[1]
+    for index in range(S // block):
+        assert FK.visible_tiles(kind, index, S, window, causal) == \
+            _seen_tiles(kind, index, S, window, causal), index
+
+
+def test_visible_tiles_rejects_an_unknown_kind():
+    with pytest.raises(ValueError):
+        FK.visible_tiles("dk", 0, 256)
+
+
+def test_tiles_match_the_cuda_source():
+    """DQ_TILE and DKV_TILE are the constants csrc/flash_bwd.cu uses."""
+    import re
+    src = (FK.CSRC / "flash_bwd.cu").read_text()
+    const = {name: int(v) for name, v in re.findall(
+        r"constexpr int (DQ_ROWS|DQ_KEYS|DKV_KEYS|DKV_ROWS) = (\d+);", src)}
+    assert FK.DQ_TILE == (const["DQ_ROWS"], const["DQ_KEYS"])
+    assert FK.DKV_TILE == (const["DKV_ROWS"], const["DKV_KEYS"])
+    # whole query blocks and key blocks for every S the wrapper takes
+    assert FK.BLOCK % FK.DQ_TILE[0] == 0 and FK.BLOCK % FK.DKV_TILE[1] == 0
+
+
+def test_row_stats_align_lse_and_sum_delta():
+    """lse comes back [B, Hq, S] on a 16-byte boundary (the dk/dv kernel
+    bulk-copies its rows) with the same values; delta is rowsum(do * o) in
+    float32."""
+    rng = np.random.default_rng(1)
+    o = torch.from_numpy(rng.standard_normal((2, 4, 128, 64), np.float32))
+    do = torch.from_numpy(rng.standard_normal((2, 4, 128, 64), np.float32))
+    flat = torch.from_numpy(rng.standard_normal(2 * 4 * 128 + 1,
+                                                np.float32))
+    lse = flat[1:].view(2, 4, 128)              # 4 bytes past the storage
+    assert lse.data_ptr() % 16
+    got_lse, delta = FK._row_stats(lse, o.bfloat16(), do.bfloat16())
+    assert got_lse.data_ptr() % 16 == 0 and got_lse.is_contiguous()
+    assert torch.equal(got_lse, lse)
+    want = (do.bfloat16().float() * o.bfloat16().float()).sum(-1)
+    assert delta.dtype == torch.float32 and delta.shape == (2, 4, 128)
+    torch.testing.assert_close(delta, want, atol=1e-5, rtol=1e-5)
+    aligned = lse.clone()
+    assert FK._row_stats(aligned, o, do)[0].data_ptr() == aligned.data_ptr()
