@@ -15,14 +15,21 @@ and exits non-zero at the first phase that fails:
 
 1. build    compile every kernel library from the checkout (one nvcc per
             source, in parallel, sm_90a); print the card's name and power
-            limit from nvidia-smi, and each bf16 flash backward kernel's
-            registers, local (spill) bytes, shared memory and threads
+            limit from nvidia-smi, each bf16 flash backward kernel's
+            registers, local (spill) bytes, shared memory and threads, and
+            the tick and window kernels' registers, stack, spills and
+            shared memory for both instantiations (link ids in shared or
+            in global memory) from ptxas's report; a spill fails
 2. math     the window kernel's expf/log1pf against torch's CUDA exp/log1p
             over the ranges the tick feeds them (ulps reported)
 3. kernel   the single-tick kernel against its plain torch version on the
             card, on mid-run states (300 eager ticks first) at the Table-1
             shape and the 128-host fat_tree_multipod shape (8 lanes),
-            sym_on/pq_on on and off (as lanes) and per_step_ecmp on and off
+            sym_on/pq_on on and off (as lanes) and per_step_ecmp on and off;
+            per shape the most active instances and the longest link-row
+            and Symphony-row segments of a tick (what the kernel's row
+            sorts see), and per output the float elements whose bits
+            differ from the plain version
 4. window   the window kernel against its plain version (eager ticks) on
             the card from the same mid-run states: windows of 20 and 7
 5. tiled    the tiled kernel against its plain version on mid-run states:
@@ -31,7 +38,8 @@ and exits non-zero at the first phase that fails:
             (blk=2048), 8 lanes each
 6. large    the tick and window kernels at 256 and 512 hosts (8 lanes),
             whose link ids live in global memory, against their plain
-            versions: 10 ticks, windows of 20 and 7
+            versions: 3 ticks, windows of 20 and 7; active instances,
+            longest segments and bit-differing elements as in kernel
 7. switch   the switch-pipeline kernel against its plain version at 8,000
             packets on both marking paths; then the entry point on a
             1,000,000-packet trace (its main path, launches counted)
@@ -126,6 +134,7 @@ The line before the last is the kernel report (JSON); the last line is
 
     python3 chip_smoke.py              # every phase
     python3 chip_smoke.py build tiled  # a subset (no report lines)
+    python3 chip_smoke.py build kernel window large   # tick and window
     python3 chip_smoke.py build flash_bwd train timing   # training path
     python3 chip_smoke.py build ssd mamba         # the SSM serving path
 
@@ -169,11 +178,20 @@ RTOL = 1e-6
 # The window kernel's per-job throughput sample is a block reduction, in
 # another order than torch's sum(dim=2).
 RTOL_TPUT = 1e-5
+# the tick kernel's float outputs and the window kernel's float state
+FLOAT_OUTPUTS = ("eff", "offered", "q", "p_red", "s_psnwin", "s_alpha",
+                 "s_cnt", "s_cntop", "sent", "rate", "target", "alpha_cc",
+                 "lam")
 INT_SERIES = ("finish_ticks", "job_finish_ticks", "ts_min_wire",
               "ts_max_wire", "ts_done_min", "ts_alpha_max")
 PHASES = ("build", "math", "kernel", "window", "tiled", "large", "switch",
           "flash", "flash_bwd", "prefill", "serve", "train", "ssd", "mamba",
           "goldens", "multipod", "grid512", "control", "timing", "profile")
+# (F, FW, H, L+1, J, DJ) of the multipod grids the tick and window kernels
+# run at 128 hosts (ids in shared memory) and 512 hosts (ids in global
+# memory); kernel and large check them against the builders'
+NETSIM_DIMS = {"multipod128": (128, 8192, 6, 449, 1, 17),
+               "multipod512": (512, 32768, 6, 1793, 1, 65)}
 # instance tile of the tiled tick at each shape (a multiple of the window)
 BLK = {"table1": 256, "multipod128": 1024, "multipod512": 2048}
 # the shape of each kernel's main path, whose timing goes in the report
@@ -485,6 +503,7 @@ class Smoke:
                              f"{info['threads']} threads")
                 if info["local_bytes"]:
                     fail("build", f"{kname}<{dp}> spills to local memory")
+        self.netsim_build_report(libs)
         print(self.card, flush=True)
         from repro_torch.core.netsim.stages import ordered_segment_sum
         g = torch.Generator().manual_seed(0)
@@ -498,6 +517,43 @@ class Smoke:
             fail("build", "ordered_segment_sum on the card differs from the "
                           "CPU order")
         say("build", "ordered_segment_sum on the card equals the CPU order")
+
+    def netsim_build_report(self, libs):
+        """Registers, stack, spills and shared memory of the tick and
+        window kernels, each instantiation (link ids in shared or in global
+        memory), from ptxas's report; fails on a spill."""
+        from repro_torch.kernels import _build
+        K, Wn = self.K, self.Wn
+        for lib in ("netsim_tick", "netsim_window"):
+            entries = _build.ptxas_entries(libs[lib][1])
+            for ids_smem, shape in ((True, "multipod128"),
+                                    (False, "multipod512")):
+                F, FW, H, L1, J, DJ = NETSIM_DIMS[shape]
+                split = K.hot_smem_split(FW, H, L1, J, DJ) \
+                    if lib == "netsim_tick" else \
+                    Wn.window_smem_split(F, FW, H, L1, J, DJ)
+                if (split.ids == 0) != ids_smem:
+                    fail("build", f"{lib} at {shape}: ids in "
+                                  f"{'global' if split.ids else 'shared'} "
+                                  "memory, not as expected")
+                tag = f"{lib}_kernelILb{int(ids_smem)}E"
+                found = [v for k, v in entries.items() if tag in k]
+                if len(found) != 1:
+                    fail("build", f"no ptxas report of {tag} in the build "
+                                  "log")
+                e = found[0]
+                say("build", f"{lib}_kernel<IDS_SMEM={str(ids_smem).lower()}>"
+                             f": {e['registers']} registers a thread, "
+                             f"{e['stack']} bytes of stack frame, "
+                             f"{e['spill_stores']} / {e['spill_loads']} "
+                             f"bytes of spill stores / loads, "
+                             f"{e['smem']} bytes of static and "
+                             f"{split.smem:,} of dynamic shared memory and "
+                             f"{split.ws:,} bytes of global workspace a "
+                             f"lane at {shape}")
+                if e["spill_stores"] or e["spill_loads"]:
+                    fail("build", f"{lib}_kernel<{ids_smem}> spills to "
+                                  "local memory")
 
     # ----------------------------------------------------------- 2. math
     def math(self):
@@ -562,6 +618,39 @@ class Smoke:
             fail(phase, f"{what}: max abs err {err}")
         return err
 
+    def entry_stats(self, ctx, args, out) -> tuple[int, int, int]:
+        """``(active instances, longest link-row segment, longest
+        Symphony-row segment)`` of a tick, the most over its lanes: the
+        sizes the tick and window kernels' row sorts and walks see."""
+        torch = self.torch
+        step, sent, _, done_upto = args[:4]
+        job, flow = ctx.inst_job.long(), ctx.inst_flow.long()
+        sched = ctx.wl.chunk_sched
+        iseg = torch.div(step, ctx.sps_i, rounding_mode="floor") * \
+            ctx.nph_i + ctx.phase_i
+        chunk = sched[job, iseg.clamp(0, sched.shape[1] - 1)]
+        occupied = step >= 0
+        active = occupied & (sent < chunk) & ~(step < done_upto[:, flow])
+        links = out.iroute.long()                       # [B, FW, H]
+        dj = ctx.st.link_dom.gather(1, links.reshape(ctx.B, -1)).reshape(
+            links.shape).long() * ctx.J + job[None, :, None]
+        lane = torch.arange(ctx.B, device=step.device)[:, None, None]
+        keep = active[..., None].expand_as(links)
+        L1 = ctx.L + 1
+        lrow = torch.bincount((links + lane * L1)[keep],
+                              minlength=ctx.B * L1)
+        srow = torch.bincount((dj + lane * ctx.DJ)[keep],
+                              minlength=ctx.B * ctx.DJ)
+        return (int(active.sum(1).max()), int(lrow.max()), int(srow.max()))
+
+    def bits_differ(self, x, y) -> int:
+        """Elements of two float32 tensors whose bits differ (0 for
+        integer tensors, which compare() holds exactly)."""
+        if x.dtype != self.torch.float32:
+            return 0
+        i32 = self.torch.int32
+        return int((x.view(i32) != y.view(i32)).sum())
+
     # -------------------------------------------- 3. tick kernel vs plain
     def kernel(self):
         torch, K, Rf = self.torch, self.K, self.Rf
@@ -571,6 +660,9 @@ class Smoke:
         for shape in ("table1", "multipod128"):
             for ecmp in (True, False):
                 ctx, ecfg, state, t0 = self.mid_state(shape, ecmp)
+                self.check_dims("kernel", ctx, shape)
+                bits = {}
+                stats = (0, 0, 0)
                 with torch.no_grad():
                     for tick in range(t0, t0 + 10):
                         starts = stage_starts(ctx, state, tick)
@@ -584,15 +676,40 @@ class Smoke:
                                          f"tick {tick}: {f}", getattr(out, f),
                                          getattr(ref, f),
                                          kernel="netsim_tick")
+                        self.count_bits(bits, out, ref)
+                        stats = tuple(map(max, stats, self.entry_stats(
+                            ctx, args, ref)))
                         state, _ = engine_tick_eager(ctx, ecfg, state, tick,
                                                      False)
                 active = int((starts.step_of >= 0).sum())
                 say("kernel", f"{shape} lanes={ctx.B} per_step_ecmp={ecmp}: "
                               f"ticks {t0}-{t0 + 9} equal (ints exact, "
                               f"floats rtol {RTOL}); {active} occupied "
-                              "instances")
+                              f"instances; a tick's most: {stats[0]} active "
+                              f"instances a lane of {ctx.FW}, longest link-"
+                              f"row segment {stats[1]}, longest Symphony-row "
+                              f"segment {stats[2]}")
+                self.say_bits("kernel", shape, bits)
         say("kernel", "max abs float error kernel vs plain: "
                       f"{self.max_err['netsim_tick']}")
+
+    def check_dims(self, phase, ctx, shape):
+        """The builders give a shape the dimensions NETSIM_DIMS says."""
+        if shape in NETSIM_DIMS and NETSIM_DIMS[shape] != (
+                ctx.F, ctx.FW, ctx.H, ctx.L + 1, ctx.J, ctx.DJ):
+            fail(phase, f"{shape}: dimensions differ from NETSIM_DIMS")
+
+    def count_bits(self, bits, out, ref):
+        """Add each float field's count of bit-differing elements."""
+        for f in out._fields:
+            bits[f] = bits.get(f, 0) + self.bits_differ(getattr(out, f),
+                                                        getattr(ref, f))
+
+    def say_bits(self, phase, what, bits):
+        say(phase, f"{what}: float elements whose bits differ from the "
+                   "plain version, summed over the checked ticks: "
+                   + ", ".join(f"{f} {n}" for f, n in bits.items()
+                               if f in FLOAT_OUTPUTS))
 
     # ------------------------------------------ 4. window kernel vs plain
     def window(self):
@@ -677,7 +794,10 @@ class Smoke:
             if not split.ids:
                 fail("large", f"{shape}: expected the link ids in global "
                               "memory")
+            self.check_dims("large", ctx, shape)
             tick_state = state
+            bits, wbits = {}, {}
+            stats = (0, 0, 0)
             with torch.no_grad():
                 for tick in range(t0, t0 + 3):
                     starts = stage_starts(ctx, tick_state, tick)
@@ -690,8 +810,16 @@ class Smoke:
                         self.compare("large", f"{shape} tick {tick}: {f}",
                                      getattr(out, f), getattr(ref, f),
                                      kernel="netsim_tick")
+                    self.count_bits(bits, out, ref)
+                    stats = tuple(map(max, stats, self.entry_stats(
+                        ctx, args, ref)))
                     tick_state, _ = engine_tick_eager(ctx, ecfg, tick_state,
                                                       tick, False)
+            say("large", f"{shape}: a tick's most: {stats[0]} active "
+                         f"instances a lane of {ctx.FW}, longest link-row "
+                         f"segment {stats[1]}, longest Symphony-row segment "
+                         f"{stats[2]}")
+            self.say_bits("large", f"{shape} tick kernel", bits)
             base = t0
             for n in (20, 7):
                 kst, ksm = Wn.netsim_window(ctx, ecfg, state, base, n)
@@ -702,6 +830,7 @@ class Smoke:
                     self.compare("large", f"{what}: state {f}",
                                  getattr(kst, f), getattr(rst, f),
                                  kernel="netsim_window")
+                self.count_bits(wbits, kst, rst)
                 for i, (x, y) in enumerate(zip(ksm, rsm)):
                     self.compare("large", f"{what}: sample {i}", x, y,
                                  rtol=RTOL_TPUT if i == 3 else RTOL,
@@ -712,6 +841,7 @@ class Smoke:
                          f"global memory a lane, {split.smem} bytes of shared"
                          f" memory; tick kernel ticks {t0}-{t0 + 2} and "
                          f"windows of 20 and 7 equal the plain versions")
+            self.say_bits("large", f"{shape} window kernel (state)", wbits)
 
     # -------------------------------------------------- 7. switch pipeline
     def switch_trace(self, n: int, seed: int):

@@ -14,13 +14,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 from typing import Callable, NamedTuple
 
 __all__ = ["NVCC_FLAGS", "SMEM_LIMIT", "register", "build_all", "build",
-           "registered"]
+           "registered", "ptxas_entries"]
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "--fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -73,8 +74,8 @@ def build_all(names=None) -> dict[str, tuple[ctypes.CDLL, str]]:
     are not built yet and load them.  A library is compiled once per
     version of its sources (its file name carries :func:`_tag`) and loaded
     once per process.  Returns ``{name: (library, compiler log)}``; a log
-    holds ptxas's register and shared-memory report (empty when nothing
-    was compiled)."""
+    holds ptxas's register, spill and shared-memory report of the build
+    that made the library (kept beside it as ``<library>.log``)."""
     names = tuple(_REGISTRY) if names is None else tuple(names)
     unknown = [n for n in names if n not in _REGISTRY]
     if unknown:
@@ -100,6 +101,7 @@ def build_all(names=None) -> dict[str, tuple[ctypes.CDLL, str]]:
         if proc.returncode != 0:
             failed.append(name)
         else:
+            so.with_suffix(".log").write_text(logs[name])
             os.replace(tmp, so)
     if failed:
         raise RuntimeError("nvcc failed on " + ", ".join(
@@ -108,6 +110,9 @@ def build_all(names=None) -> dict[str, tuple[ctypes.CDLL, str]]:
         lib = ctypes.CDLL(str(paths[name]))
         _REGISTRY[name].bind(lib)
         _loaded[name] = lib
+        log = paths[name].with_suffix(".log")
+        if name not in logs and log.exists():
+            logs[name] = log.read_text()
     return {name: (_loaded[name], logs.get(name, "")) for name in names}
 
 
@@ -117,3 +122,26 @@ def build(name: str) -> tuple[ctypes.CDLL, str]:
     if name in _loaded:
         return _loaded[name], ""
     return build_all((name,))[name]
+
+
+def ptxas_entries(log: str) -> dict[str, dict[str, int]]:
+    """What ptxas's ``-v`` report in a build log says of each entry
+    function (by its mangled name): ``registers`` a thread, ``stack``
+    frame, ``spill_stores`` and ``spill_loads`` bytes, and static ``smem``
+    bytes (dynamic shared memory is the launch's and is not in the
+    report)."""
+    out: dict[str, dict[str, int]] = {}
+    parts = re.split(r"Compiling entry function '([^']+)'", log)
+    for name, body in zip(parts[1::2], parts[2::2]):
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", body)
+        regs = re.search(r"Used (\d+) registers", body)
+        smem = re.search(r"(\d+) bytes smem", body)
+        if not (frame and regs):
+            continue
+        out[name] = dict(registers=int(regs.group(1)),
+                         stack=int(frame.group(1)),
+                         spill_stores=int(frame.group(2)),
+                         spill_loads=int(frame.group(3)),
+                         smem=int(smem.group(1)) if smem else 0)
+    return out

@@ -17,14 +17,17 @@
 //
 // What the design does about it.  It keeps everything a tick reduces over on
 // chip: the [L+1] link rows, [DJ] Symphony rows and [J] job rows, the
-// per-(instance, hop) link ids (uint16) and per-instance flag bits all live
-// in shared memory, so one launch runs the whole dependent chain with
-// __syncthreads() between phases and touches device memory only for the
-// tick's true inputs and outputs.  Lanes (seeds, knob points) are blocks.
-// Where a lane's ids do not fit (256 hosts and up at window 64) they go to
-// a per-lane global workspace the wrapper allocates, read through L1/L2;
-// such lanes are slow (each row still walks every entry), and the tiled
-// kernel (netsim_tiled.cu) is the form for them.
+// per-(instance, hop) link ids (uint16), the entry list sorted by row and
+// the per-instance flag bits all live in shared memory, so one launch runs
+// the whole dependent chain with __syncthreads() between phases.  The
+// float sums touch only the tick's active entries: the active instances
+// (one per flow mid-run, against W per flow) are compacted in order, their
+// entries stably counting-sorted by row, and each row adds its own segment
+// (netsim_hot.cuh), so a row costs its own entries, not a walk over all
+// F x W instances.  Lanes (seeds, knob points) are blocks.  Where a lane's
+// ids do not fit (256 hosts and up at window 64) they and the entry list go
+// to the per-lane global workspace the wrapper allocates, read through
+// L1/L2, after the active list, which lives there at every size.
 
 #include "netsim_hot.cuh"
 
@@ -43,14 +46,16 @@ struct TickArgs {
   int* smin_o; float* spsn_o; float* salpha_o; float* scnt_o;
   float* scntop_o;
   int* ws_wire; float* ws_f;
-  unsigned char* ids_ws;  // [B, hot_ids_bytes] when the ids leave smem
+  unsigned char* ids_ws;  // [B, hot_ws_bytes]: active list (+ ids)
   HotDims d;
 };
 
-// IDS_SMEM: the lane's link ids and flags live in shared memory (else in
-// a.ids_ws).
+// IDS_SMEM: the lane's link ids, entry list and flags live in shared memory
+// (else in a.ids_ws, after its active list).  One block an SM (one lane,
+// most of the SM's shared memory) lets ptxas use 128 registers a thread;
+// without the 1 it kept to 64, and the window kernel spilled.
 template <bool IDS_SMEM>
-__global__ void __launch_bounds__(NT_THREADS)
+__global__ void __launch_bounds__(NT_THREADS, 1)
 netsim_tick_kernel(TickArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x;
@@ -100,13 +105,13 @@ netsim_tick_kernel(TickArgs a) {
   s.phase = a.phase; s.nph = a.nph; s.off = a.off;
   s.chunk_sched = a.chunk_sched;
 
-  unsigned char* ids =
-      IDS_SMEM ? nullptr : a.ids_ws + (size_t)b * hot_ids_bytes((int)FW, H);
-  hot_tick(h, d, s, hot_smem_carve<IDS_SMEM>(smem, d, ids));
+  unsigned char* ws =
+      a.ids_ws + (size_t)b * hot_ws_bytes((int)FW, H, IDS_SMEM);
+  hot_tick(h, d, s, hot_smem_carve<IDS_SMEM>(smem, d, ws));
 }
 
-// Shared bytes one block needs; the ids take hot_ids_bytes() per lane of
-// global workspace instead when ids_in_smem is 0.
+// Shared bytes one block needs; the global workspace takes hot_ws_bytes()
+// per lane (the ids too when ids_in_smem is 0).
 extern "C" size_t netsim_tick_smem_bytes(int FW, int H, int L1, int J,
                                          int DJ, int ids_in_smem) {
   return hot_smem_bytes(FW, H, L1, J, DJ, ids_in_smem);
@@ -147,6 +152,8 @@ extern "C" int netsim_tick_launch(
   a.d.F = F; a.d.W = W; a.d.H = H; a.d.P = P; a.d.L1 = L1; a.d.J = J;
   a.d.SEG = SEG; a.d.DJ = DJ; a.d.dt = dt; a.d.mtu = mtu;
   a.d.per_step_ecmp = per_step_ecmp; a.d.policy_pq = policy_pq;
+  // instance and link ids are uint16
+  if (F * W > 65536 || L1 > 65536) return (int)cudaErrorInvalidValue;
   const size_t smem =
       netsim_tick_smem_bytes(F * W, H, L1, J, DJ, ids_in_smem);
   void (*kernel)(TickArgs) = ids_in_smem ? netsim_tick_kernel<true>

@@ -21,30 +21,34 @@
 // What bounds it.  A window reads each state, table and knob operand once
 // and writes each state and sample output once (a few MB at 128 hosts x 8
 // lanes: well under a millisecond at 3.35 TB/s).  Like the single-tick
-// kernel, a tick is a chain of dependent reductions that one block walks
-// with serial per-row loops (one thread per link or Symphony row over all
-// active instances), so the kernel is latency-bound, not bound by bytes or
-// operations.  What it removes is the host: one launch per window instead
-// of one fused kernel and ~300 torch kernels per tick.
+// kernel, a tick is a chain of dependent reductions inside one block, so
+// the kernel is latency-bound, not bound by bytes or operations.  What it
+// removes is the host: one launch per window instead of one fused kernel
+// and ~300 torch kernels per tick.
 //
 // What the design does about it.  Link rows, Symphony rows (two copies: the
 // marking stage reads the tick's old rows while the hot stages write the
-// new ones), job rows and the per-(instance, hop) uint16 link ids live in
-// shared memory; a lane whose ids do not fit there (256 hosts and up at
-// window 64) keeps the ids and flags in a per-lane global workspace.  The
-// per-instance state ([F, W] arrays, 229 KB a lane at 128 hosts x window
-// 64) does not fit beside them, so it stays in global memory: the block
-// copies its lane's input state to the output buffers once and then
-// updates the outputs in place across the loop (L2-resident).
+// new ones), job rows, the per-(instance, hop) uint16 link ids and the
+// entry list live in shared memory; a lane whose ids do not fit there (256
+// hosts and up at window 64) keeps the ids, list and flags in a per-lane
+// global workspace.  The hot stages add each link and Symphony row over
+// its own segment of a stably row-sorted list of the tick's active entries
+// (netsim_hot.cuh), so their cost follows the active instances, not the
+// F x W instance slots.  The per-instance state ([F, W] arrays, 229 KB a
+// lane at 128 hosts x window 64) does not fit beside them, so it stays in
+// global memory: the block copies its lane's input state to the output
+// buffers once and then updates the outputs in place across the loop
+// (L2-resident).
 //
 // Exactness.  Float sums keep the single-tick kernel's ascending (instance,
-// hop) order with no float atomics; log1pf/expf (never __expf) and
-// --fmad=false keep torch's roundings.  The host-side shortcuts of the
-// eager tick (the Symphony marking skipped before any lane's sym_from, the
-// DCQCN draw skipped when no lane's epoch fires) become per-lane tests
-// here; both only skip values that would be discarded.  The per-job
-// throughput sample is a block reduction whose order differs from torch's
-// sum(dim=2), so it agrees to rounding, not bitwise.
+// hop) order within each row (stable entry lists) with no float atomics;
+// log1pf/expf (never __expf) and --fmad=false keep torch's roundings.  The
+// host-side shortcuts of the eager tick (the Symphony marking skipped
+// before any lane's sym_from, the DCQCN draw skipped when no lane's epoch
+// fires) become per-lane tests here; both only skip values that would be
+// discarded.  The per-job throughput sample is a block reduction whose
+// order differs from torch's sum(dim=2), so it agrees to rounding, not
+// bitwise.
 
 #include <stddef.h>
 
@@ -94,8 +98,8 @@ struct WinArgs {
   float* qmax_o; float* amax_o;
   // workspaces [B, FW]
   int* ws_wire; float* ws_f; float* ws_eff;
-  // [B, hot_ids_bytes]: the link ids and flags of lanes whose ids do not
-  // fit in shared memory beside the rows (unused when they fit)
+  // [B, hot_ws_bytes]: each lane's active list, then its link ids, entry
+  // list and flags when they do not fit in shared memory beside the rows
   unsigned char* ids_ws;
   int base_tick, n;
   HotDims d;
@@ -142,7 +146,7 @@ __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
 }
 
 // Sum of v over the block (valid on thread 0); red holds one float a warp.
-__device__ float block_sum(float v, float* red) {
+__device__ __forceinline__ float block_sum(float v, float* red) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   __syncthreads();
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
@@ -153,10 +157,12 @@ __device__ float block_sum(float v, float* red) {
   return s;
 }
 
-// IDS_SMEM: the lane's link ids and flags live in shared memory (else in
-// a.ids_ws).
+// IDS_SMEM: the lane's link ids, entry list and flags live in shared memory
+// (else in a.ids_ws, after its active list).  One block an SM (one lane,
+// most of the SM's shared memory) lets ptxas use 128 registers a thread;
+// without the 1 it kept to 64, and the window kernel spilled.
 template <bool IDS_SMEM>
-__global__ void __launch_bounds__(NT_THREADS)
+__global__ void __launch_bounds__(NT_THREADS, 1)
 netsim_window_kernel(WinArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x;
@@ -169,9 +175,8 @@ netsim_window_kernel(WinArgs a) {
   const int D = DJ / J - 1;   // Symphony domains; D is "none"
 
   // ---- shared memory
-  unsigned char* ids =
-      IDS_SMEM ? nullptr : a.ids_ws + (size_t)b * hot_ids_bytes(FW, H);
-  const HotSmem m = hot_smem_carve<IDS_SMEM>(smem, d, ids);
+  unsigned char* ws = a.ids_ws + (size_t)b * hot_ws_bytes(FW, H, IDS_SMEM);
+  const HotSmem m = hot_smem_carve<IDS_SMEM>(smem, d, ws);
   int* sym_i = reinterpret_cast<int*>(
       smem + hot_smem_bytes(FW, H, L1, J, DJ, IDS_SMEM));
   int* smin_a = sym_i;
@@ -567,6 +572,9 @@ extern "C" int netsim_window_launch(void** ptrs, const int* dims,
   a.base_tick = dims[11]; a.n = dims[12];
   const int ids_in_smem = dims[13];
   a.d.dt = fdims[0]; a.d.mtu = fdims[1];
+  // instance and link ids are uint16
+  if (a.d.F * a.d.W > 65536 || a.d.L1 > 65536)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = win_smem_bytes(a.d.F, a.d.F * a.d.W, a.d.H, a.d.L1,
                                      a.d.J, a.d.DJ, ids_in_smem);
   void (*kernel)(WinArgs) = ids_in_smem ? netsim_window_kernel<true>

@@ -25,7 +25,7 @@ from .._build import SMEM_LIMIT
 from .ref import TickOut, hot_tick
 
 __all__ = ["TickOut", "netsim_tick", "build", "build_all", "kernel_policy",
-           "SMEM_LIMIT", "hot_smem_split", "HotSplit"]
+           "SMEM_LIMIT", "hot_smem_split", "HotSplit", "THREADS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 POLICIES = ("proportional", "pq")
@@ -88,39 +88,54 @@ def _round16(n: int) -> int:
     return (n + 15) & ~15
 
 
+# threads and warps of a tick or window block (NT_THREADS, NT_WARPS of
+# csrc/netsim_hot.cuh)
+THREADS = 512
+WARPS = THREADS // 32
+
+
 class HotSplit(NamedTuple):
     """Where one lane's hot-stage scratch lives: ``smem`` bytes of shared
-    memory per block, and ``ids`` bytes per lane of global workspace for
-    the link ids and flags (0 when they fit in shared memory)."""
+    memory per block; ``ids`` bytes per lane of global workspace for the
+    link ids, the entry list and the flags (0 when they fit in shared
+    memory); ``ws`` bytes per lane of global workspace in all: the
+    active-instance list, then those ids."""
     smem: int
     ids: int
+    ws: int
 
 
 def hot_smem_split(FW: int, H: int, L1: int, J: int, DJ: int,
                    extra: int = 0) -> HotSplit:
     """The split of ``csrc/netsim_hot.cuh``: the link, job and Symphony
-    rows (and ``extra`` bytes of a kernel's own rows) always take shared
-    memory; the uint16 link id of every (instance, hop) and the flag byte
-    of every instance follow them there when everything fits in
-    :data:`SMEM_LIMIT`, and take a per-lane global workspace otherwise.
-    Mirrors ``hot_rows_bytes``/``hot_ids_raw``/``hot_smem_bytes`` of the
-    header."""
-    rows = 4 * (6 * L1 + J + 2 * DJ)
-    ids = 2 * ((FW * H + 1) & ~1) + FW
+    rows, the row sorts' counts and offsets and two ints per warp (and
+    ``extra`` bytes of a kernel's own rows) always take shared memory; the
+    uint16 link id and the uint16 sorted-list slot of every (instance, hop)
+    and the flag byte of every instance follow them there when everything
+    fits in :data:`SMEM_LIMIT`, and take the per-lane global workspace
+    otherwise.  The active-instance list (uint16) always takes the start of
+    that workspace.  Mirrors ``hot_rows_bytes``/``hot_ids_raw``/
+    ``hot_act_bytes``/``hot_ws_bytes``/``hot_smem_bytes`` of the header."""
+    if FW > 65536:
+        raise ValueError(f"{FW} instances a lane exceed the kernels' uint16 "
+                         "instance ids")
+    rows = 4 * (8 * L1 + J + 4 * DJ + 2 + 2 * WARPS)
+    ids = 4 * ((FW * H + 1) & ~1) + FW
+    act = _round16(4 * ((FW + 1) // 2))
     if _round16(rows) + extra > SMEM_LIMIT:
         raise ValueError(
             f"one lane's {L1} link rows and {DJ} Symphony rows need "
             f"{_round16(rows) + extra} bytes of shared memory (limit "
             f"{SMEM_LIMIT})")
     if _round16(rows + ids) + extra <= SMEM_LIMIT:
-        return HotSplit(_round16(rows + ids) + extra, 0)
-    return HotSplit(_round16(rows) + extra, _round16(ids))
+        return HotSplit(_round16(rows + ids) + extra, 0, act)
+    return HotSplit(_round16(rows) + extra, _round16(ids),
+                    act + _round16(ids))
 
 
 def ids_workspace(B: int, split: HotSplit, device) -> torch.Tensor:
-    """The per-lane global workspace of a split (one byte when unused)."""
-    return torch.empty(B, max(split.ids, 1), dtype=torch.uint8,
-                       device=device)
+    """The per-lane global workspace of a split."""
+    return torch.empty(B, split.ws, dtype=torch.uint8, device=device)
 
 
 def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,

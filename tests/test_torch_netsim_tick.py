@@ -139,3 +139,43 @@ def test_wrapper_rejects_bad_operands(case):
         err = ValueError
     with pytest.raises(err):
         K.netsim_tick(*args, **kw)
+
+
+# the shape of nvcc -Xptxas -v's report for one library with both
+# instantiations of the tick kernel (registers, stack, spills, static smem)
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z18netsim_tick_kernelILb0EEv8TickArgs' for 'sm_90a'
+ptxas info    : Function properties for _Z18netsim_tick_kernelILb0EEv8TickArgs
+    16 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 16 bytes cumulative stack size
+ptxas info    : Compiling entry function '_Z18netsim_tick_kernelILb1EEv8TickArgs' for 'sm_90a'
+ptxas info    : Function properties for _Z18netsim_tick_kernelILb1EEv8TickArgs
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers, 64 bytes smem, 1288 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_is_read_per_entry_function():
+    """chip_smoke.py's build phase reads each kernel instantiation's
+    registers and spills from the build log, and fails on a spill."""
+    from repro_torch.kernels import _build
+    got = _build.ptxas_entries(PTXAS_LOG)
+    assert got == {
+        "_Z18netsim_tick_kernelILb0EEv8TickArgs": dict(
+            registers=128, stack=16, spill_stores=8, spill_loads=12, smem=0),
+        "_Z18netsim_tick_kernelILb1EEv8TickArgs": dict(
+            registers=96, stack=0, spill_stores=0, spill_loads=0, smem=64)}
+    assert _build.ptxas_entries("") == {}
+
+
+def test_workspace_holds_the_active_list_at_every_size():
+    """The tick wrapper's global workspace: the active-instance list alone
+    while the ids fit in shared memory, then the ids after it."""
+    small = K.hot_smem_split(2048, 4, 97, 1, 5)
+    assert small.ids == 0 and small.ws == 2 * 2048
+    big = K.hot_smem_split(16384, 6, 897, 1, 33)
+    assert big.ids > 0 and big.ws == 2 * 16384 + big.ids
+    assert K.ids_workspace(3, big, "cpu").shape == (3, big.ws)
+    with pytest.raises(ValueError, match="uint16"):
+        K.hot_smem_split(65537, 1, 97, 1, 5)

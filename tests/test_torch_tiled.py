@@ -208,8 +208,12 @@ FABRICS = {128: (128, 449, 17), 256: (256, 897, 33), 512: (512, 1793, 65)}
 def test_hot_scratch_split(hosts):
     F, L1, DJ = FABRICS[hosts]
     FW, H, J = F * 64, 6, 1
-    rows = 4 * (6 * L1 + J + 2 * DJ)
-    ids = 2 * FW * H + FW
+    # link, job and Symphony rows, the row sorts' counts and offsets, two
+    # ints per warp; link ids and the row-sorted entry list (uint16 each)
+    # and a flag byte per instance; the uint16 active-instance list
+    rows = 4 * (8 * L1 + J + 4 * DJ + 2 + 2 * 16)
+    ids = 2 * FW * H + 2 * FW * H + FW
+    act = 2 * FW
 
     def r16(n):
         return n + -n % 16
@@ -217,15 +221,97 @@ def test_hot_scratch_split(hosts):
     tick = K.hot_smem_split(FW, H, L1, J, DJ)
     win = Wn.window_smem_split(F, FW, H, L1, J, DJ)
     if hosts == 128:
-        # everything fits: the ids follow the rows in shared memory
-        assert tick == (r16(rows + ids), 0) and win.ids == 0
+        # everything fits: the ids and list follow the rows in shared
+        # memory; the global workspace holds the active list alone
+        assert tick == (r16(rows + ids), 0, r16(act)) and win.ids == 0
+        assert win.ws == r16(act)
         assert win.smem <= K.SMEM_LIMIT
     else:
-        # the ids move to a per-lane global workspace; the rows stay
-        assert tick == (r16(rows), r16(ids)) and win.ids == r16(ids)
+        # the ids and list move to the per-lane global workspace, after the
+        # active list; the rows stay
+        assert tick == (r16(rows), r16(ids), r16(act) + r16(ids))
+        assert win.ids == r16(ids) and win.ws == tick.ws
         assert rows < win.smem <= K.SMEM_LIMIT
         assert rows + ids > K.SMEM_LIMIT
     assert tiled.tiled_smem_bytes(L1, J, DJ) <= K.SMEM_LIMIT
+
+
+def _c_functions(src: str) -> dict:
+    """The ``inline size_t`` byte formulas of a CUDA source as Python
+    functions (integer C arithmetic: ``/`` floors on these non-negative
+    sizes, ``c ? a : b`` on a bare name)."""
+    import re
+    defs = {}
+    for name, params, body in re.findall(
+            r"inline size_t (\w+)\(([^)]*)\)\s*\{(.*?)\n\}", src, re.S):
+        args = [p.split()[-1] for p in params.split(",")]
+        py = []
+        for stmt in body.split(";"):
+            stmt = " ".join(stmt.split())
+            if not stmt:
+                continue
+            stmt = stmt.replace("(size_t)", "").replace("const size_t ", "")
+            stmt = re.sub(r"(?<!/)/(?!/)", "//", stmt)
+            # c ? a : b -> (a if c else b), the branches balanced in parens
+            while "?" in stmt:
+                q = stmt.index("?")
+                cond = re.search(r"(\w+)\s*$", stmt[:q])
+                depth, k = 0, q + 1
+                while not (depth == 0 and stmt[k] == ":"):
+                    depth += {"(": 1, ")": -1}.get(stmt[k], 0)
+                    k += 1
+                depth, e = 0, k + 1
+                while e < len(stmt) and not (depth == 0 and stmt[e] in ");,"):
+                    depth += {"(": 1, ")": -1}.get(stmt[e], 0)
+                    e += 1
+                stmt = (stmt[:cond.start(1)] + f"({stmt[q + 1:k]} if "
+                        f"{cond.group(1)} else {stmt[k + 1:e]})" + stmt[e:])
+            py.append(stmt)
+        defs[name] = (args, py)
+    return defs
+
+
+def _compile(defs: dict, consts: dict) -> dict:
+    ns = dict(consts)
+    for name, (args, stmts) in defs.items():
+        code = f"def {name}({', '.join(args)}):\n" + "".join(
+            f"    {st}\n" for st in stmts)
+        exec(code, ns)
+    return ns
+
+
+def test_scratch_split_matches_the_cuda_source():
+    """hot_smem_split and window_smem_split compute what the byte formulas
+    of csrc/netsim_hot.cuh and csrc/netsim_window.cu compute (the sources'
+    own expressions, evaluated), for the three multipod sizes, Table 1 and
+    odd sizes; the thread count is the header's."""
+    import re
+    hot = (K.CSRC / "netsim_hot.cuh").read_text()
+    win = (K.CSRC / "netsim_window.cu").read_text()
+    threads = int(re.search(r"#define NT_THREADS (\d+)", hot).group(1))
+    assert threads == K.THREADS and "#define NT_WARPS (NT_THREADS / 32)" in hot
+    ns = _compile({**_c_functions(hot), **_c_functions(win)},
+                  {"NT_WARPS": threads // 32})
+    for name in ("round16", "hot_rows_bytes", "hot_ids_raw", "hot_act_bytes",
+                 "hot_ws_bytes", "hot_smem_bytes", "win_rows_bytes",
+                 "win_smem_bytes"):
+        assert name in ns, name
+    dims = [(F, F * 64, 6, L1, 1, DJ) for F, L1, DJ in FABRICS.values()]
+    dims += [(32, 2048, 4, 97, 1, 5), (3, 15, 3, 11, 2, 6),
+             (5, 35, 5, 21, 3, 12)]
+    for F, FW, H, L1, J, DJ in dims:
+        for split, smem_fn in (
+                (K.hot_smem_split(FW, H, L1, J, DJ),
+                 lambda f: ns["hot_smem_bytes"](FW, H, L1, J, DJ, f)),
+                (Wn.window_smem_split(F, FW, H, L1, J, DJ),
+                 lambda f: ns["win_smem_bytes"](F, FW, H, L1, J, DJ, f))):
+            in_smem = int(split.ids == 0)
+            assert split.smem == smem_fn(in_smem)
+            assert split.ws == ns["hot_ws_bytes"](FW, H, in_smem)
+            assert split.ids == (0 if in_smem else
+                                 ns["round16"](ns["hot_ids_raw"](FW, H)))
+            # the ids leave shared memory only when they do not fit there
+            assert (smem_fn(1) <= K.SMEM_LIMIT) == bool(in_smem)
 
 
 def test_split_raises_when_the_rows_alone_do_not_fit():
