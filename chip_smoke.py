@@ -15,8 +15,9 @@ and exits non-zero at the first phase that fails:
 
 1. build    compile every kernel library from the checkout (one nvcc per
             source, in parallel, sm_90a); print the card's name and power
-            limit from nvidia-smi, each bf16 flash backward kernel's
-            registers, local (spill) bytes, shared memory and threads, and
+            limit from nvidia-smi, each flash forward kernel's (bf16 and
+            float32) and each bf16 flash backward kernel's registers, local
+            (spill) bytes, shared memory and threads, and
             the tick and window kernels' registers, stack, spills and
             shared memory for both instantiations (link ids in shared or
             in global memory) from ptxas's report; a spill fails
@@ -49,8 +50,9 @@ and exits non-zero at the first phase that fails:
             windows 1,024 and 8,192, each as [BH, S, D] tensors and as
             strided [B, H, S, D] views of [B, S, H, D] activations; then
             the prefill's shape (S = 32,768, window 8,192, bf16) on N(0,1)
-            inputs against the chunked plain version, and five planted
-            faults that must fail the same check
+            inputs against the chunked plain version, and six planted
+            faults that must fail the same check; every shape launched
+            twice, bit-equal
 9. flash_bwd the flash backward kernels (dq, dk/dv) against the plain
             backward computed in float32 on the same values, in bf16 and
             float32, as [BH, S, D] tensors and as strided [B, H, S, D]
@@ -115,7 +117,9 @@ and exits non-zero at the first phase that fails:
             mid-run, checkpoint/restore replays bit for bit
 19. timing  each kernel's device time per launch against its plain
             version's and its bound, at the main paths' shapes (the flash
-            forward also against one scaled_dot_product_attention call,
+            forward also against one scaled_dot_product_attention call, at
+            the prefill's shape with a window mask and at the training
+            shape, B 2 x S 4,096, causal,
             the backward kernels against one autograd.grad through it,
             also as the pair's sum over that call's time; the SSD kernel
             has no library counterpart)
@@ -490,19 +494,30 @@ class Smoke:
                     say("build", f"{name}: {line.strip()}")
         say("build", f"{', '.join(libs)} built in {time.time() - t0:.1f} s "
                      "(in parallel)")
-        for which, kname in (("dq", "flash_dq_bf16"),
-                             ("dkv", "flash_dkv_bf16")):
+        Fa = self.Fa
+        # (kernel, template arguments after the head dim, info)
+        for kname, targs, info_of in (
+                ("flash_fwd_bf16", "", lambda dp: Fa.fwd_kernel_info(
+                    torch.bfloat16, dp)),
+                ("flash_fwd_f32", "", lambda dp: Fa.fwd_kernel_info(
+                    torch.float32, dp)),
+                ("flash_dq_bf16", "", lambda dp: Fa.bwd_kernel_info(
+                    "dq", torch.bfloat16, dp)),
+                ("flash_dkv_bf16", "", lambda dp: Fa.bwd_kernel_info(
+                    "dkv", torch.bfloat16, dp))):
             for dp in (64, 128):
-                info = self.Fa.bwd_kernel_info(which, torch.bfloat16, dp)
-                say("build", f"flash_bwd: {kname}<{dp}>: "
+                info = info_of(dp)
+                moved = (" (setmaxnreg moves them between warpgroups)"
+                         if "bf16" in kname else "")
+                say("build", f"{kname[:9]}: {kname}<{dp}{targs}>: "
                              f"{info['registers']} registers a thread at "
-                             f"launch (setmaxnreg moves them between "
-                             f"warpgroups), {info['local_bytes']} bytes of "
+                             f"launch{moved}, {info['local_bytes']} bytes of "
                              f"local memory (spills), {info['smem_bytes']:,} "
                              f"bytes of dynamic shared memory, "
                              f"{info['threads']} threads")
                 if info["local_bytes"]:
-                    fail("build", f"{kname}<{dp}> spills to local memory")
+                    fail("build", f"{kname}<{dp}{targs}> spills to local "
+                                  "memory")
         self.netsim_build_report(libs)
         print(self.card, flush=True)
         from repro_torch.core.netsim.stages import ordered_segment_sum
@@ -945,10 +960,12 @@ class Smoke:
                 o_ref, l_ref = Fa.attention_ref(*(x.float() for x in flat),
                                                 window=w)
                 o3, l3 = Fa.flash_fwd(*flat, window=w)
+                again = Fa.flash_fwd(*flat, window=w)
                 # strided [B, H, S, D] views of [B, S, H, D]: no copy
                 o4, l4 = Fa.flash_fwd(*(x.transpose(1, 2) for x in (q, k, v)),
                                       window=w)
                 self.torch.cuda.synchronize()
+                self.same_bits(f"{name} {dtype}", (o3, l3), again)
                 errs = []
                 for layout, o, lse in (("[BH,S,D]", o3, l3),
                                        ("[B,S,H,D] view", o4.reshape(-1, S, D),
@@ -962,11 +979,18 @@ class Smoke:
                         fail("flash", f"{name} {dtype} {layout}: {msg}")
                 say("flash", f"{name} {dtype}: max abs err {'; '.join(errs)}"
                              f" (tolerance o {tol_o}, lse {tol_l}, row "
-                             f"{ROW_TOL}, lse abs {LSE_ABS})")
+                             f"{ROW_TOL}, lse abs {LSE_ABS}); bit-equal on a "
+                             "second launch")
         self.flash_main()
         Fa.flash_fwd.launches = saved
         say("flash", "max abs error of o, kernel vs plain: "
                      f"{self.max_err['flash_fwd']}")
+
+    def same_bits(self, name, got, again):
+        """Two launches of the forward on the same inputs give the same
+        bits (o and lse)."""
+        if not all(self.torch.equal(a, b) for a, b in zip(got, again)):
+            fail("flash", f"{name}: two launches give different bits")
 
     def flash_main(self):
         """Danube's heads at the main path's shape (S 32,768, window 8,192,
@@ -980,8 +1004,10 @@ class Smoke:
         from repro_torch.models.attention import ref_attention_chunked
         S, W, D = PREFILL_S, 8192, 120
         q, k, v = self.attn_inputs(1, 32, 8, S, D, "bfloat16")
-        o, lse = Fa.flash_fwd(*(x.transpose(1, 2) for x in (q, k, v)),
-                              window=W)
+        views = [x.transpose(1, 2) for x in (q, k, v)]
+        o, lse = Fa.flash_fwd(*views, window=W)
+        self.same_bits("main shape", (o, lse),
+                       Fa.flash_fwd(*views, window=W))
         o, lse = o.transpose(1, 2), lse.transpose(1, 2)   # [B, S, H, ...]
         kf, vf = k.float(), v.float()
         pos = torch.arange(S, device=self.dev)[None]
@@ -996,6 +1022,12 @@ class Smoke:
             oz = o.clone()
             oz[:, W:] = 0
             return oz, lse
+
+        def diagonal_shifted():
+            # each row also sees the key after its own; the window's left
+            # edge stays where it is
+            return ref_attention_chunked(q.float(), kf, vf, pos + 1, pos,
+                                         window=W + 1), l_ref
 
         o_ref, l_ref = plain()
         tols = FLASH_TOL["bfloat16"]
@@ -1013,7 +1045,8 @@ class Smoke:
                 ("window one key tile narrower", lambda: plain(W - 64)),
                 ("window ignored", lambda: plain(0)),
                 ("scale 1/sqrt(128)", lambda: plain(W, 1 / math.sqrt(128))),
-                (f"rows past {W:,} zeroed", zero_rows)):
+                (f"rows past {W:,} zeroed", zero_rows),
+                ("diagonal one key later", diagonal_shifted)):
             fo, fl = make()
             passes, _, fmsg = self.attn_close(fo, fl, o_ref, l_ref, *tols)
             if passes:
@@ -2334,41 +2367,50 @@ class Smoke:
         self.timing_ssd()
 
     def timing_flash(self):
-        """The flash kernel at the main path's shape (danube's heads, S =
-        32,768, window 8,192, bf16, strided [B, S, H, D] views), its plain
-        version at S = 4,096 (its [BH, S, S] scores do not fit at 32,768)
-        and one scaled_dot_product_attention call at the main shape."""
+        """The flash forward at the training shape (B 2, S 4,096, causal,
+        danube's window, which has no bite there) beside its plain version
+        and one causal scaled_dot_product_attention call, then at the main
+        path's shape (B 1, S 32,768, window 8,192) beside one masked
+        scaled_dot_product_attention call (the plain version's [BH, S, S]
+        scores do not fit there: its time at the training shape stands in).
+        Danube's heads (32/8, D 120), bf16, strided [B, S, H, D] views."""
         torch, Fa = self.torch, self.Fa
         hq, hkv, D, w = 32, 8, 120, 8192
         item = 2
-        for S in (FLASH_S, PREFILL_S):
-            q, k, v = self.attn_inputs(1, hq, hkv, S, D, "bfloat16")
+        for shape, B, S in ((f"B={TRAIN_B} S={TRAIN_S}", TRAIN_B, TRAIN_S),
+                            (f"S={PREFILL_S}", 1, PREFILL_S)):
+            q, k, v = self.attn_inputs(B, hq, hkv, S, D, "bfloat16")
             views = [x.transpose(1, 2) for x in (q, k, v)]
             saved = Fa.flash_fwd.launches
             k_dev, k_wall = timed(lambda: Fa.flash_fwd(*views, window=w),
                                   10 if S == PREFILL_S else 30, torch)
             Fa.flash_fwd.launches = saved
             if S == PREFILL_S:
-                p_dev = p_wall = self.plain_flash_ms
+                p_dev, p_wall = self.plain_flash_ms
                 lib = self.sdpa_ms(q, k, v, w)
+                note = (f"(BH=32, KV heads 8, D=120, window {w}, bf16; plain "
+                        f"version timed at B={TRAIN_B} S={TRAIN_S}; library: "
+                        "window mask)")
             else:
                 flat = [x.reshape(-1, S, D).contiguous() for x in views]
                 p_dev, p_wall = timed(
                     lambda: Fa.attention_ref(*flat, window=w), 3, torch)
-                self.plain_flash_ms = p_dev
-                lib = None
+                self.plain_flash_ms = p_dev, p_wall
+                lib = self.sdpa_ms(q, k, v, 0)
+                note = (f"(BH={B * hq}, KV heads {hkv}, D=120, causal, window "
+                        f"{w}, bf16; library: is_causal=True)")
                 del flat
             # q, k, v and o once each, and lse; 4 D flops per visible pair
-            nbytes = item * S * D * (2 * hq + 2 * hkv) + 4 * hq * S
+            nbytes = B * (item * S * D * (2 * hq + 2 * hkv) + 4 * hq * S)
             pairs = sum(min(i + 1, w) for i in range(S))
-            ops = 4 * D * pairs * hq
-            self.report(f"S={S}", "flash_fwd", "flash_fwd.cu",
+            ops = 4 * D * pairs * hq * B
+            self.report(shape, "flash_fwd", "flash_fwd.cu",
                         "src/repro/kernels/flash_attention/kernel.py:44",
                         k_dev, k_wall, p_dev, p_wall, nbytes, ops, 1,
-                        peak=BF16_OPS_PER_S, library_ms=lib,
-                        note=f"(BH=32, KV heads 8, D=120, window {w}, bf16"
-                             + (f"; plain version timed at S={FLASH_S})"
-                                if S == PREFILL_S else ")"))
+                        peak=BF16_OPS_PER_S, library_ms=lib, note=note)
+            say("timing", f"flash forward {shape}: {k_dev:.4f} ms against "
+                          f"one scaled_dot_product_attention {lib:.4f} ms: "
+                          f"{k_dev / lib:.2f}x its time; card {self.card}")
             del q, k, v, views
 
     def timing_flash_bwd(self):
@@ -2498,10 +2540,11 @@ class Smoke:
         return ms
 
     def sdpa_ms(self, q, k, v, window):
-        """One scaled_dot_product_attention call on the same inputs: the KV
-        heads repeated to the query heads before the call (PyTorch's GQA
-        path has no kernel for a mask) and a boolean window mask, on the
-        memory-efficient (or cuDNN) backend.  Device ms per call."""
+        """One scaled_dot_product_attention call on the same inputs, the KV
+        heads repeated to the query heads before the call.  With a window:
+        a boolean mask (PyTorch's GQA path has no kernel for a mask) on the
+        memory-efficient (or cuDNN) backend; without: is_causal=True, the
+        backend PyTorch picks.  Device ms per call."""
         torch = self.torch
         from torch.nn.attention import SDPBackend, sdpa_kernel
         import torch.nn.functional as F
@@ -2509,6 +2552,10 @@ class Smoke:
         qh = q.transpose(1, 2)
         kh, vh = (x.transpose(1, 2).repeat_interleave(g, dim=1)
                   for x in (k, v))
+        if not window:
+            ms, _ = timed(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True), 10, torch)
+            return ms
         i = torch.arange(S, device=self.dev)
         mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
         with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION,

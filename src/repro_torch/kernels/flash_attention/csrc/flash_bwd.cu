@@ -138,19 +138,6 @@ constexpr int DKV_ROWS = 64;   // query rows a dk/dv stage
 constexpr int STAGES = 3;
 constexpr int REGS_CONSUMER = 240;   // setmaxnreg: 2 x 128 x 240 + 128 x 24
 constexpr int REGS_PRODUCER = 24;    // fits the SM's 65,536 registers
-constexpr float LOG2E = 1.4426950408889634f;
-
-enum { NONE = 0, SOME = 1, ALL = 2 };
-
-// Whether query rows [qa, qb] see none, some or all of keys [ka, kb].
-__device__ __forceinline__ int tile_kind(const Args& a, int qa, int qb,
-                                         int ka, int kb) {
-  if ((a.causal && ka > qb) || (a.window && kb <= qa - a.window))
-    return NONE;
-  if ((!a.causal || kb <= qa) && (!a.window || ka > qb - a.window))
-    return ALL;
-  return SOME;
-}
 
 // Byte offsets, from a 1024-byte boundary, of a block's shared memory: two
 // resident operands of R rows, STAGES ring stages of two operands of T rows
@@ -321,7 +308,8 @@ flash_dq_bf16(const Args a, const __grid_constant__ CUtensorMap tq,
     for (int i = 0; i < n; ++i) {
       const int s = i % STAGES;
       const int k0 = (j0 + i) * DQ_KEYS;
-      const int kind = tile_kind(a, ra, ra + 63, k0, k0 + DQ_KEYS - 1);
+      const int kind = tile_kind(a.window, a.causal, ra, ra + 63, k0,
+                                  k0 + DQ_KEYS - 1);
       hopper::mbar_wait(full + s, (i / STAGES) & 1);
       if (kind != NONE) {
         const uint32_t sk = hopper::smem_u32(smem + L::RING + s * L::STAGE);
@@ -479,7 +467,8 @@ flash_dkv_bf16(const Args a, const __grid_constant__ CUtensorMap tq,
       for (int it = i0; it <= i1; ++it, ++i) {
         const int s = i % STAGES;
         const int q0 = it * DKV_ROWS;
-        const int kind = tile_kind(a, q0, q0 + DKV_ROWS - 1, ka, ka + 63);
+        const int kind = tile_kind(a.window, a.causal, q0, q0 + DKV_ROWS - 1,
+                                    ka, ka + 63);
         hopper::mbar_wait(full + s, (i / STAGES) & 1);
         if (kind != NONE) {
           const uint32_t sq = hopper::smem_u32(smem + L::RING + s * L::STAGE);

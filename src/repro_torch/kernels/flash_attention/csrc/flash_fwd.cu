@@ -4,42 +4,61 @@
 // (src/repro/kernels/flash_attention/kernel.py:44): causal softmax attention
 // with an optional sliding window (kpos > qpos - window) and GQA (query head
 // h reads KV head h / (Hq / Hkv)), returning o in q's dtype and
-// lse = m + log(max(l, 1e-30)) in float32, with scale 1/sqrt(D).
+// lse = m + log(max(l, 1e-30)) in float32 (natural log: the backward reads
+// it), with scale 1/sqrt(D).
 //
-// What bounds it: at the prefill shapes it is bound by operations
-// (4 * D flops per visible (query, key) pair against ~2 * D * 2 bytes per
-// key row read once), so the design keeps every tile on chip: one block per
-// (64-row query tile, head, batch row) walks the key tiles that the causal
-// mask and the window leave visible (tiles wholly outside the window are
-// skipped, which the reference does not do), with K and V tiles in shared
-// memory and the online softmax and the output accumulator in float32
-// registers.
+// What bounds it: operations (4 D flops per visible (query, key) pair
+// against ~2 D * 2 bytes per key row read once), so the tensor cores must
+// be kept fed and every intermediate stays on chip.  One block per (128-row
+// query tile, head, batch row) walks the key tiles that the causal mask and
+// the window leave visible (tiles wholly outside the window are skipped,
+// which the reference does not do) with the online softmax in registers.
 //
-// Two instantiations:
-//   * bf16: four warps, each owning 16 query rows; Q K^T and P V on the
-//     tensor cores with mma.sync m16n8k16 (bf16 in, float32 accumulate),
-//     P rounded to bf16 between the two products.
-//   * float32: 256 threads, four per query row, CUDA-core FMAs; every sum
-//     is float32 throughout (the checks hold it to 2e-5).
-// Head dims are padded in shared memory to 64 or 128 (D = 120 -> 128); any
-// D that is a multiple of 8 up to 128 is taken.  Inputs are read through
-// strides, so [B, S, H, D] activations need no copy to [B*H, S, D].
-//
-// A row whose first visited tile is fully masked takes p = exp(0) there,
-// and the next tile's correction exp(-1e30 - m) wipes it, as in the
-// reference (kernel.py:65-72); every row sees at least its own key.
-// Not yet done (a later PR): WGMMA, TMA, warp specialisation, pipelining.
+// bf16 (the serving and training paths): blocks of three warpgroups
+// (hopper.cuh), as in flash_bwd.cu.
+//   * One producer warpgroup (setmaxnreg 24), whose first thread issues
+//     every copy with TMA: the block's q tile once, then the k and v tiles
+//     of 128 keys into a ring of STAGES stages, k and v each with their own
+//     "loaded" and "released" mbarriers, so a k tile is refilled as soon as
+//     its scores are computed.  Tensor maps over the 4-D strided tensors
+//     read [B, S, H, D] views in place; TMA's out-of-bounds fill supplies
+//     the zero columns D..DP-1 (D = 120 -> 128).
+//   * Two consumer warpgroups (setmaxnreg 240), each owning 64 query rows.
+//     s = q k^T is a wgmma m64n128 with both operands in shared memory,
+//     K-major; o += p v a wgmma with p from registers (rounded to bf16
+//     pairwise: the accumulator of s is the A operand, p never passes
+//     through shared memory) and v in shared memory, MN-major.
+//   * The two consumers take turns on the tensor cores (FlashAttention-3's
+//     ping-pong): a consumer's turn issues s of its next tile, then o += p
+//     v of its previous tile, and hands the turn over (named barriers 1 and
+//     2); it waits for s alone, runs that tile's softmax while its o += p v
+//     and the other consumer's products run, then waits for the rest.
+//   * Softmax in base 2: log2(e) is folded into the scale, so each p is one
+//     explicit fused multiply-add (the library is built with --fmad=false)
+//     and one ex2; lse goes back to the natural log at the end.  The element
+//     mask runs only on tiles that straddle the diagonal or the window's
+//     edge for the consumer's rows (a separate, branch-free instantiation of
+//     the softmax step); there masked scores take the finite NEG_INF in the
+//     row maximum and p = 0.  A row with no visible key in such a tile keeps
+//     l = 0 and a maximum near NEG_INF, which the next tile's correction
+//     ex2(m_old - m_new) = 0 wipes; every row sees its own key.
+//   * Blocks are launched longest rows first (the query tile is the slowest
+//     grid dimension), so the causal shape's short blocks fill the tail.
+// float32 (the tests' dtype, off the main paths): 256 threads, four per
+// query row, 64-row tiles, CUDA-core FMAs; every sum is float32 throughout
+// (the checks hold it to 2e-5).
+// Head dims are padded on chip to 64 or 128 (D = 120 -> 128); any D that is
+// a multiple of 8 up to 128 is taken.  Inputs are read through strides, so
+// [B, S, H, D] activations need no copy to [B*H, S, D].
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
-
-constexpr int BQ = 64;    // query rows per block
-constexpr int BK = 64;    // keys per tile
 
 struct Args {
   const void* q;
@@ -56,163 +75,329 @@ struct Args {
   float scale;
 };
 
-// The key tiles [j0, j1] that rows [q0, q0 + BQ) can see.
+// The key tiles [j0, j1] (of TK keys) that query rows [q0, q0 + TQ) see.
+template <int TQ, int TK>
 __device__ __forceinline__ void key_tiles(const Args& a, int q0, int& j0,
                                           int& j1) {
-  const int kmax = a.causal ? min(a.S - 1, q0 + BQ - 1) : a.S - 1;
+  const int kmax = a.causal ? min(a.S - 1, q0 + TQ - 1) : a.S - 1;
   const int kmin = a.window ? max(0, q0 - a.window + 1) : 0;
-  j0 = kmin / BK;
-  j1 = kmax / BK;
+  j0 = kmin / TK;
+  j1 = kmax / TK;
+}
+
+__device__ __forceinline__ float* lse_row(const Args& a, int b, int h) {
+  return a.lse + (static_cast<long long>(b) * a.Hq + h) * a.S;
 }
 
 // ------------------------------------------------------------------ bf16
-//
-// With the fragment layouts of flash_common.cuh, the C fragments of two
-// adjacent 8-key blocks of S are the A fragment of P for one 16-key step of
-// P V.
 
-constexpr int NT_BF16 = 128;
+typedef __nv_bfloat16 bf16;
+constexpr int NT_BF16 = 384;   // consumer warpgroups 0 and 1, producer 2
+constexpr int FWD_ROWS = 128;  // query rows a block (64 a consumer)
+constexpr int FWD_KEYS = 128;  // keys a stage
+constexpr int STAGES = 3;
+constexpr int REGS_CONSUMER = 240;   // setmaxnreg: 2 x 128 x 240 + 128 x 24
+constexpr int REGS_PRODUCER = 24;    // fits the SM's 65,536 registers
+constexpr float LN2 = 0.6931471805599453f;
 
+// Byte offsets, from a 1024-byte boundary, of a block's shared memory: the
+// q tile, STAGES stages of a k and a v tile, then the mbarriers (q's, then
+// STAGES each of "k loaded", "v loaded", "k released", "v released").  At
+// DP 128: 32 KB + 3 x 64 KB, 230,504 bytes with the alignment slack, of
+// the 232,448 a block may have.
 template <int DP>
-constexpr int smem_bf16() {
-  return 3 * BQ * (DP + 8) * 2;
+struct Layout {
+  static constexpr int Q = FWD_ROWS * DP * 2;
+  static constexpr int TILE = FWD_KEYS * DP * 2;    // k or v
+  static constexpr int STAGE = 2 * TILE;
+  static constexpr int BARS = Q + STAGES * STAGE;
+  static constexpr int BYTES = BARS + 8 * (1 + 4 * STAGES) + 1024;
+};
+
+// Row i's 32 values of the accumulator (x = 4 j + 2 i + c) folded with
+// op, as a tree: 5 steps of latency instead of 31.
+template <typename Op>
+__device__ __forceinline__ float fold_row(const float (&v)[64], int i,
+                                          Op op) {
+  float r[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    r[j] = op(v[4 * j + 2 * i], v[4 * j + 2 * i + 1]);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r[j] = op(r[j], r[j + 8]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) r[j] = op(r[j], r[j + 4]);
+  return op(op(r[0], r[2]), op(r[1], r[3]));
+}
+
+// One tile's online softmax for this thread's two rows (i = 0: qp0, 1:
+// qp1) in base 2: the raw scores sc become p = 2^(sc * sl2 - m) in place,
+// m moves to the new row maximum (scaled), l (this thread's share of the
+// row sum) is rescaled and grows, and c returns the factor 2^(m_old -
+// m_new) that rescales the output rows.  When MASK, keys outside each row's
+// [lim[2 i], lim[2 i + 1]] count as NEG_INF in the maximum and give p = 0.
+// The accumulator's columns are kc + 8 j + c (x = 4 j + 2 i + c).
+template <bool MASK>
+__device__ __forceinline__ void softmax_step(float (&sc)[64], float (&m)[2],
+                                             float (&l)[2], float (&c)[2],
+                                             float sl2, int kc,
+                                             const int (&lim)[4]) {
+  const auto fmax2 = [](float x, float y) { return fmaxf(x, y); };
+  const auto add2 = [](float x, float y) { return x + y; };
+  if (MASK) {
+#pragma unroll
+    for (int x = 0; x < 64; ++x) {
+      const int i = (x >> 1) & 1;
+      const int kp = kc + 8 * (x >> 2) + (x & 1);
+      sc[x] = kp < lim[2 * i] || kp > lim[2 * i + 1] ? NEG_INF : sc[x];
+    }
+  }
+  float nm[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float mn = fmaxf(m[i], quad_max(fold_row(sc, i, fmax2)) * sl2);
+    c[i] = hopper::ex2(m[i] - mn);
+    m[i] = mn;
+    nm[i] = -mn;
+  }
+#pragma unroll
+  for (int x = 0; x < 64; ++x) {
+    const int i = (x >> 1) & 1;
+    const float p = hopper::ex2(__fmaf_rn(sc[x], sl2, nm[i]));
+    sc[x] = MASK && sc[x] == NEG_INF ? 0.f : p;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = l[i] * c[i] + fold_row(sc, i, add2);
+}
+
+// The softmax of the stage of keys [k0, k0 + 128) for rows [ra, ra + 64)
+// once their scores have landed in sc (p in place); c returns the factor
+// that rescales the output rows.
+__device__ __forceinline__ void softmax_tile(const Args& a, int ra, int k0,
+                                             int t, float sl2,
+                                             const int (&lim)[4],
+                                             float (&sc)[64], float (&m)[2],
+                                             float (&l)[2], float (&c)[2]) {
+  if (tile_kind(a.window, a.causal, ra, ra + 63, k0, k0 + FWD_KEYS - 1) ==
+      ALL)
+    softmax_step<false>(sc, m, l, c, sl2, k0 + 2 * t, lim);
+  else
+    softmax_step<true>(sc, m, l, c, sl2, k0 + 2 * t, lim);
+}
+
+// The output rows rescaled by c, and p (in sc) into pa as 8 A steps of 16
+// keys.
+template <int DP>
+__device__ __forceinline__ void rescale_and_pack(float (&o)[DP / 2],
+                                                 uint32_t (&pa)[8][4],
+                                                 const float (&sc)[64],
+                                                 const float (&c)[2]) {
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    o[4 * j] *= c[0];
+    o[4 * j + 1] *= c[0];
+    o[4 * j + 2] *= c[1];
+    o[4 * j + 3] *= c[1];
+  }
+#pragma unroll
+  for (int k = 0; k < FWD_KEYS / 16; ++k)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      pa[k][e] = hopper::pack_bf16(sc[8 * k + 2 * e], sc[8 * k + 2 * e + 1]);
+}
+
+// s = q k^T over one stage: 64 rows of q by 128 keys, DP deep, from the
+// descriptors of the q rows' and the k tile's first 16 columns (a step is
+// a byte offset, added to the descriptor's address field in 16-byte
+// units: no carry, shared addresses are below 2^18).
+template <int DP>
+__device__ __forceinline__ void issue_scores(float (&sc)[64], uint64_t dq,
+                                             uint64_t dk) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t oa = (kk >> 2) * FWD_ROWS * 128 + (kk & 3) * 32;
+    const uint32_t ob = (kk >> 2) * FWD_KEYS * 128 + (kk & 3) * 32;
+    hopper::wgmma_ss_m64n128k16(sc, dq + (oa >> 4), dk + (ob >> 4), kk);
+  }
+}
+
+// o += p v over one stage: p as 8 A steps of 16 keys, v MN-major from the
+// descriptor of its first 16 rows.
+template <int DP>
+__device__ __forceinline__ void issue_pv(float (&o)[DP / 2],
+                                         const uint32_t (&pa)[8][4],
+                                         uint64_t dv) {
+#pragma unroll
+  for (int k = 0; k < FWD_KEYS / 16; ++k)
+    hopper::wgmma_rs<DP>(o, pa[k], dv + ((k * 2048) >> 4), 1);
 }
 
 template <int DP>
-__global__ void __launch_bounds__(NT_BF16)
-flash_fwd_bf16(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int LD = DP + 8;     // padded rows: fewer bank conflicts
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sK = sQ + BQ * LD;
-  __nv_bfloat16* sV = sK + BK * LD;
+__global__ void __launch_bounds__(NT_BF16, 1)
+flash_fwd_bf16(const Args a, const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv) {
+  using L = Layout<DP>;
+  constexpr int NB = DP / 64;                  // boxes of 64 columns a row
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hopper::align1024(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* full_k = bar + 1;
+  uint64_t* full_v = full_k + STAGES;
+  uint64_t* empty_k = full_v + STAGES;
+  uint64_t* empty_v = empty_k + STAGES;
 
-  const int qt = gridDim.x - 1 - blockIdx.x;   // longest rows first
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z;   // longest rows first
   const int hk = h / (a.Hq / a.Hkv);
-  const int q0 = qt * BQ;
-  const __nv_bfloat16* Q =
-      static_cast<const __nv_bfloat16*>(a.q) + b * a.qb + h * a.qh;
-  const __nv_bfloat16* K =
-      static_cast<const __nv_bfloat16*>(a.k) + b * a.kb + hk * a.kh;
-  const __nv_bfloat16* V =
-      static_cast<const __nv_bfloat16*>(a.v) + b * a.vb + hk * a.vh;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = warp * 16;
-
-  load_tile<__nv_bfloat16, DP, NT_BF16>(sQ, LD, Q + q0 * a.qs, a.qs, a.D, BQ);
-  __syncthreads();
-  uint32_t qf[DP / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    const __nv_bfloat16* row0 = sQ + (r0 + g) * LD + kk * 16 + 2 * t;
-    const __nv_bfloat16* row1 = row0 + 8 * LD;
-    qf[kk][0] = ld32(row0);
-    qf[kk][1] = ld32(row1);
-    qf[kk][2] = ld32(row0 + 8);
-    qf[kk][3] = ld32(row1 + 8);
-  }
-
-  float o[DP / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < DP / 8; ++nd)
-    o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
-  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
-  const int qp0 = q0 + r0 + g, qp1 = qp0 + 8;
-
+  const int q0 = qt * FWD_ROWS;
   int j0, j1;
-  key_tiles(a, q0, j0, j1);
-  for (int j = j0; j <= j1; ++j) {
-    const int k0 = j * BK;
-    __syncthreads();             // the previous tile's readers are done
-    load_tile<__nv_bfloat16, DP, NT_BF16>(sK, LD, K + k0 * a.ks, a.ks, a.D,
-                                          BK);
-    load_tile<__nv_bfloat16, DP, NT_BF16>(sV, LD, V + k0 * a.vs, a.vs, a.D,
-                                          BK);
-    __syncthreads();
+  key_tiles<FWD_ROWS, FWD_KEYS>(a, q0, j0, j1);
+  const int n = j1 - j0 + 1;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(full_k + s, 1);
+      hopper::mbar_init(full_v + s, 1);
+      hopper::mbar_init(empty_k + s, 256);
+      hopper::mbar_init(empty_v + s, 256);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
 
-    float s[BK / 8][4];
-#pragma unroll
-    for (int nb = 0; nb < BK / 8; ++nb) {
-      s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
-      const __nv_bfloat16* krow = sK + (nb * 8 + g) * LD + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk)
-        mma16816(s[nb], qf[kk], ld32(krow + kk * 16), ld32(krow + kk * 16 + 8));
-    }
-
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int nb = 0; nb < BK / 8; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kp = k0 + nb * 8 + 2 * t + (e & 1);
-        const int qp = e < 2 ? qp0 : qp1;
-        const float x = visible(qp, kp, a.window, a.causal)
-                            ? s[nb][e] * a.scale : NEG_INF;
-        s[nb][e] = x;
-        if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
-      }
-    }
-    mx0 = quad_max(mx0);
-    mx1 = quad_max(mx1);
-    const float c0 = __expf(m0 - mx0), c1 = __expf(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    l0 *= c0;
-    l1 *= c1;
-#pragma unroll
-    for (int nd = 0; nd < DP / 8; ++nd) {
-      o[nd][0] *= c0; o[nd][1] *= c0;
-      o[nd][2] *= c1; o[nd][3] *= c1;
-    }
-#pragma unroll
-    for (int nb = 0; nb < BK / 8; ++nb) {
-      s[nb][0] = __expf(s[nb][0] - m0);
-      s[nb][1] = __expf(s[nb][1] - m0);
-      s[nb][2] = __expf(s[nb][2] - m1);
-      s[nb][3] = __expf(s[nb][3] - m1);
-      l0 += s[nb][0] + s[nb][1];
-      l1 += s[nb][2] + s[nb][3];
-    }
-
-#pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks) {
-      const uint32_t pf[4] = {pack2(s[2 * ks][0], s[2 * ks][1]),
-                              pack2(s[2 * ks][2], s[2 * ks][3]),
-                              pack2(s[2 * ks + 1][0], s[2 * ks + 1][1]),
-                              pack2(s[2 * ks + 1][2], s[2 * ks + 1][3])};
-      const __nv_bfloat16* vrow = sV + (ks * 16 + 2 * t) * LD + g;
-#pragma unroll
-      for (int nd = 0; nd < DP / 8; ++nd) {
-        if (nd * 8 < a.D) {
-          const __nv_bfloat16* vp = vrow + nd * 8;
-          mma16816(o[nd], pf, pack2(vp[0], vp[LD]),
-                   pack2(vp[8 * LD], vp[9 * LD]));
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    // ---- producer: q once, then k and v tile by tile
+    hopper::reg_dealloc<REGS_PRODUCER>();
+    if (threadIdx.x == 256) {
+      hopper::mbar_expect_tx(bar, L::Q);
+      for (int c = 0; c < NB; ++c)
+        hopper::tma_load(smem + c * FWD_ROWS * 128, &tq, bar, 64 * c, q0, h,
+                         b);
+      for (int i = 0; i < n; ++i) {
+        const int s = i % STAGES;
+        const int k0 = (j0 + i) * FWD_KEYS;
+        // k, then v, each once the tile it replaces has been released
+        for (int kv = 0; kv < 2; ++kv) {
+          uint64_t* f = (kv ? full_v : full_k) + s;
+          hopper::mbar_wait((kv ? empty_v : empty_k) + s,
+                            ((i / STAGES) & 1) ^ 1);
+          hopper::mbar_expect_tx(f, L::TILE);
+          unsigned char* dst = smem + L::Q + s * L::STAGE + kv * L::TILE;
+          for (int c = 0; c < NB; ++c)
+            hopper::tma_load(dst + c * FWD_KEYS * 128, kv ? &tv : &tk, f,
+                             64 * c, k0, hk, b);
         }
       }
     }
-  }
+  } else {
+    // ---- consumers: 64 query rows each
+    hopper::reg_alloc<REGS_CONSUMER>();
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int ra = q0 + 64 * wg;
+    const int qp0 = ra + 16 * warp + g, qp1 = qp0 + 8;
+    const float sl2 = a.scale * LOG2E;
+    // the keys each of this thread's two query rows sees: [lo, hi]
+    const int lim[4] = {a.window ? qp0 - a.window + 1 : -(1 << 30),
+                        a.causal ? qp0 : (1 << 30),
+                        a.window ? qp1 - a.window + 1 : -(1 << 30),
+                        a.causal ? qp1 : (1 << 30)};
+    // descriptors of this consumer's q rows, of stage 0's k and v tiles;
+    // stage s is STAGE bytes further
+    const uint64_t dq = hopper::sw128_desc(
+        hopper::smem_u32(smem) + 64 * 128 * wg, 16, 1024);
+    const uint32_t ring = hopper::smem_u32(smem + L::Q);
+    const uint64_t dk0 = hopper::sw128_desc(ring, 16, 1024);
+    const uint64_t dv0 =
+        hopper::sw128_desc(ring + L::TILE, FWD_KEYS * 128, 1024);
+    constexpr uint32_t STEP = L::STAGE >> 4;
+    // named barrier 1 + w: consumer w's turn on the tensor cores
+    const int mine = 1 + wg, other = 2 - wg;
 
-  l0 = fmaxf(quad_sum(l0), 1e-30f);
-  l1 = fmaxf(quad_sum(l1), 1e-30f);
-  __nv_bfloat16* O = static_cast<__nv_bfloat16*>(a.o) + b * a.ob + h * a.oh;
-  __nv_bfloat16* o0 = O + qp0 * a.os + 2 * t;
-  __nv_bfloat16* o1 = O + qp1 * a.os + 2 * t;
+    float o[DP / 2], sc[64];
+    uint32_t pa[FWD_KEYS / 16][4];
 #pragma unroll
-  for (int nd = 0; nd < DP / 8; ++nd) {
-    if (nd * 8 < a.D) {
-      *reinterpret_cast<__nv_bfloat162*>(o0 + nd * 8) =
-          __floats2bfloat162_rn(o[nd][0] / l0, o[nd][1] / l0);
-      *reinterpret_cast<__nv_bfloat162*>(o1 + nd * 8) =
-          __floats2bfloat162_rn(o[nd][2] / l1, o[nd][3] / l1);
+    for (int x = 0; x < DP / 2; ++x) o[x] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+    // Turn i issues o += p v of tile i - 1 and s of tile i; consumer 0
+    // takes the first turn.  Each consumer syncs n + 1 times on its barrier
+    // and the other arrives there n + 1 times.
+    if (wg == 1) hopper::bar_arrive(other, 256);
+    hopper::mbar_wait(bar, 0);
+    hopper::mbar_wait(full_k, 0);
+    hopper::bar_sync(mine, 256);
+    hopper::wgmma_fence();
+    issue_scores<DP>(sc, dq, dk0);
+    hopper::wgmma_commit();
+    hopper::bar_arrive(other, 256);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    hopper::mbar_arrive(empty_k);
+    float c[2];
+    softmax_tile(a, ra, j0 * FWD_KEYS, t, sl2, lim, sc, m, l, c);
+    rescale_and_pack<DP>(o, pa, sc, c);
+    for (int i = 1; i < n; ++i) {
+      const int s = i % STAGES, sp = (i - 1) % STAGES;
+      const int k0 = (j0 + i) * FWD_KEYS;
+      hopper::mbar_wait(full_k + s, (i / STAGES) & 1);
+      hopper::mbar_wait(full_v + sp, ((i - 1) / STAGES) & 1);
+      hopper::bar_sync(mine, 256);
+      hopper::wgmma_fence();
+      issue_scores<DP>(sc, dq, dk0 + s * STEP);
+      hopper::wgmma_commit();
+      // o += p v of the previous tile runs on the tensor cores while this
+      // tile's exponentials run
+      issue_pv<DP>(o, pa, dv0 + sp * STEP);
+      hopper::wgmma_commit();
+      hopper::bar_arrive(other, 256);
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(sc);
+      hopper::mbar_arrive(empty_k + s);       // k of tile i is read
+      softmax_tile(a, ra, k0, t, sl2, lim, sc, m, l, c);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(o);
+      hopper::fence_regs(pa);
+      hopper::mbar_arrive(empty_v + sp);      // v of tile i - 1 is read
+      rescale_and_pack<DP>(o, pa, sc, c);
     }
-  }
-  if (t == 0) {
-    float* L = a.lse + (static_cast<long long>(b) * a.Hq + h) * a.S;
-    L[qp0] = m0 + logf(l0);
-    L[qp1] = m1 + logf(l1);
+    hopper::mbar_wait(full_v + (n - 1) % STAGES, ((n - 1) / STAGES) & 1);
+    hopper::bar_sync(mine, 256);
+    hopper::wgmma_fence();
+    issue_pv<DP>(o, pa, dv0 + ((n - 1) % STAGES) * STEP);
+    hopper::wgmma_commit();
+    if (wg == 0) hopper::bar_arrive(other, 256);   // consumer 1's last turn
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o);
+    hopper::fence_regs(pa);
+
+    float inv[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] = fmaxf(quad_sum(l[i]), 1e-30f);
+      inv[i] = 1.f / l[i];
+    }
+    bf16* O = static_cast<bf16*>(a.o) + b * a.ob + h * a.oh;
+    bf16* o0 = O + qp0 * a.os + 2 * t;
+    bf16* o1 = O + qp1 * a.os + 2 * t;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      if (8 * j < a.D) {
+        *reinterpret_cast<__nv_bfloat162*>(o0 + 8 * j) =
+            __floats2bfloat162_rn(o[4 * j] * inv[0], o[4 * j + 1] * inv[0]);
+        *reinterpret_cast<__nv_bfloat162*>(o1 + 8 * j) =
+            __floats2bfloat162_rn(o[4 * j + 2] * inv[1],
+                                  o[4 * j + 3] * inv[1]);
+      }
+    }
+    if (t == 0) {
+      float* Lr = lse_row(a, b, h);
+      Lr[qp0] = m[0] * LN2 + logf(l[0]);
+      Lr[qp1] = m[1] * LN2 + logf(l[1]);
+    }
   }
 }
 
@@ -222,6 +407,8 @@ flash_fwd_bf16(const Args a) {
 // each tile and accumulates output columns c + 4 i; the probabilities pass
 // through shared memory from the four threads of a row to all of them.
 
+constexpr int BQ = 64;    // query rows per tile
+constexpr int BK = 64;    // keys per tile
 constexpr int NT_F32 = 256;
 
 template <int DP>
@@ -259,7 +446,7 @@ flash_fwd_f32(const Args a) {
   float m = NEG_INF, l = 0.f;
 
   int j0, j1;
-  key_tiles(a, q0, j0, j1);
+  key_tiles<BQ, BK>(a, q0, j0, j1);
   for (int j = j0; j <= j1; ++j) {
     const int k0 = j * BK;
     __syncthreads();
@@ -312,19 +499,37 @@ flash_fwd_f32(const Args a) {
 #pragma unroll
   for (int i = 0; i < DP / 4; ++i)
     if (i < nd) O[4 * i] = o[i] / l;
-  if (c == 0)
-    a.lse[(static_cast<long long>(b) * a.Hq + h) * a.S + qp] = m + logf(l);
+  if (c == 0) lse_row(a, b, h)[qp] = m + logf(l);
 }
 
-template <typename KernelT>
-cudaError_t launch(KernelT kernel, int threads, int smem, const Args& a,
-                   cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(a.S / BQ, a.Hq, a.B);
-  kernel<<<grid, threads, smem, stream>>>(a);
-  return cudaGetLastError();
+// A kernel of this library: its function, threads, dynamic shared memory
+// and whether it reads tensor maps (the bf16 ones do).
+struct Kernel {
+  const void* fn;
+  int threads, smem;
+  bool maps;
+};
+
+// dtype 0 = bf16, 1 = float32.
+bool pick(int dtype, int D, Kernel& kn) {
+  const bool small = D <= 64;
+  if (dtype == 0) {
+    kn.fn = small ? reinterpret_cast<const void*>(flash_fwd_bf16<64>)
+                  : reinterpret_cast<const void*>(flash_fwd_bf16<128>);
+    kn.threads = NT_BF16;
+    kn.smem = small ? Layout<64>::BYTES : Layout<128>::BYTES;
+    kn.maps = true;
+    return true;
+  }
+  if (dtype == 1) {
+    kn.fn = small ? reinterpret_cast<const void*>(flash_fwd_f32<64>)
+                  : reinterpret_cast<const void*>(flash_fwd_f32<128>);
+    kn.threads = NT_F32;
+    kn.smem = small ? smem_f32<64>() : smem_f32<128>();
+    kn.maps = false;
+    return true;
+  }
+  return false;
 }
 
 }  // namespace
@@ -352,21 +557,49 @@ int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
   a.window = static_cast<int>(dims[17]);
   a.causal = static_cast<int>(dims[18]);
   a.scale = scale;
-  if (a.D % 8 || a.D > 128 || a.S % BQ || a.Hkv <= 0 || a.Hq % a.Hkv)
+  Kernel kn;
+  if (a.D % 8 || a.D > 128 || a.S % FWD_ROWS || a.Hkv <= 0 ||
+      a.Hq % a.Hkv || !pick(dtype, a.D, kn))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool small = a.D <= 64;
-  cudaError_t err;
-  if (dtype == 0)
-    err = small ? launch(flash_fwd_bf16<64>, NT_BF16, smem_bf16<64>(), a, st)
-                : launch(flash_fwd_bf16<128>, NT_BF16, smem_bf16<128>(), a,
-                         st);
-  else if (dtype == 1)
-    err = small ? launch(flash_fwd_f32<64>, NT_F32, smem_f32<64>(), a, st)
-                : launch(flash_fwd_f32<128>, NT_F32, smem_f32<128>(), a, st);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  cudaError_t err = cudaFuncSetAttribute(
+      kn.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kn.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap maps[3];   // q, k, v
+  void* args[4] = {&a, &maps[0], &maps[1], &maps[2]};
+  dim3 grid(a.S / BQ, a.Hq, a.B);
+  if (kn.maps) {
+    const void* base[3] = {a.q, a.k, a.v};
+    const long long* st[3] = {&a.qb, &a.kb, &a.vb};   // b, h, s
+    const int heads[3] = {a.Hq, a.Hkv, a.Hkv};
+    const int rows[3] = {FWD_ROWS, FWD_KEYS, FWD_KEYS};
+    for (int m = 0; m < 3; ++m) {
+      err = hopper::map_bf16(&maps[m], base[m], a.D, a.S, heads[m], a.B,
+                             st[m][2], st[m][1], st[m][0], rows[m]);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    grid = dim3(a.Hq, a.B, a.S / FWD_ROWS);
+  }
+  err = cudaLaunchKernel(kn.fn, grid, dim3(kn.threads), args,
+                         static_cast<size_t>(kn.smem),
+                         static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// What the compiler made of the kernel for `dtype` and head dim D: out =
+// {registers a thread, local (spill) bytes a thread, dynamic shared memory
+// a block, threads a block}.  Returns a CUDA error code.
+int flash_fwd_kernel_info(int dtype, int D, int* out) {
+  Kernel kn;
+  if (!pick(dtype, D, kn)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kn.fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = kn.smem;
+  out[3] = kn.threads;
+  return 0;
 }
 
 }  // extern "C"

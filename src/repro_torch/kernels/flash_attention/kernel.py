@@ -4,7 +4,7 @@ bindings, wrappers.
 ``csrc/flash_fwd.cu`` replaces the reference's Pallas ``_fwd_kernel``
 (``src/repro/kernels/flash_attention/kernel.py:44``); ``csrc/flash_bwd.cu``
 its ``_dq_kernel`` and ``_dkv_kernel`` (``:124``, ``:159``).  Both share
-``csrc/flash_common.cuh``, are registered with
+``csrc/flash_common.cuh`` and ``csrc/hopper.cuh``, are registered with
 :mod:`repro_torch.kernels._build` like the netsim and switch libraries,
 compiled at first use (or by ``build_all()``) for ``sm_90a`` with the shared
 flags, loaded with ``ctypes`` and launched on PyTorch's current stream.
@@ -27,16 +27,19 @@ from .. import _build
 from .ref import attention_bwd_ref, attention_ref
 
 __all__ = ["flash_fwd", "flash_bwd", "BwdCall", "build", "BLOCK",
-           "MAX_HEAD_DIM", "DQ_TILE", "DKV_TILE", "visible_tiles",
+           "MAX_HEAD_DIM", "FWD_TILE", "DQ_TILE", "DKV_TILE",
+           "visible_tiles", "tile_kind", "fwd_kernel_info",
            "bwd_kernel_info"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BLOCK = 128            # the reference's sequence block: S must be a multiple
 MAX_HEAD_DIM = 128
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-# The bf16 backward kernels' tiles (csrc/flash_bwd.cu): (query rows, keys).
-# dq: a block of 128 query rows walks stages of 64 keys; dk/dv: a block of
-# 128 keys walks stages of 64 query rows.
+# The bf16 kernels' tiles: (query rows, keys).  Forward (csrc/flash_fwd.cu)
+# and dq (csrc/flash_bwd.cu): a block of 128 query rows (64 a consumer
+# warpgroup) walks stages of 128 and of 64 keys; dk/dv: a block of 128 keys
+# walks stages of 64 query rows.
+FWD_TILE = (128, 128)
 DQ_TILE = (128, 64)
 DKV_TILE = (64, 128)
 
@@ -46,6 +49,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.flash_fwd_launch.argtypes = [p] * 6 + [ctypes.c_float, ctypes.c_int,
                                                p]
     lib.flash_fwd_launch.restype = ctypes.c_int
+    lib.flash_fwd_kernel_info.argtypes = [ctypes.c_int] * 2 + [p]
+    lib.flash_fwd_kernel_info.restype = ctypes.c_int
 
 
 def _bind_bwd(lib: ctypes.CDLL) -> None:
@@ -70,14 +75,17 @@ def build() -> tuple[ctypes.CDLL, str]:
 
 def visible_tiles(kind: str, index: int, S: int, window: int = 0,
                   causal: bool = True) -> tuple[int, int]:
-    """The first and last tile a bf16 backward block walks, as the kernels
-    compute them (``key_tiles``/``query_tiles`` in ``csrc/flash_bwd.cu``):
-    for ``kind="dq"`` the 64-key tiles that query block ``index`` (128
-    rows) can see, for ``kind="dkv"`` the 64-row query tiles that can see
-    key block ``index`` (128 keys).  Tiles in between may still be wholly
-    masked for one consumer's 64 rows; the kernels skip those too."""
-    if kind == "dq":
-        rows, keys = DQ_TILE
+    """The first and last tile a bf16 block walks, as the kernels compute
+    them (``key_tiles`` in ``csrc/flash_fwd.cu``, ``key_tiles``/
+    ``query_tiles`` in ``csrc/flash_bwd.cu``): for ``kind="fwd"`` the
+    128-key tiles that forward query block ``index`` (128 rows) can see, for
+    ``kind="dq"`` the 64-key tiles of dq block ``index`` (128 rows), for
+    ``kind="dkv"`` the 64-row query tiles that can see key block ``index``
+    (128 keys).  Tiles in between may still be wholly masked for one
+    consumer's 64 rows (:func:`tile_kind`): the backward kernels skip those,
+    the forward masks them."""
+    if kind in ("fwd", "dq"):
+        rows, keys = FWD_TILE if kind == "fwd" else DQ_TILE
         q0 = index * rows
         last = min(S - 1, q0 + rows - 1) if causal else S - 1
         first = max(0, q0 - window + 1) if window else 0
@@ -88,7 +96,39 @@ def visible_tiles(kind: str, index: int, S: int, window: int = 0,
         first = k0 if causal else 0
         last = min(S - 1, k0 + keys - 1 + window - 1) if window else S - 1
         return first // rows, last // rows
-    raise ValueError(f"visible_tiles: kind is 'dq' or 'dkv', not {kind!r}")
+    raise ValueError(f"visible_tiles: kind is 'fwd', 'dq' or 'dkv', not "
+                     f"{kind!r}")
+
+
+def tile_kind(qa: int, qb: int, ka: int, kb: int, window: int = 0,
+              causal: bool = True) -> str:
+    """Whether query rows ``[qa, qb]`` see ``"none"``, ``"some"`` or
+    ``"all"`` of keys ``[ka, kb]`` (``tile_kind`` in
+    ``csrc/flash_common.cuh``): the kernels run the element mask only on
+    tiles that are not ``"all"``."""
+    if (causal and ka > qb) or (window and kb <= qa - window):
+        return "none"
+    if (not causal or kb <= qa) and (not window or ka > qb - window):
+        return "all"
+    return "some"
+
+
+def _kernel_info(lib: ctypes.CDLL, fn: str, *args) -> dict[str, int]:
+    out = (ctypes.c_int * 4)()
+    rc = getattr(lib, fn)(*args, out)
+    if rc != 0:
+        raise RuntimeError(f"{fn} failed: CUDA error {rc}")
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "threads"),
+                    out))
+
+
+def fwd_kernel_info(dtype: torch.dtype, head_dim: int) -> dict[str, int]:
+    """What the compiler made of the forward kernel for ``dtype`` and
+    ``head_dim``: registers and local (spill) bytes a thread, dynamic shared
+    memory and threads a block.  Builds the library if need be (on a
+    machine with the CUDA toolkit)."""
+    return _kernel_info(build()[0], "flash_fwd_kernel_info", _DTYPES[dtype],
+                        head_dim)
 
 
 def bwd_kernel_info(which: str, dtype: torch.dtype, head_dim: int
@@ -97,14 +137,8 @@ def bwd_kernel_info(which: str, dtype: torch.dtype, head_dim: int
     "dkv") for ``dtype`` and ``head_dim``: registers and local (spill)
     bytes a thread, dynamic shared memory and threads a block.  Builds the
     library if need be (on a machine with the CUDA toolkit)."""
-    out = (ctypes.c_int * 4)()
-    lib, _ = _build.build("flash_bwd")
-    rc = lib.flash_bwd_kernel_info({"dq": 0, "dkv": 1}[which],
-                                   _DTYPES[dtype], head_dim, out)
-    if rc != 0:
-        raise RuntimeError(f"flash_bwd_kernel_info failed: CUDA error {rc}")
-    return dict(zip(("registers", "local_bytes", "smem_bytes", "threads"),
-                    out))
+    return _kernel_info(_build.build("flash_bwd")[0], "flash_bwd_kernel_info",
+                        {"dq": 0, "dkv": 1}[which], _DTYPES[dtype], head_dim)
 
 
 def _check(q, k, v, fn: str = "flash_fwd") -> None:

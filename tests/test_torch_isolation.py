@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``repro_torch`` and nothing in
-``chip_smoke.py`` imports jax, ``ml_dtypes`` or the JAX package
-``repro``."""
+``chip_smoke.py`` or ``chip_flash.py`` imports jax, ``ml_dtypes`` or the
+JAX package ``repro``."""
 import re
 import subprocess
 import sys
@@ -55,6 +55,14 @@ def test_port_imports_no_jax_and_no_reference():
 def test_chip_smoke_imports_no_jax_and_no_reference():
     pat = re.compile(r"^\s*(import|from)\s+(jax|repro|ml_dtypes)(\s|\.|$)")
     src = (ROOT / "chip_smoke.py").read_text().splitlines()
+    hits = [line for line in src if pat.match(line)]
+    assert not hits, hits
+    assert any("repro_torch" in line for line in src)
+
+
+def test_chip_flash_imports_no_jax_and_no_reference():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|repro|ml_dtypes)(\s|\.|$)")
+    src = (ROOT / "chip_flash.py").read_text().splitlines()
     hits = [line for line in src if pat.match(line)]
     assert not hits, hits
     assert any("repro_torch" in line for line in src)
