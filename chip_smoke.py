@@ -20,7 +20,8 @@ and exits non-zero at the first phase that fails:
             (spill) bytes, shared memory and threads, and
             the tick and window kernels' registers, stack, spills and
             shared memory for both instantiations (link ids in shared or
-            in global memory) from ptxas's report; a spill fails
+            in global memory) and every SSD kernel's (each instantiation)
+            from ptxas's report; a spill fails
 2. math     the window kernel's expf/log1pf against torch's CUDA exp/log1p
             over the ranges the tick feeds them (ulps reported)
 3. kernel   the single-tick kernel against its plain torch version on the
@@ -83,7 +84,9 @@ and exits non-zero at the first phase that fails:
             and peak memory; then the smoke-width Trainer on the card: the
             loss falls over 30 steps, a checkpoint restart replays the
             straight run, an injected failure recovers
-13. ssd     the SSD scan kernel against its plain version on the card
+13. ssd     the SSD scan kernels (one call: prefix sums, chunk states,
+            the ordered state pass, outputs) against their plain version on
+            the card
             (y and the final state at the reference's 5e-4): the
             reference's four SSD_CASES (ragged S 200 included) with float32
             and with bf16 B/C, through ops.ssd's strided views and on
@@ -121,8 +124,12 @@ and exits non-zero at the first phase that fails:
             the prefill's shape with a window mask and at the training
             shape, B 2 x S 4,096, causal,
             the backward kernels against one autograd.grad through it,
-            also as the pair's sum over that call's time; the SSD kernel
-            has no library counterpart)
+            also as the pair's sum over that call's time; the SSD kernels
+            have no library counterpart: their bound in float32 on the CUDA
+            cores and, beside it, on the tensor cores in TF32 per split
+            pass; with ``--against DIR`` another commit's ssd.cu (the
+            first SSD port's interface or the shipped one, by its
+            ``ssd_abi`` tag), timed in turns beside them)
 20. profile main-path ticks/s (Table 1 with 1 lane through ``simulate``,
             128 hosts x 8 lanes, 512 hosts x 8 lanes) and where a tick's
             time goes: wall and device-busy time, the busiest kernels; one
@@ -130,8 +137,8 @@ and exits non-zero at the first phase that fails:
             products' and the rest's share of device time; one profiled
             training step: flash forward, dq, dk/dv, matrix products, the
             optimizer and the rest; one profiled mamba2 prefill of 8 x
-            32,768 tokens: the SSD kernel's, the matrix products' and the
-            rest's share
+            32,768 tokens: the SSD kernels' (all four, by name), the matrix
+            products' and the rest's share
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -141,6 +148,9 @@ The line before the last is the kernel report (JSON); the last line is
     python3 chip_smoke.py build kernel window large   # tick and window
     python3 chip_smoke.py build flash_bwd train timing   # training path
     python3 chip_smoke.py build ssd mamba         # the SSM serving path
+    python3 chip_smoke.py --against DIR build ssd mamba timing
+        # DIR: another commit's src/repro_torch/kernels/ssd/csrc, unpacked
+        # under a git-ignored directory (git archive), timed beside these
 
 It needs one CUDA card and the CUDA toolkit; without a card it exits
 non-zero before printing any result.
@@ -148,6 +158,7 @@ non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import json
 import shutil
@@ -160,6 +171,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12           # H100 SXM float32 rate outside tensor cores
 BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor-core rate
+TF32_OPS_PER_S = 495e12         # H100 SXM dense TF32 tensor-core rate
 SM_HZ = 1.98e9                  # H100 SXM boost clock: sizes spin kernels
 
 # Table-1 golden constants (seed 3, 20,000 ticks, window 64), the same
@@ -476,6 +488,7 @@ class Smoke:
         self.rates = {}
         self.reports = []
         self.eager128 = None
+        self.against = None     # --against: another commit's SSD csrc
 
     # ---------------------------------------------------------- 1. build
     def build(self):
@@ -519,6 +532,7 @@ class Smoke:
                     fail("build", f"{kname}<{dp}{targs}> spills to local "
                                   "memory")
         self.netsim_build_report(libs)
+        self.ssd_build_report(libs)
         print(self.card, flush=True)
         from repro_torch.core.netsim.stages import ordered_segment_sum
         g = torch.Generator().manual_seed(0)
@@ -569,6 +583,38 @@ class Smoke:
                 if e["spill_stores"] or e["spill_loads"]:
                     fail("build", f"{lib}_kernel<{ids_smem}> spills to "
                                   "local memory")
+
+    def ssd_build_report(self, libs):
+        """Registers, stack, spills and shared memory of every kernel of the
+        SSD library (the chunk-state and output kernels once for float32
+        and once for bf16 B/C) from ptxas's report, with the dynamic shared
+        memory the library's ``ssd_smem_bytes`` gives; fails on a spill or
+        on a kernel missing from the report."""
+        import re
+        from repro_torch.kernels import _build
+        SK = self.Sd.kernel
+        lib, log = libs["ssd"]
+        entries = _build.ptxas_entries(log)
+        bc_dtypes = {"f": 0, "13__nv_bfloat16": 1}
+        for k, kname in enumerate(SK.KERNELS):
+            found = {m: e for m, e in entries.items() if kname in m}
+            if not found:
+                fail("build", f"no ptxas report of {kname} in the SSD build "
+                              "log")
+            for mangled, e in sorted(found.items()):
+                m = re.search(kname + r"I(\w+?)EEv", mangled)
+                targ = m.group(1) if m else ""
+                dyn = lib.ssd_smem_bytes(k, bc_dtypes.get(targ, 0))
+                targ = {"f": "float"}.get(targ, re.sub(r"^\d+", "", targ))
+                say("build", f"ssd: {kname}<{targ or '-'}>: "
+                             f"{e['registers']} registers a thread, "
+                             f"{e['stack']} bytes of stack frame, "
+                             f"{e['spill_stores']} / {e['spill_loads']} bytes "
+                             f"of spill stores / loads, {e['smem']} bytes of "
+                             f"static and {dyn:,} of dynamic shared memory, "
+                             f"{SK.THREADS} threads")
+                if e["spill_stores"] or e["spill_loads"] or e["stack"]:
+                    fail("build", f"{kname}<{targ}> spills to local memory")
 
     # ----------------------------------------------------------- 2. math
     def math(self):
@@ -2479,10 +2525,11 @@ class Smoke:
                           f"{peak / 2**30:.2f} GiB; card {self.card}")
 
     def timing_ssd(self):
-        """The SSD kernel at the main path's shape (SSD_MAIN, B/C bf16,
+        """The SSD kernels at the main path's shape (SSD_MAIN, B/C bf16,
         strided [B, H, S, P] views of [B, S, H, P] as ops.ssd passes them)
-        and its plain version on [B*H, S, P] copies.  No single PyTorch
-        call computes the scan: no library time."""
+        and its plain version on [B*H, S, P] copies; with ``--against`` the
+        ssd.cu of another commit timed beside them (:meth:`ssd_against`).
+        No single PyTorch call computes the scan: no library time."""
         torch, Sd = self.torch, self.Sd
         B, S, H, P, N, Q = SSD_MAIN
         x, a, Bm, Cm = self.ssd_case(B, S, H, P, N, "bfloat16")
@@ -2493,7 +2540,6 @@ class Smoke:
         Sd.ssd_chunked.launches = saved
         xf = xv.reshape(B * H, S, P).contiguous()
         af = av.reshape(B * H, S).contiguous()
-        del xv, av
         p_dev, p_wall = timed(lambda: Sd.ssd_chunked_ref(
             xf, af, Bm, Cm, chunk=Q, n_heads=H), 1, torch)
         del xf, af
@@ -2501,25 +2547,122 @@ class Smoke:
         # What the function needs: C B^T once per (row, chunk), it and
         # (G * L) x over the causal triangle only, C state from the second
         # chunk on (the entering state is 0), the state update every chunk.
-        # The kernel does more: C B^T per head and both products over the
-        # full square, C state in every chunk.
         nbytes = 4 * B * S * H * (2 * P + 1) + 2 * 2 * B * S * N + \
             4 * B * H * N * P
         nc = S // Q
         tri = Q * (Q + 1) // 2
         ops = B * nc * 2 * tri * N + B * H * (
             nc * (2 * tri * P + 2 * Q * N * P) + (nc - 1) * 2 * Q * N * P)
-        ops_kernel = B * H * nc * (2 * Q * Q * N + 2 * Q * Q * P +
-                                   4 * Q * N * P)
+        # The same products on the tensor cores in TF32, counted once per
+        # split pass: C B^T 1 (bf16 B and C are exact in TF32), (G * L) x
+        # 3, C state and B^T (d x) 2 each.
+        ops_tc = B * nc * 2 * tri * N + B * H * (
+            nc * (3 * 2 * tri * P + 2 * 2 * Q * N * P) +
+            (nc - 1) * 2 * 2 * Q * N * P)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        f32_ms = ops / F32_OPS_PER_S * 1e3
         self.report(f"B={B} S={S}", "ssd", "ssd.cu",
                     "src/repro/kernels/ssd/kernel.py:24", k_dev, k_wall,
-                    p_dev, p_wall, nbytes, ops, 1,
-                    note=f"(H={H}, P={P}, N={N}, chunk {Q}, B/C bf16; bound "
-                         "counts C B^T once per row and the causal triangle;"
-                         " what the kernel does, C B^T per head over the "
-                         "full square, would take "
-                         f"{ops_kernel / F32_OPS_PER_S * 1e3:.6f} ms)")
-        del x, a, Bm, Cm
+                    p_dev, p_wall, nbytes, ops_tc, 1,
+                    note=f"(H={H}, P={P}, N={N}, chunk {Q}, B/C bf16; four "
+                         "launches a call; bound counts C B^T once per row "
+                         "and the causal triangle, on the tensor cores in "
+                         "TF32 once per split pass; the same products in "
+                         f"float32 on the CUDA cores, {ops:.0f} ops, would "
+                         f"take {f32_ms:.6f} ms, bound "
+                         f"{max(bytes_ms, f32_ms):.6f} ms)",
+                    peak=TF32_OPS_PER_S)
+        if self.against is not None:
+            self.ssd_against(xv, av, Bm, Cm)
+        del x, a, Bm, Cm, xv, av
+
+    def ssd_against(self, xv, av, Bm, Cm):
+        """The SSD scan of another commit (``--against DIR``: DIR holds its
+        ssd.cu), built under the git-ignored build/chip_smoke_against and
+        timed in turns with the shipped kernels (against, shipped, shipped,
+        against) on the same inputs; its y and final state held to the
+        shipped kernels' at SSD_TOL."""
+        from repro_torch.kernels import _build
+        torch, Sd = self.torch, self.Sd
+        out = ROOT / "build" / "chip_smoke_against"
+        out.mkdir(parents=True, exist_ok=True)
+        so = out / "ssd_against.so"
+        proc = subprocess.run(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+             str(self.against / "ssd.cu")], capture_output=True, text=True)
+        if proc.returncode:
+            fail("timing", f"nvcc failed on {self.against / 'ssd.cu'}:\n"
+                           f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+        against = self.ssd_against_call(ctypes.CDLL(str(so)), xv, av, Bm,
+                                        Cm)
+        H, Q = xv.shape[1], SSD_MAIN[5]
+
+        def shipped():
+            return Sd.ssd_chunked(xv, av, Bm, Cm, chunk=Q, n_heads=H)
+
+        saved = Sd.ssd_chunked.launches
+        ms = [timed(f, 5, self.torch)[0]
+              for f in (against, shipped, shipped, against)]
+        theirs = against()
+        got = shipped()
+        Sd.ssd_chunked.launches = saved
+        torch.cuda.synchronize()
+        ok, err, msg = self.ssd_close(theirs, got)
+        if not ok:
+            fail("timing", f"the --against kernel differs from the shipped "
+                           f"ones: {msg}")
+        ratio = (ms[0] + ms[3]) / (ms[1] + ms[2])
+        say("timing", f"ssd against {self.against}: {ms[0]:.4f} / "
+                      f"{ms[3]:.4f} ms a launch beside the shipped kernels' "
+                      f"{ms[1]:.4f} / {ms[2]:.4f} ms (against, shipped, "
+                      f"shipped, against; {ratio:.2f}x), outputs agree "
+                      f"({msg}), card {self.card}")
+
+    def ssd_against_call(self, lib, xv, av, Bm, Cm):
+        """A function that runs library ``lib``'s SSD scan on these inputs
+        (B/C bf16) and returns (y, final state), through the interface that
+        its ``ssd_abi()`` names: none exported, the first SSD port's single
+        launch ``ssd_launch(x, a, B, C, y, state, dims, bc_dtype, stream)``;
+        ``kernel.ABI``, the shipped one (the wrapper runs with ``lib`` in
+        place of its own library).  Fails on any other."""
+        from repro_torch.kernels import _build
+        torch, Sd = self.torch, self.Sd
+        SK = Sd.kernel
+        abi = lib.ssd_abi() if hasattr(lib, "ssd_abi") else 1
+        B, H, S, P = xv.shape
+        N, Q = Bm.shape[-1], SSD_MAIN[5]
+        if abi == SK.ABI:
+            SK._bind(lib)
+
+            def call():
+                own = _build._loaded["ssd"]
+                _build._loaded["ssd"] = lib
+                try:
+                    return Sd.ssd_chunked(xv, av, Bm, Cm, chunk=Q, n_heads=H)
+                finally:
+                    _build._loaded["ssd"] = own
+            return call
+        if abi != 1:
+            fail("timing", f"--against: ssd_abi() is {abi}; this script "
+                           f"calls interfaces 1 and {SK.ABI}")
+        lib.ssd_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int,
+                                                           ctypes.c_void_p]
+        lib.ssd_launch.restype = ctypes.c_int
+        y = torch.empty_like(xv)
+        fs = torch.empty((B, H, N, P), device=xv.device)
+        dims = (ctypes.c_longlong * 19)(
+            B, H, S, P, N, Q, *xv.stride()[:3], *av.stride()[:3],
+            *Bm.stride()[:2], *Cm.stride()[:2], *y.stride()[:3])
+
+        def call():
+            rc = lib.ssd_launch(xv.data_ptr(), av.data_ptr(), Bm.data_ptr(),
+                                Cm.data_ptr(), y.data_ptr(), fs.data_ptr(),
+                                dims, 1,
+                                torch.cuda.current_stream().cuda_stream)
+            if rc:
+                fail("timing", f"the --against kernel failed to launch: {rc}")
+            return y, fs
+        return call
 
     def sdpa_bwd_ms(self, q, k, v, do):
         """One torch.autograd.grad through one causal
@@ -2753,7 +2896,7 @@ class Smoke:
 
     def profile_mamba(self):
         """One profiled mamba2-130m prefill of MAMBA_B x 32,768 tokens: the
-        SSD kernel's, the matrix products' and the rest's (conv, SiLU,
+        SSD kernels', the matrix products' and the rest's (conv, SiLU,
         norms, casts) share of device time."""
         torch = self.torch
         model = self.mamba_model()
@@ -2763,10 +2906,14 @@ class Smoke:
             wall_us, by_name = profile_ticks(lambda: model.apply(tokens),
                                              torch)
         busy = sum(t for _, t in by_name.values())
-        ssd = sum(t for name, (_, t) in by_name.items()
-                  if "ssd_kernel" in name)
+        # every kernel of the SSD library, by its name in the source
+        per = {k: sum(t for name, (_, t) in by_name.items()
+                      if f"::{k}" in name or name.startswith(k))
+               for k in self.Sd.kernel.KERNELS}
+        ssd = sum(per.values())
+        parts = ", ".join(f"{k} {t / 1e3:.1f} ms" for k, t in per.items())
         mm = sum(t for name, (_, t) in by_name.items()
-                 if "ssd_kernel" not in name and any(
+                 if "ssd_" not in name and any(
                      w in name.lower() for w in ("gemm", "xmma", "nvjet",
                                                  "cutlass", "matmul")))
         rest = busy - ssd - mm
@@ -2775,8 +2922,8 @@ class Smoke:
                        f"{wall_us / 1e3:.1f} ms wall, device busy "
                        f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}% "
                        f"busy), {sum(n for n, _ in by_name.values())} device "
-                       f"kernels; SSD kernel {ssd / 1e3:.1f} ms "
-                       f"({100 * ssd / busy:.1f}%), matrix products "
+                       f"kernels; SSD kernels {ssd / 1e3:.1f} ms "
+                       f"({100 * ssd / busy:.1f}%: {parts}), matrix products "
                        f"{mm / 1e3:.1f} ms ({100 * mm / busy:.1f}%), rest "
                        f"{rest / 1e3:.1f} ms ({100 * rest / busy:.1f}%)")
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
@@ -2788,7 +2935,16 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    phases = list(argv) or list(PHASES)
+    argv, against = list(argv), None
+    if "--against" in argv:
+        i = argv.index("--against")
+        if i + 1 >= len(argv) or not (Path(argv[i + 1]) / "ssd.cu").exists():
+            print("chip_smoke: --against takes a directory holding an ssd.cu",
+                  file=sys.stderr)
+            return 2
+        against = Path(argv[i + 1]).resolve()
+        del argv[i:i + 2]
+    phases = argv or list(PHASES)
     unknown = [p for p in phases if p not in PHASES]
     if unknown:
         print(f"chip_smoke: unknown phases {unknown}; have {PHASES}",
@@ -2797,6 +2953,7 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smoke = Smoke(torch)
+    smoke.against = against
     t_all = time.time()
     for p in PHASES:
         if p in phases:

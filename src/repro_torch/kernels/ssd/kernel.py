@@ -1,4 +1,4 @@
-"""The Mamba-2 SSD chunked scan as a hand-written CUDA kernel: binding,
+"""The Mamba-2 SSD chunked scan as hand-written CUDA kernels: binding,
 wrapper.
 
 ``csrc/ssd.cu`` replaces the reference's Pallas ``_ssd_kernel``
@@ -7,15 +7,25 @@ wrapper.
 first use (or by ``build_all()``) for ``sm_90a`` with the shared flags,
 loaded with ``ctypes`` and launched on PyTorch's current stream.
 
-What bounds it on the H100: operations (~10.5 MFLOP per row, head and
-128-step chunk at N 128, P 64, ~170 flops a byte read; float32 on the CUDA
-cores).  One block per (batch row, head) walks the chunks in order with the
-chunk's x, B, C and the entering state in shared memory, the [Q, Q] scores
-a stripe of rows at a time, and sums in a fixed order (see the source).
+What bounds it on the H100: operations, on the tensor cores.  Per batch row
+and 128-step chunk C Bᵀ over the causal triangle, per head (G ∘ L) x over
+the triangle, C state and the chunk's state Bᵀ (d ∘ x): ~170 flops a byte
+read.  TF32 keeps float32's range but 11 bits of mantissa, so every
+float32 operand is split in two TF32 halves and each product taken as
+three (two where one side is bf16, exact in TF32): ~1.2 ms at mamba2's
+prefill shape against the 1.0 ms its inputs and outputs take to move.
+One call launches four kernels in order (see the source): the in-chunk
+prefix sums; every (row, chunk)'s chunk states, chunks in parallel; the
+state pass, in chunk order over a [B, H, S / chunk, N, P] float32
+workspace of chunk states (1.6 GB at 8 x 32,768 x 24 heads); the outputs,
+chunks in parallel, with C Bᵀ once per row and chunk for all heads.  The
+library also exports ``ssd_abi()`` (:data:`ABI`) and each kernel's dynamic
+shared memory, ``ssd_smem_bytes(kernel, bc_dtype)``.
 
 :func:`ssd_chunked` is the entry point: on CPU tensors it runs the plain
 torch version (:func:`.ref.ssd_chunked_ref`); on CUDA tensors it launches
-the kernel or raises.  ``ssd_chunked.launches`` counts kernel launches.
+the kernels or raises.  ``ssd_chunked.launches`` counts calls that
+launched them (one a call, however many kernels it runs).
 """
 from __future__ import annotations
 
@@ -27,18 +37,49 @@ import torch
 from .. import _build
 from .ref import ssd_chunked_ref
 
-__all__ = ["ssd_chunked", "build", "MAX_CHUNK", "MAX_STATE", "MAX_HEAD_DIM"]
+__all__ = ["ssd_chunked", "build", "MAX_CHUNK", "MAX_STATE", "MAX_HEAD_DIM",
+           "THREADS", "MMA_TILE", "WGMMA_TILE", "AUX_ROWS", "KERNELS", "ABI"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-# the kernel's on-chip tile: larger shapes are refused, smaller ones padded
+# the kernels' on-chip tile (QM, NM, PM in the source): larger shapes are
+# refused, smaller ones padded
 MAX_CHUNK, MAX_STATE, MAX_HEAD_DIM = 128, 128, 64
+THREADS = 256                   # NT: every kernel's block
+MMA_TILE = (16, 8, 8)           # mma.sync m16n8k8, TF32: C B^T
+WGMMA_TILE = (64, 64, 8)        # wgmma m64n64k8, TF32: the per-head products
+AUX_ROWS = 3                    # AUX: log2(e) cum, exp(cum), decay to end
+# the kernels one call launches, in order
+KERNELS = ("ssd_prep", "ssd_chunk_state", "ssd_state_pass", "ssd_chunk_out")
+ABI = 2                         # ssd_abi(): the ssd_launch that _bind declares
 _BC_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    p = ctypes.c_void_p
-    lib.ssd_launch.argtypes = [p] * 7 + [ctypes.c_int, p]
-    lib.ssd_launch.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ssd_launch.argtypes = [p] * 10 + [i, p]
+    lib.ssd_launch.restype = i
+    lib.ssd_abi.argtypes = []
+    lib.ssd_abi.restype = i
+    lib.ssd_smem_bytes.argtypes = [i, i]
+    lib.ssd_smem_bytes.restype = i
+
+
+def _check_rows(x, Bm, Cm) -> None:
+    """What the kernels' 16-byte loads need: x, Bm and Cm with a unit
+    stride along their last dim, every row starting on a 16-byte boundary,
+    and a head dim that is a multiple of 4."""
+    for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"ssd_chunked: {name} needs a unit stride along "
+                             f"its last dim; strides {t.stride()}")
+        es = t.element_size()
+        if t.data_ptr() % 16 or any(s * es % 16 for s in t.stride()[:-1]):
+            raise ValueError(f"ssd_chunked: the kernels read {name} in "
+                             f"16-byte pieces: its rows must start on "
+                             f"16-byte boundaries (strides {t.stride()})")
+    if x.shape[-1] % 4:
+        raise ValueError(f"ssd_chunked: the kernels take a head dim that is "
+                         f"a multiple of 4; got {x.shape[-1]}")
 
 
 _build.register("ssd", CSRC, _bind)
@@ -100,18 +141,21 @@ def ssd_chunked(x, a, Bm, Cm, *, chunk: int, n_heads: int):
         raise ValueError(f"ssd_chunked: the kernel takes chunk <= "
                          f"{MAX_CHUNK}, N <= {MAX_STATE} and P <= "
                          f"{MAX_HEAD_DIM}; got {chunk}, {N}, {P}")
-    for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
-        if t.stride(-1) != 1:
-            raise ValueError(f"ssd_chunked: {name} needs a unit stride along "
-                             f"its last dim; strides {t.stride()}")
+    _check_rows(x, Bm, Cm)
     y = torch.empty_like(x)        # keeps x's strides (a dense view)
     fs = torch.empty((B, n_heads, N, P), dtype=torch.float32, device=dev)
+    nc = S // chunk
+    ws = torch.empty((B, n_heads, nc, N, P), dtype=torch.float32, device=dev)
+    aux = torch.empty((B, n_heads, nc, AUX_ROWS, MAX_CHUNK),
+                      dtype=torch.float32, device=dev)
+    dec = torch.empty((B, n_heads, nc), dtype=torch.float32, device=dev)
     dims = (ctypes.c_longlong * 19)(
         B, n_heads, S, P, N, chunk, *x.stride()[:3], *a.stride()[:3],
         *Bm.stride()[:2], *Cm.stride()[:2], *y.stride()[:3])
     lib, _ = build()
     rc = lib.ssd_launch(x.data_ptr(), a.data_ptr(), Bm.data_ptr(),
-                        Cm.data_ptr(), y.data_ptr(), fs.data_ptr(), dims,
+                        Cm.data_ptr(), y.data_ptr(), fs.data_ptr(),
+                        ws.data_ptr(), aux.data_ptr(), dec.data_ptr(), dims,
                         _BC_DTYPES[Bm.dtype],
                         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:

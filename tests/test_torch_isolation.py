@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``repro_torch`` and nothing in
-``chip_smoke.py`` or ``chip_flash.py`` imports jax, ``ml_dtypes`` or the
-JAX package ``repro``."""
+``chip_smoke.py`` or ``chip_variants.py`` (the kernel variants tool, which
+holds the flash forward's) imports jax, ``ml_dtypes`` or the JAX package
+``repro``."""
 import re
 import subprocess
 import sys
@@ -62,7 +63,8 @@ def test_chip_smoke_imports_no_jax_and_no_reference():
 
 def test_chip_flash_imports_no_jax_and_no_reference():
     pat = re.compile(r"^\s*(import|from)\s+(jax|repro|ml_dtypes)(\s|\.|$)")
-    src = (ROOT / "chip_flash.py").read_text().splitlines()
+    src = (ROOT / "chip_variants.py").read_text().splitlines()
     hits = [line for line in src if pat.match(line)]
     assert not hits, hits
     assert any("repro_torch" in line for line in src)
+
