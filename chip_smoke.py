@@ -21,7 +21,8 @@ and exits non-zero at the first phase that fails:
             the tick and window kernels' registers, stack, spills and
             shared memory for both instantiations (link ids in shared or
             in global memory) and every SSD kernel's (each instantiation)
-            from ptxas's report; a spill fails
+            from ptxas's report, and the tiled tick's five kernels' and
+            the switch scan's; a spill fails
 2. math     the window kernel's expf/log1pf against torch's CUDA exp/log1p
             over the ranges the tick feeds them (ulps reported)
 3. kernel   the single-tick kernel against its plain torch version on the
@@ -34,17 +35,23 @@ and exits non-zero at the first phase that fails:
             differ from the plain version
 4. window   the window kernel against its plain version (eager ticks) on
             the card from the same mid-run states: windows of 20 and 7
-5. tiled    the tiled kernel against its plain version on mid-run states:
-            Table 1 (blk=256, 4 lanes; also blk=300, a ragged last block,
-            and 2048, one block), 128 hosts (blk=1024) and 512 hosts
-            (blk=2048), 8 lanes each
+5. tiled    the tiled kernel against its plain version on mid-run states,
+            bit for bit: Table 1 (blk=256, 4 lanes; also blk=300, a ragged
+            last block, and 2048, one block), 128 hosts (blk=1024) and 512
+            hosts (blk=2048), 8 lanes each; a planted fault (the row sort
+            placing a batch's entries of one row in reverse) must differ
 6. large    the tick and window kernels at 256 and 512 hosts (8 lanes),
             whose link ids live in global memory, against their plain
             versions: 3 ticks, windows of 20 and 7; active instances,
             longest segments and bit-differing elements as in kernel
-7. switch   the switch-pipeline kernel against its plain version at 8,000
-            packets on both marking paths; then the entry point on a
-            1,000,000-packet trace (its main path, launches counted)
+7. switch   the switch-pipeline kernel against its plain version, bit for
+            bit, on both marking paths: 8,000 packets; the edge traces of
+            ref.scan_traces at the kernel's tile; a 17,825,792-packet trace
+            whose counts pass 2^24 (closed-form states); then the entry
+            point on a 1,000,000-packet trace (its main path, launches
+            counted), all of it against the plain version; two planted
+            faults (a look-back that skips the nearest tile, counts
+            without saturation) must fail
 8. flash    the flash attention kernel against its plain version in bf16
             and float32: the reference's five FLASH_CASES and danube's head
             layout (32 query heads, 8 KV heads, D 120) at S = 4,096 with
@@ -127,9 +134,10 @@ and exits non-zero at the first phase that fails:
             also as the pair's sum over that call's time; the SSD kernels
             have no library counterpart: their bound in float32 on the CUDA
             cores and, beside it, on the tensor cores in TF32 per split
-            pass; with ``--against DIR`` another commit's ssd.cu (the
-            first SSD port's interface or the shipped one, by its
-            ``ssd_abi`` tag), timed in turns beside them)
+            pass; with ``--against DIR`` another commit's SSD scan, tiled
+            tick and switch pipeline (the first port's interface or the
+            shipped one, by each library's ``*_abi`` tag), timed in turns
+            beside the shipped ones)
 20. profile main-path ticks/s (Table 1 with 1 lane through ``simulate``,
             128 hosts x 8 lanes, 512 hosts x 8 lanes) and where a tick's
             time goes: wall and device-busy time, the busiest kernels; one
@@ -149,8 +157,9 @@ The line before the last is the kernel report (JSON); the last line is
     python3 chip_smoke.py build flash_bwd train timing   # training path
     python3 chip_smoke.py build ssd mamba         # the SSM serving path
     python3 chip_smoke.py --against DIR build ssd mamba timing
-        # DIR: another commit's src/repro_torch/kernels/ssd/csrc, unpacked
-        # under a git-ignored directory (git archive), timed beside these
+        # DIR: another commit's kernels, unpacked under a git-ignored
+        # directory (git archive <commit> src/repro_torch/kernels | tar -x
+        # -C DIR), or a directory holding its ssd.cu; timed beside these
 
 It needs one CUDA card and the CUDA toolkit; without a card it exits
 non-zero before printing any result.
@@ -488,7 +497,8 @@ class Smoke:
         self.rates = {}
         self.reports = []
         self.eager128 = None
-        self.against = None     # --against: another commit's SSD csrc
+        self.against = None     # --against: {library: another commit's csrc}
+        self.variants = {}      # tag -> a library built from edited sources
 
     # ---------------------------------------------------------- 1. build
     def build(self):
@@ -533,6 +543,7 @@ class Smoke:
                                   "memory")
         self.netsim_build_report(libs)
         self.ssd_build_report(libs)
+        self.scan_build_report(libs)
         print(self.card, flush=True)
         from repro_torch.core.netsim.stages import ordered_segment_sum
         g = torch.Generator().manual_seed(0)
@@ -583,6 +594,79 @@ class Smoke:
                 if e["spill_stores"] or e["spill_loads"]:
                     fail("build", f"{lib}_kernel<{ids_smem}> spills to "
                                   "local memory")
+
+    def scan_build_report(self, libs):
+        """Registers, stack, spills and shared memory of the tiled tick's
+        five kernels and the switch pipeline's scan, from ptxas's report,
+        with the tiled tick's dynamic shared memory at each shape it runs
+        at; fails on a spill or on a kernel missing from the report."""
+        from repro_torch.kernels import _build
+        smem = {shape: self.Tl.tiled_smem_bytes(L1, J, DJ)
+                for shape, (_, _, _, L1, J, DJ) in NETSIM_DIMS.items()}
+        for lib, names in (("netsim_tiled", ("tiled_sweep0", "tiled_sweep1",
+                                             "tiled_sweep2", "tiled_sweep3",
+                                             "tiled_flush")),
+                           ("switch_pipeline", ("switch_pipeline_kernel",))):
+            entries = _build.ptxas_entries(libs[lib][1])
+            for kname in names:
+                found = [e for m, e in entries.items() if kname in m]
+                if len(found) != 1:
+                    fail("build", f"no ptxas report of {kname} in the "
+                                  f"{lib} build log")
+                e = found[0]
+                dyn = (f", the most dynamic shared memory a sweep takes: "
+                       + ", ".join(f"{v:,} bytes at {k}"
+                                   for k, v in smem.items())
+                       if kname == "tiled_sweep0" else "")
+                say("build", f"{lib}: {kname}: {e['registers']} registers a "
+                             f"thread, {e['stack']} bytes of stack frame, "
+                             f"{e['spill_stores']} / {e['spill_loads']} bytes "
+                             f"of spill stores / loads, {e['smem']:,} bytes of"
+                             f" static shared memory{dyn}")
+                if e["spill_stores"] or e["spill_loads"]:
+                    fail("build", f"{kname} spills to local memory")
+
+    def variant(self, lib: str, tag: str, edits=(), csrc=None):
+        """Library ``lib`` built from a copy of its csrc directory (or of
+        ``csrc``, another commit's) with ``edits`` applied, each ``(file,
+        old, new)`` with ``old`` found exactly once, under the git-ignored
+        build/chip_smoke_variants/``tag``; bound like the shipped one."""
+        from repro_torch.kernels import _build
+        if tag in self.variants:
+            return self.variants[tag]
+        src = Path(csrc) if csrc else _build._REGISTRY[lib].csrc
+        out = ROOT / "build" / "chip_smoke_variants" / tag
+        if out.exists():
+            shutil.rmtree(out)
+        shutil.copytree(src, out, ignore=shutil.ignore_patterns("build"))
+        for fname, old, new in edits:
+            text = (out / fname).read_text()
+            if text.count(old) != 1:
+                fail("build", f"variant {tag}: {old!r} is not in {fname} "
+                              "exactly once")
+            (out / fname).write_text(text.replace(old, new))
+        so = out / f"{lib}.so"
+        proc = subprocess.run(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+             str(out / f"{lib}.cu")], capture_output=True, text=True)
+        if proc.returncode:
+            fail("build", f"nvcc failed on variant {tag}:\n"
+                          f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+        self.variants[tag] = ctypes.CDLL(str(so))
+        return self.variants[tag]
+
+    @contextlib.contextmanager
+    def using(self, lib: str, cdll):
+        """Run library ``lib``'s wrapper with ``cdll`` in place of its own
+        library (a variant of the same interface, bound here)."""
+        from repro_torch.kernels import _build
+        _build._REGISTRY[lib].bind(cdll)
+        own = _build.build(lib)[0]
+        _build._loaded[lib] = cdll
+        try:
+            yield
+        finally:
+            _build._loaded[lib] = own
 
     def ssd_build_report(self, libs):
         """Registers, stack, spills and shared memory of every kernel of the
@@ -819,6 +903,7 @@ class Smoke:
         for shape, blk, ecmp in runs:
             ctx, ecfg, state, t0 = self.mid_state(shape, ecmp)
             n = 10 if shape != "multipod512" else 5
+            bits = {}
             with torch.no_grad():
                 for tick in range(t0, t0 + n):
                     starts = stage_starts(ctx, state, tick)
@@ -832,15 +917,66 @@ class Smoke:
                                      f"ecmp={ecmp} tick {tick}: {f}",
                                      getattr(out, f), getattr(ref, f),
                                      kernel="netsim_tiled")
+                    self.count_bits(bits, out, ref)
                     state, _ = engine_tick_eager(ctx, ecfg, state, tick,
                                                  False)
+            if any(bits.values()):
+                self.say_bits("tiled", f"{shape} blk={blk}", bits)
+                fail("tiled", f"{shape} blk={blk} ecmp={ecmp}: float outputs"
+                              " differ from the plain version in their bits")
             nb = -(-ctx.FW // blk)
+            smem = Tl.tiled_smem_bytes(ctx.L + 1, ctx.J, ctx.DJ)
+            if smem > self.K.SMEM_LIMIT:
+                fail("tiled", f"{shape}: {smem} bytes of shared memory a "
+                              "block")
+            # act list and the two sorted lists (uint16), both offsets
+            lists = ctx.B * nb * (2 * blk * (1 + 2 * ctx.H) +
+                                  4 * (ctx.L + ctx.DJ + 2))
             say("tiled", f"{shape} lanes={ctx.B} blk={blk} ({nb} blocks"
                          f" of {ctx.FW} instances) per_step_ecmp={ecmp}:"
                          f" ticks {t0}-{t0 + n - 1} equal the plain "
-                         f"version (ints exact, floats rtol {RTOL})")
+                         f"version bit for bit; {smem:,} bytes of shared "
+                         f"memory a block at most (limit "
+                         f"{self.K.SMEM_LIMIT:,}), {lists:,} bytes of row "
+                         "lists")
         say("tiled", "max abs float error kernel vs plain: "
                      f"{self.max_err['netsim_tiled']}")
+        self.tiled_fault()
+
+    def tiled_fault(self):
+        """A planted fault: the row sort's placement ranks the entries of a
+        32-entry batch that share a row in reverse, so rows fold in
+        another order.  On the ticks the tiled phase checks, at Table 1
+        and at 512 hosts, some float output must differ from the plain
+        version's bits."""
+        torch, Tl, Rf = self.torch, self.Tl, self.Rf
+        from repro_torch.core.netsim.stages import (engine_tick_eager,
+                                                    stage_starts)
+        from repro_torch.kernels.netsim_tick.ops import tiled_operands
+        lib = self.variant("netsim_tiled", "tiled_misordered_sort", [(
+            "netsim_hot.cuh", "const int rank = __popc(peers & lt);",
+            "const int rank = __popc(peers) - 1 - __popc(peers & lt);")])
+        for shape in ("table1", "multipod512"):
+            ctx, ecfg, state, t0 = self.mid_state(shape, True)
+            blk, bits = BLK[shape], {}
+            saved = Tl.netsim_tiled.launches
+            with torch.no_grad(), self.using("netsim_tiled", lib):
+                for tick in range(t0, t0 + 5):
+                    starts = stage_starts(ctx, state, tick)
+                    args, kw = tiled_operands(ctx, ecfg, starts, state,
+                                              tick, blk)
+                    out = Tl.netsim_tiled(*args, **kw)
+                    ref = Rf.tiled_tick_ref(*args, **kw)
+                    self.count_bits(bits, out, ref)
+                    state, _ = engine_tick_eager(ctx, ecfg, state, tick,
+                                                 False)
+            Tl.netsim_tiled.launches = saved
+            if not any(bits.values()):
+                fail("tiled", f"planted fault (misordered row sort) passes "
+                              f"the bit check at {shape}")
+            self.say_bits("tiled", f"planted fault (misordered row sort), "
+                                   f"{shape} blk={blk}, ticks {t0}-{t0 + 4},"
+                                   " failing the check", bits)
 
     # ------------------------- 6. tick and window kernels at 256-512 hosts
     def large(self):
@@ -917,6 +1053,51 @@ class Smoke:
                   rng.random(n).astype(np.float32))
         return [self.torch.from_numpy(a).to(self.dev) for a in arrays]
 
+    def switch_check(self, what, out, ref, kernel="switch_pipeline"):
+        """Fail unless the four outputs equal the plain version's bit for
+        bit; ``kernel``: whose max error to record (None: none)."""
+        torch = self.torch
+        for name, x, y in zip(("marks", "step_min", "psn_rec", "alpha"),
+                              out, ref):
+            self.compare("switch", f"{what}: {name}", x, y, kernel=kernel)
+            if self.bits_differ(x, y):
+                fail("switch", f"{what}: {name} differs in its bits")
+
+    def switch_differs(self, out, ref) -> bool:
+        torch = self.torch
+        return any(not torch.equal(x.view(torch.int32), y.view(torch.int32))
+                   for x, y in zip(out, ref))
+
+    def switch_saturation(self):
+        """A trace whose counts pass 2^24: 2^20 packets at the step_min,
+        then 2^24 outpacing it, one window end at the last packet, tau 1.
+        The walk's float32 counts stop at 2^24, so that window sees cnt =
+        cnt_op = 2^24 and alpha steps up to 2 (unsaturated counts would
+        step it down).  Returns (inputs, kw, expected outputs): the state
+        before and after each packet in closed form, the marks from it by
+        the plain version's own ``outputs_from_states``."""
+        torch, dev = self.torch, self.dev
+        Sr = self.Sp.ref
+        n0, P = 1 << 20, (1 << 24) + (1 << 20)
+        g = torch.Generator(device=dev).manual_seed(5)
+        steps = (torch.arange(P, device=dev) >= n0).to(torch.int32)
+        psns = torch.full((P,), 100.0, device=dev)
+        lasts = torch.zeros(P, dtype=torch.int32, device=dev)
+        wins = torch.zeros(P, dtype=torch.int32, device=dev)
+        wins[-1] = 1
+        us = torch.rand(P, generator=g, device=dev)
+        kw = dict(tau=1.0)
+        zero = torch.zeros(P, device=dev)
+        prec_post = torch.full((P,), 100.0, device=dev)
+        prec_post[-1] = 0.0
+        prec_pre = torch.cat([zero[:1], prec_post[:-1]])
+        alpha_post = torch.ones(P, device=dev)
+        alpha_post[-1] = 2.0
+        pre = torch.stack([zero, prec_pre, torch.ones(P, device=dev)])
+        post = torch.stack([zero, prec_post, alpha_post])
+        want = Sr.outputs_from_states(steps, psns, us, pre, post)
+        return (steps, psns, lasts, wins, us), kw, want
+
     def switch(self):
         torch, Sp = self.torch, self.Sp
         small = self.switch_trace(8000, 7)
@@ -926,12 +1107,31 @@ class Smoke:
             Sp.switch_pipeline.launches = saved
             ref = Sp.pipeline_plain(*small, exact=exact)
             torch.cuda.synchronize()
-            for name, x, y in zip(("marks", "step_min", "psn_rec", "alpha"),
-                                  out, ref):
-                self.compare("switch", f"P=8000 exact={exact}: {name}", x, y,
-                             kernel="switch_pipeline")
+            self.switch_check(f"P=8000 exact={exact}", out, ref)
             say("switch", f"P=8000 exact={exact}: kernel equals the plain "
-                          f"version; {int(out[0].sum())} marks")
+                          f"version bit for bit; {int(out[0].sum())} marks")
+        # the scan's edge cases on the kernel's tile edges
+        traces = {name: ([torch.from_numpy(x).to(self.dev) for x in arrays],
+                         kw)
+                  for name, (arrays, kw) in
+                  Sp.ref.scan_traces(Sp.kernel.TILE).items()}
+        saved = Sp.switch_pipeline.launches
+        plain = {}
+        for name, (trace, kw) in traces.items():
+            for exact in (True, False):
+                out = Sp.switch_pipeline(*trace, exact=exact, **kw)
+                plain[name, exact] = Sp.pipeline_plain(*trace, exact=exact,
+                                                       **kw)
+                self.switch_check(f"{name} exact={exact}", out,
+                                  plain[name, exact])
+        sat, sat_kw, sat_want = self.switch_saturation()
+        self.switch_check(f"counts past 2^24 (P={sat[0].numel()})",
+                          Sp.switch_pipeline(*sat, **sat_kw), sat_want)
+        Sp.switch_pipeline.launches = saved
+        say("switch", f"tile {Sp.kernel.TILE}: edge traces "
+                      f"{', '.join(traces)} (both marking paths) and a "
+                      f"{sat[0].numel():,}-packet trace whose counts pass "
+                      "2^24 equal the plain version bit for bit")
         # the main path: the entry point on a 1,000,000-packet trace
         big = self.switch_trace(1_000_000, 11)
         Sp.switch_pipeline.launches = 0
@@ -953,18 +1153,58 @@ class Smoke:
         re, rl = ex[0].float().mean().item(), lut[0].float().mean().item()
         if not abs(re - rl) < 0.02 + 0.25 * re:
             fail("switch", f"LUT mark rate {rl} vs exact {re}")
-        # the state is causal: the trace's first 50,000 packets alone give
-        # the same outputs, which the plain version checks
-        head = [x[:50_000].contiguous() for x in big]
-        ref = Sp.pipeline_plain(*head, exact=True)
-        for name, x, y in zip(("marks", "step_min", "psn_rec", "alpha"),
-                              ex, ref):
-            self.compare("switch", f"P=1e6 first 50,000: {name}",
-                         x[:50_000], y, kernel="switch_pipeline")
-        say("switch", f"P=1,000,000: both paths in {secs:.2f} s (2 "
+        t1 = time.time()
+        for exact, out in ((True, ex), (False, lut)):
+            self.switch_check(f"P=1e6 exact={exact}", out,
+                              Sp.pipeline_plain(*big, exact=exact))
+        say("switch", f"P=1,000,000: both paths in {secs:.4f} s (2 "
                       f"launches), mark rate exact {re:.4f}, LUT {rl:.4f}, "
-                      "same state trajectory; first 50,000 packets equal the"
-                      " plain version")
+                      "same state trajectory; all 1,000,000 packets of both "
+                      "paths equal the plain version bit for bit (its host "
+                      f"walks took {time.time() - t1:.1f} s)")
+        self.switch_faults(big, (ex, lut), traces, plain, sat, sat_kw,
+                           sat_want)
+
+    def switch_faults(self, big, big_out, traces, plain, sat, sat_kw,
+                      sat_want):
+        """Planted faults, each a variant of the kernel's source that must
+        fail the checks above: a look-back that skips the nearest
+        predecessor (on the 1,000,000-packet trace and the edge traces),
+        and counts that do not saturate (on the trace past 2^24)."""
+        Sp = self.Sp
+        src = "switch_pipeline.cu"
+        faults = (
+            ("look-back skips the nearest predecessor",
+             [(src, "const int first = tile - 1;",
+               "const int first = tile > 1 ? tile - 2 : tile - 1;")]),
+            ("counts without saturation",
+             [(src, "__device__ __forceinline__ int sat(int n) { return "
+                    "min(n, SP_SAT); }",
+               "__device__ __forceinline__ int sat(int n) { return n; }")]))
+        saved = Sp.switch_pipeline.launches
+        caught = []
+        for k, (fault, edits) in enumerate(faults):
+            lib = self.variant("switch_pipeline", f"switch_fault{k}", edits)
+            where = []
+            with self.using("switch_pipeline", lib):
+                for exact, want in zip((True, False), big_out):
+                    if self.switch_differs(
+                            Sp.switch_pipeline(*big, exact=exact), want):
+                        where.append(f"P=1e6 exact={exact}")
+                for (name, exact), want in plain.items():
+                    trace, kw = traces[name]
+                    if self.switch_differs(Sp.switch_pipeline(
+                            *trace, exact=exact, **kw), want):
+                        where.append(name)
+                if self.switch_differs(Sp.switch_pipeline(*sat, **sat_kw),
+                                       sat_want):
+                    where.append("counts past 2^24")
+            if not where:
+                fail("switch", f"planted fault passes every check: {fault}")
+            caught.append(f"{fault}: fails on {', '.join(where)}")
+        Sp.switch_pipeline.launches = saved
+        say("switch", "planted faults, each failing the check: "
+                      + "; ".join(caught))
 
     # -------------------------------------------- 8. flash kernel vs plain
     def attn_inputs(self, B, Hq, Hkv, S, D, dtype, seed=0):
@@ -2227,6 +2467,8 @@ class Smoke:
                     self.compare("grid512", f"{name}: {f}", a, b,
                                  rtol=RTOL_TPUT if f == "ts_throughput"
                                  else RTOL)
+                    if x is tiled and self.bits_differ(a, b):
+                        fail("grid512", f"{name}: {f} differs in its bits")
         # the tiled tick against eager: onehot's contract is allclose on
         # floats, so integer series may part; count where and report
         diffs, first = 0, None
@@ -2243,8 +2485,8 @@ class Smoke:
         done = win.ts_done_min[:, :, -1, 0].flatten().tolist()
         wire = win.ts_max_wire[:, :, -1, 0].flatten().tolist()
         say("grid512", f"8 lanes x {cfg.n_ticks} ticks at 512 hosts: tiled "
-                       f"(blk={BLK['multipod512']}) == its plain version on "
-                       f"every integer series ({n_tiled} tiled launches, "
+                       f"(blk={BLK['multipod512']}) == its plain version bit "
+                       f"for bit on every series ({n_tiled} tiled launches, "
                        f"{rate1:.1f} ticks/s); tick_window=20 == eager "
                        f"({n_win} window launches, {rate20:.1f} ticks/s); "
                        f"eager {eager_rate:.1f} ticks/s; steps done per lane"
@@ -2356,6 +2598,14 @@ class Smoke:
                         "src/repro/kernels/netsim_tick/kernel.py:374",
                         k_dev, k_wall, p_dev, p_wall, nbytes, ops, 1,
                         note=f"blk={blk}, {-(-FW // blk)} blocks")
+            if "netsim_tiled" in (self.against or {}):
+                self.against_turns(
+                    "netsim_tiled", f"{shape} blk={blk}",
+                    lambda: Tl.netsim_tiled(*args, **kw),
+                    self.tiled_against_call(self.variant(
+                        "netsim_tiled", "against_tiled",
+                        csrc=self.against["netsim_tiled"]), args, kw),
+                    5 if big else 20)
             # -- window of 20 ticks
             n = 20
             saved = Wn.netsim_window.launches
@@ -2408,9 +2658,115 @@ class Smoke:
                         k_dev, k_wall, p_wall, p_wall, 36 * P + 64,
                         20 * P, 1, note="(plain version: wall time; its "
                                         "state walk runs on the host)")
+            if "switch_pipeline" in (self.against or {}):
+                self.against_turns(
+                    "switch_pipeline", f"P={P}",
+                    lambda: Sp.switch_pipeline(*trace),
+                    self.switch_against_call(self.variant(
+                        "switch_pipeline", "against_switch",
+                        csrc=self.against["switch_pipeline"]), trace),
+                    20 if P < 10**5 else 3)
         self.timing_flash()
         self.timing_flash_bwd()
         self.timing_ssd()
+
+    def against_turns(self, lib, what, shipped, theirs, n):
+        """Another commit's kernel (``theirs``) timed in turns with the
+        shipped one (against, shipped, shipped, against) on the same
+        inputs; their outputs must agree bit for bit."""
+        torch = self.torch
+        counter = self.Tl.netsim_tiled if lib == "netsim_tiled" \
+            else self.Sp.switch_pipeline
+        saved = counter.launches
+        ms = [timed(f, n, torch)[0] for f in (theirs, shipped, shipped,
+                                               theirs)]
+        a, b = theirs(), shipped()
+        counter.launches = saved
+        torch.cuda.synchronize()
+        for x, y in zip(a, b):
+            if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
+                fail("timing", f"{lib} {what}: the --against kernel's "
+                               "outputs differ from the shipped one's")
+        say("timing", f"{lib} {what} against {self.against[lib]}: "
+                      f"{ms[0]:.4f} / {ms[3]:.4f} ms a launch beside the "
+                      f"shipped kernel's {ms[1]:.4f} / {ms[2]:.4f} ms "
+                      f"(against, shipped, shipped, against; "
+                      f"{(ms[0] + ms[3]) / (ms[1] + ms[2]):.2f}x), outputs "
+                      f"equal bit for bit, card {self.card}")
+
+    def tiled_against_call(self, lib, args, kw):
+        """A function that runs library ``lib``'s tiled tick (another
+        commit's) on these operands, through the interface its
+        ``netsim_tiled_abi()`` names: none exported, the first port's (the
+        shipped wrapper's 50 pointers begin with its 45; its own
+        shared-memory formula); ``tiled.ABI``, the shipped one.  Fails on
+        any other."""
+        from repro_torch.kernels import _build
+        Tl = self.Tl
+        abi = lib.netsim_tiled_abi() if hasattr(lib, "netsim_tiled_abi") \
+            else 1
+        if abi == Tl.ABI:
+            def call():
+                with self.using("netsim_tiled", lib):
+                    return Tl.netsim_tiled(*args, **kw)
+            return call
+        if abi != 1:
+            fail("timing", f"--against: netsim_tiled_abi() is {abi}; this "
+                           f"script calls interfaces 1 and {Tl.ABI}")
+        p = ctypes.c_void_p
+        lib.netsim_tiled_launch.argtypes = [p] * 4
+        lib.netsim_tiled_launch.restype = ctypes.c_int
+        lib.netsim_tiled_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.netsim_tiled_smem_bytes.restype = ctypes.c_size_t
+
+        def call():
+            own, formula = _build.build("netsim_tiled")[0], \
+                Tl.tiled_smem_bytes
+            _build._loaded["netsim_tiled"] = lib
+            Tl.tiled_smem_bytes = lib.netsim_tiled_smem_bytes
+            try:
+                return Tl.netsim_tiled(*args, **kw)
+            finally:
+                _build._loaded["netsim_tiled"] = own
+                Tl.tiled_smem_bytes = formula
+        return call
+
+    def switch_against_call(self, lib, trace):
+        """A function that runs library ``lib``'s switch pipeline (another
+        commit's) on ``trace``, through the interface its
+        ``switch_pipeline_abi()`` names: none exported, the first port's
+        one-thread walk (``switch_pipeline_launch`` without a workspace);
+        ``kernel.ABI``, the shipped one.  Fails on any other."""
+        torch, Sp = self.torch, self.Sp
+        abi = lib.switch_pipeline_abi() \
+            if hasattr(lib, "switch_pipeline_abi") else 1
+        if abi == Sp.kernel.ABI:
+            def call():
+                with self.using("switch_pipeline", lib):
+                    return Sp.switch_pipeline(*trace)
+            return call
+        if abi != 1:
+            fail("timing", f"--against: switch_pipeline_abi() is {abi}; "
+                           f"this script calls interfaces 1 and "
+                           f"{Sp.kernel.ABI}")
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.switch_pipeline_launch.argtypes = [p] * 9 + [i] + [f] * 5 + [i, p]
+        lib.switch_pipeline_launch.restype = ctypes.c_int
+        P = trace[0].numel()
+        out = [torch.empty(P, dtype=dt, device=trace[0].device)
+               for dt in (torch.int32, torch.int32, torch.float32,
+                          torch.float32)]
+
+        def call():
+            # the wrapper's defaults: k, tau, n_warmup, n_sample, alpha_max
+            rc = lib.switch_pipeline_launch(
+                *(x.data_ptr() for x in (*trace, *out)), P, 0.01, 0.25,
+                16.0, 32.0, 64.0, 1, torch.cuda.current_stream().cuda_stream)
+            if rc:
+                fail("timing", f"the --against switch kernel failed to "
+                               f"launch: {rc}")
+            return out
+        return call
 
     def timing_flash(self):
         """The flash forward at the training shape (B 2, S 4,096, causal,
@@ -2572,29 +2928,20 @@ class Smoke:
                          f"take {f32_ms:.6f} ms, bound "
                          f"{max(bytes_ms, f32_ms):.6f} ms)",
                     peak=TF32_OPS_PER_S)
-        if self.against is not None:
+        if "ssd" in (self.against or {}):
             self.ssd_against(xv, av, Bm, Cm)
         del x, a, Bm, Cm, xv, av
 
     def ssd_against(self, xv, av, Bm, Cm):
-        """The SSD scan of another commit (``--against DIR``: DIR holds its
-        ssd.cu), built under the git-ignored build/chip_smoke_against and
-        timed in turns with the shipped kernels (against, shipped, shipped,
+        """The SSD scan of another commit (``--against``), built as a
+        variant (:meth:`variant`) and timed in turns with the shipped kernels (against, shipped, shipped,
         against) on the same inputs; its y and final state held to the
         shipped kernels' at SSD_TOL."""
-        from repro_torch.kernels import _build
         torch, Sd = self.torch, self.Sd
-        out = ROOT / "build" / "chip_smoke_against"
-        out.mkdir(parents=True, exist_ok=True)
-        so = out / "ssd_against.so"
-        proc = subprocess.run(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
-             str(self.against / "ssd.cu")], capture_output=True, text=True)
-        if proc.returncode:
-            fail("timing", f"nvcc failed on {self.against / 'ssd.cu'}:\n"
-                           f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
-        against = self.ssd_against_call(ctypes.CDLL(str(so)), xv, av, Bm,
-                                        Cm)
+        src = self.against["ssd"] / "ssd.cu"
+        against = self.ssd_against_call(
+            self.variant("ssd", "against_ssd", csrc=self.against["ssd"]),
+            xv, av, Bm, Cm)
         H, Q = xv.shape[1], SSD_MAIN[5]
 
         def shipped():
@@ -2612,7 +2959,7 @@ class Smoke:
             fail("timing", f"the --against kernel differs from the shipped "
                            f"ones: {msg}")
         ratio = (ms[0] + ms[3]) / (ms[1] + ms[2])
-        say("timing", f"ssd against {self.against}: {ms[0]:.4f} / "
+        say("timing", f"ssd against {src}: {ms[0]:.4f} / "
                       f"{ms[3]:.4f} ms a launch beside the shipped kernels' "
                       f"{ms[1]:.4f} / {ms[2]:.4f} ms (against, shipped, "
                       f"shipped, against; {ratio:.2f}x), outputs agree "
@@ -2930,6 +3277,24 @@ class Smoke:
         for name, (n, t) in top:
             say("profile", f"  {t / 1e3:.3f} ms  {n} launches  {name[:80]}")
 
+def against_sources(root: Path) -> dict:
+    """The kernel sources of another commit that ``--against`` times beside
+    the shipped kernels: ``{library: its csrc directory}`` for ssd,
+    netsim_tiled and switch_pipeline, from ``root`` holding an ssd.cu (the
+    SSD scan alone) or a ``src/repro_torch/kernels`` tree (``git archive
+    <commit> src/repro_torch/kernels | tar -x -C root``)."""
+    root = root.resolve()
+    if (root / "ssd.cu").exists():
+        return {"ssd": root}
+    kernels = root / "src" / "repro_torch" / "kernels"
+    found = {}
+    for lib, pkg in (("ssd", "ssd"), ("netsim_tiled", "netsim_tick"),
+                     ("switch_pipeline", "switch_pipeline")):
+        if (kernels / pkg / "csrc" / f"{lib}.cu").exists():
+            found[lib] = kernels / pkg / "csrc"
+    return found
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2938,11 +3303,13 @@ def main(argv) -> int:
     argv, against = list(argv), None
     if "--against" in argv:
         i = argv.index("--against")
-        if i + 1 >= len(argv) or not (Path(argv[i + 1]) / "ssd.cu").exists():
-            print("chip_smoke: --against takes a directory holding an ssd.cu",
+        against = against_sources(Path(argv[i + 1])) \
+            if i + 1 < len(argv) else {}
+        if not against:
+            print("chip_smoke: --against takes a directory holding an ssd.cu "
+                  "or another commit's src/repro_torch/kernels tree",
                   file=sys.stderr)
             return 2
-        against = Path(argv[i + 1]).resolve()
         del argv[i:i + 2]
     phases = argv or list(PHASES)
     unknown = [p for p in phases if p not in PHASES]

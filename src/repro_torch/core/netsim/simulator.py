@@ -340,20 +340,32 @@ def simulate(topo: Topology, wl: Workload, cfg: SimParams,
 
 
 def simulate_seeds(topo: Topology, wl: Workload, cfg: SimParams,
-                   routing: str, seeds: Sequence[int], device=None,
-                   **bg) -> SimResult:
+                   routing: str, seeds: Sequence[int], devices=None,
+                   mesh=None, device=None, **bg) -> SimResult:
     """One lane per seed: both the ECMP path draw and the DCQCN coin flips
-    vary.  Result arrays gain a leading ``[S]`` axis."""
+    vary.  Result arrays gain a leading ``[S]`` axis.  ``devices`` and
+    ``mesh`` are as for :func:`simulate_grid`."""
     struct, knobs = cfg.split()
     res = simulate_grid(topo, wl, struct, knobs.map(lambda x: x[None]),
-                        seeds, routing=routing, device=device, **bg)
+                        seeds, routing=routing, devices=devices, mesh=mesh,
+                        device=device, **bg)
     return SimResult(*(x[0] for x in res))
+
+
+def _one_device(devices, mesh) -> None:
+    """The reference's lane-sharding knobs: ``devices=None, mesh=None`` is
+    its plain single-device path, the only one ported so far."""
+    if devices is not None or mesh is not None:
+        raise NotImplementedError(
+            f"simulate_grid: devices={devices!r}, mesh={mesh!r}: lanes "
+            "split over several devices are not ported yet (ROADMAP.md, "
+            "queue 1 item 2); pass device= for the one device to run on")
 
 
 def simulate_grid(topo: Topology, wl: Workload, struct: SimStructure,
                   knobs_grid, seeds: Sequence[int] = (0,),
                   routing: str = "ecmp", chunk_knobs: int | None = None,
-                  device=None, **bg) -> SimResult:
+                  devices=None, mesh=None, device=None, **bg) -> SimResult:
     """Batched grid executor: knob points x seeds as lanes of one run.
 
     ``knobs_grid`` is a stacked :class:`RuntimeKnobs` (leading axis K) or a
@@ -361,7 +373,10 @@ def simulate_grid(topo: Topology, wl: Workload, struct: SimStructure,
     ``struct``'s static fields).  Lanes are the flattened ``K*S`` cross
     product, row-major; ``chunk_knobs`` runs at most that many knob points
     at a time to bound memory.  Returns arrays with leading ``[K, S]``.
+    ``devices=None, mesh=None`` (the reference's defaults) run every lane
+    on ``device``; any other value raises ``NotImplementedError``.
     """
+    _one_device(devices, mesh)
     dev = resolve_device(device)
     if isinstance(knobs_grid, (list, tuple)) and \
             not isinstance(knobs_grid, RuntimeKnobs):

@@ -52,16 +52,18 @@ class SymphonyState(NamedTuple):
     cnt_op: torch.Tensor     # f32 — outpacing packets in current window
 
 
-def init_state(shape=(), device=None) -> SymphonyState:
+def init_state(shape=(), device=None, *,
+               dtype=torch.float32) -> SymphonyState:
     """A fresh state block; ``device=None`` is the CUDA card (raises
-    without one)."""
+    without one).  ``dtype`` is the four float fields' type, as the
+    reference's ``init_state(dtype)``; ``step_min`` stays int32."""
     device = resolve_device(device)
     return SymphonyState(
         step_min=torch.zeros(shape, dtype=torch.int32, device=device),
-        psn_rec=torch.zeros(shape, dtype=torch.float32, device=device),
-        alpha=torch.ones(shape, dtype=torch.float32, device=device),
-        cnt_total=torch.zeros(shape, dtype=torch.float32, device=device),
-        cnt_op=torch.zeros(shape, dtype=torch.float32, device=device),
+        psn_rec=torch.zeros(shape, dtype=dtype, device=device),
+        alpha=torch.ones(shape, dtype=dtype, device=device),
+        cnt_total=torch.zeros(shape, dtype=dtype, device=device),
+        cnt_op=torch.zeros(shape, dtype=dtype, device=device),
     )
 
 

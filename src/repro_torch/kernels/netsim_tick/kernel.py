@@ -55,6 +55,8 @@ def _bind_tiled(lib: ctypes.CDLL) -> None:
     lib.netsim_tiled_launch.restype = ctypes.c_int
     lib.netsim_tiled_smem_bytes.argtypes = [i] * 3
     lib.netsim_tiled_smem_bytes.restype = ctypes.c_size_t
+    lib.netsim_tiled_abi.argtypes = []
+    lib.netsim_tiled_abi.restype = i
 
 
 # one shared library per source in csrc/, and the function that binds it

@@ -139,24 +139,44 @@ def hot_tick(step, sent, rate, done_upto, q_prev,
                    s_alpha=s_alpha, s_cnt=s_cnt, s_cntop=s_cntop)
 
 
+def block_partials(rows, R: int, vals, blk: int, H: int) -> torch.Tensor:
+    """Per-block partial sums ``[B, NB, R]`` of ``vals`` ``[B, FW*H]`` over
+    the (instance, hop) entries whose row is ``rows`` ``[B, FW*H]``: each
+    block's entries (``blk`` instances) added in ascending entry order
+    from zero."""
+    B, E = rows.shape
+    FW = E // H
+    NB = -(-FW // blk)
+    eblk = (torch.arange(FW, device=rows.device) // blk).repeat_interleave(H)
+    return ordered_segment_sum(
+        torch.zeros(B, NB * R, dtype=torch.float32, device=rows.device),
+        eblk * R + rows, vals).reshape(B, NB, R)
+
+
 def tiled_tick_ref(step, sent, rate, done_upto, q_prev,
                    s_stepmin, s_psnwin, s_alpha, s_cnt, s_cntop,
                    cap, bg_base, bg_amp,
                    inst_job, inst_flow, sps, phase, nph, off, tables,
                    iscal, fscal, *, n_jobs: int, blk: int, dt: float,
-                   mtu: float, per_step_ecmp: bool, policy: str) -> TickOut:
+                   mtu: float, per_step_ecmp: bool, policy: str,
+                   partials: dict | None = None) -> TickOut:
     """One tick over ``blk``-instance blocks; operands as
     ``tiled.netsim_tiled`` documents them.
 
     The reference's four sweeps compute per-block partials of the link
     loads (proportional, hi and lo class) and of the Symphony ``cnt`` and
     ``cntop`` rows.  Here each partial is the block's entries added in
-    ascending (instance, hop) order from zero, and a row's total is its
-    partials added in ascending block order; offered loads then add the
-    background and the Symphony rows add the partial sum to the state.
-    Integer reductions (job min-wire, step-min candidates) and the psn
-    window (a max) do not depend on the order.  Route ids, domains and
-    chunk sizes come from the packed per-instance tables."""
+    ascending (instance, hop) order from zero (:func:`block_partials`), and
+    a row's total is its partials added in ascending block order; offered
+    loads then add the background and the Symphony rows add the partial
+    sum to the state.  Integer reductions (job min-wire, step-min
+    candidates) and the psn window (a max) do not depend on the order.
+    Route ids, domains and chunk sizes come from the packed per-instance
+    tables.  A ``partials`` dict receives, under ``"link_p"``,
+    ``"link_hi"``, ``"link_lo"``, ``"cnt"`` and ``"cntop"``, ``(rows,
+    values, block partials)``: the entries' rows and values ``[B, FW*H]``
+    and their ``[B, NB, R]`` partials; and under ``"active"`` the
+    instances' flags ``[B, FW]``."""
     chunk, n_paths = tables.chunk, tables.n_paths
     B, FW = step.shape
     F = done_upto.shape[1]
@@ -192,15 +212,15 @@ def tiled_tick_ref(step, sent, rate, done_upto, q_prev,
     else:
         iroute, idom = tables.routes, tables.route_dom
     iroute_l = iroute.long()
-    # block of each (instance, hop) entry, in flat entry order
-    eblk = (torch.arange(FW, device=dev) // blk).repeat_interleave(H)
+    if partials is not None:
+        partials["active"] = active
 
-    def block_sum(rows, R, vals):
+    def block_sum(rows, R, vals, name):
         """Per-row sums of ``vals`` ``[B, FW*H]`` over the entries whose
         row is ``rows`` ``[B, FW*H]``: block partials folded in order."""
-        part = ordered_segment_sum(
-            torch.zeros(B, NB * R, dtype=torch.float32, device=dev),
-            eblk * R + rows, vals).reshape(B, NB, R)
+        part = block_partials(rows, R, vals, blk, H)
+        if partials is not None:
+            partials[name] = (rows, vals, part)
         acc = part[:, 0]
         for b in range(1, NB):
             acc = acc + part[:, b]
@@ -208,20 +228,20 @@ def tiled_tick_ref(step, sent, rate, done_upto, q_prev,
 
     flat_links = iroute_l.reshape(B, -1)
 
-    def lsum(vals):
-        return block_sum(flat_links, L1, per_hop(vals, H))
+    def lsum(vals, name):
+        return block_sum(flat_links, L1, per_hop(vals, H), name)
 
     # ---- sweeps 0-1: link loads of both classes
     bg_on = torch.remainder(tick, bg_period).to(torch.float32) < \
         bg_duty * bg_period.to(torch.float32)
     bg = bg_base + torch.where(bg_on[:, None], bg_amp, 0.0)
     w_rate = torch.where(active, rate, 0.0)
-    off_p = lsum(w_rate) + bg
+    off_p = lsum(w_rate, "link_p") + bg
     job_min_wire = segment_min(BIG, J, job[None],
                                torch.where(active, iwire, BIG))
     is_hi = active & (iwire <= job_min_wire[:, job])
-    off_hi = lsum(torch.where(is_hi, rate, 0.0)) + bg
-    off_lo = lsum(torch.where(active & ~is_hi, rate, 0.0))
+    off_hi = lsum(torch.where(is_hi, rate, 0.0), "link_hi") + bg
+    off_lo = lsum(torch.where(active & ~is_hi, rate, 0.0), "link_lo")
 
     # ---- sweep 2: link scales, eff, Symphony counters and candidates
     s_l = torch.clamp(cap / torch.clamp(off_p, min=1.0), max=1.0)
@@ -250,10 +270,11 @@ def tiled_tick_ref(step, sent, rate, done_upto, q_prev,
         return x[..., None].expand(B, FW, H).reshape(B, FW * H)
 
     pk_act = torch.where(active, pkts, 0.0)
-    cnt = s_cnt + block_sum(djf, DJ, hops(pk_act))
+    cnt = s_cnt + block_sum(djf, DJ, hops(pk_act), "cnt")
     over = iwire[..., None] > lane_take(s_stepmin, dj)
     cntop = s_cntop + block_sum(
-        djf, DJ, torch.where(over, pk_act[..., None], 0.0).reshape(B, -1))
+        djf, DJ, torch.where(over, pk_act[..., None], 0.0).reshape(B, -1),
+        "cntop")
     cand_row = segment_max_into(torch.zeros_like(s_stepmin), djf,
                                 hops(torch.where(done, iwire + 1, 0)))
     cand_row = torch.maximum(s_stepmin, cand_row)

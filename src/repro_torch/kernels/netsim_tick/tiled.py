@@ -6,8 +6,11 @@ the ``segsum="onehot"`` tick with ``blk``: a grid of (``blk``-instance
 blocks) x (lanes) that runs the reference's four sweeps as four launches in
 stream order, keeps per-block partials of every float sum in a global
 workspace and folds them in ascending block order, then flushes the link
-and Symphony rows with one block per lane.  :func:`~.kernel.build_all`
-compiles it beside the other two kernels.
+and Symphony rows with one block per lane.  The first sweep sorts each
+block's active (instance, hop) entries by link row and by Symphony row (a
+stable counting sort, kept in the workspace); the later sweeps fold each
+row's segment of those lists.  :func:`~.kernel.build_all` compiles it
+beside the other two kernels.
 
 :func:`netsim_tiled` is the one entry point: on CPU tensors it runs the
 plain torch version (:func:`.ref.tiled_tick_ref`); on CUDA tensors it
@@ -21,19 +24,23 @@ import ctypes
 import torch
 
 from ...core.netsim.params import PackedTables
-from .kernel import POLICIES, SMEM_LIMIT, TickOut, _check, build
+from .kernel import POLICIES, SMEM_LIMIT, THREADS, TickOut, _check, build
 from .ref import tiled_tick_ref
 
 __all__ = ["netsim_tiled", "tiled_smem_bytes"]
 
-_N_PTRS = 45
+_N_PTRS = 50
+# the library's interface (netsim_tiled_abi() in the source)
+ABI = 2
 
 
 def tiled_smem_bytes(L1: int, J: int, DJ: int) -> int:
-    """Shared bytes of the most demanding sweep (sweep 2: three link-scale
-    rows and three Symphony rows), as ``netsim_tiled_smem_bytes`` in
-    ``csrc/netsim_tiled.cu``."""
-    return max(4 * (3 * L1 + 3 * DJ), 4 * J, 4 * DJ)
+    """Shared bytes of the most demanding sweep, as
+    ``netsim_tiled_smem_bytes`` in ``csrc/netsim_tiled.cu``: sweep 0's job
+    row, link and Symphony row counts and offsets and two ints per warp,
+    or sweep 2's three link-scale rows."""
+    return max(4 * (J + 2 * L1 + 1 + 2 * DJ + 1 + 2 * (THREADS // 32)),
+               4 * 3 * L1)
 
 
 def netsim_tiled(step, sent, rate, done_upto, q_prev,
@@ -121,6 +128,9 @@ def netsim_tiled(step, sent, rate, done_upto, q_prev,
                          f"rows need {smem} bytes of shared memory a block "
                          f"(limit {SMEM_LIMIT})")
     blk = min(blk, FW)
+    if blk > 65536:
+        raise ValueError(f"netsim_tiled: blocks of {blk} instances exceed "
+                         "the kernel's uint16 entry lists (at most 65,536)")
     NB = -(-FW // blk)
     out = TickOut(
         iroute=torch.empty(B, FW, H, dtype=i32, device=dev),
@@ -140,7 +150,14 @@ def netsim_tiled(step, sent, rate, done_upto, q_prev,
           torch.empty(B, NB, 3, L1, dtype=f32, device=dev),    # p_link
           torch.empty(B, NB, J, dtype=i32, device=dev),        # p_job
           torch.empty(B, NB, 3, DJ, dtype=f32, device=dev),    # p_symf
-          torch.empty(B, NB, 2, DJ, dtype=i32, device=dev))    # p_symi
+          torch.empty(B, NB, 2, DJ, dtype=i32, device=dev),    # p_symi
+          # each block's active instances and its entries sorted by link
+          # row and by Symphony row (uint16), and the rows' offsets
+          torch.empty(B, NB, blk, dtype=torch.int16, device=dev),
+          torch.empty(B, NB, blk * H, dtype=torch.int16, device=dev),
+          torch.empty(B, NB, blk * H, dtype=torch.int16, device=dev),
+          torch.empty(B, NB, L1 + 1, dtype=i32, device=dev),
+          torch.empty(B, NB, DJ + 1, dtype=i32, device=dev))
     tensors = [*operands, *out, *ws]
     assert len(tensors) == _N_PTRS
     ptrs = (ctypes.c_void_p * _N_PTRS)(*(x.data_ptr() for x in tensors))

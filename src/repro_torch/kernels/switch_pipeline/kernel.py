@@ -2,14 +2,18 @@
 
 ``csrc/switch_pipeline.cu`` replaces the reference's Pallas
 ``_pipeline_kernel`` (``src/repro/kernels/switch_pipeline/kernel.py:42``):
-the per-packet Tofino2 analogue of the paper's prototype, one sequential
-walk over a packet batch carrying the Per-Job State Block.  It is built
-with the netsim kernels by :func:`repro_torch.kernels._build.build_all`.
+the per-packet Tofino2 analogue of the paper's prototype, whose walk over a
+packet batch carries the Per-Job State Block.  The kernel computes that
+walk as a parallel scan: tiles of ``TILE`` packets, three block scans with
+decoupled look-backs over the tiles (step_min; psn_rec and the counts;
+alpha), bit-equal to the walk.  It is built with the netsim kernels by
+:func:`repro_torch.kernels._build.build_all`.
 
 :func:`switch_pipeline` is the one entry point: on CPU tensors it runs the
 plain torch version (:func:`.ref.pipeline_plain`); on CUDA tensors it
-launches the kernel or raises.  ``switch_pipeline.launches`` counts kernel
-launches.
+launches the kernel or raises.  ``switch_pipeline.launches`` counts calls
+that launched it (one kernel launch a call, after a memset of the
+look-back flags).
 """
 from __future__ import annotations
 
@@ -24,12 +28,20 @@ from .ref import pipeline_plain
 __all__ = ["switch_pipeline", "build"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+# packets a block of the kernel scans (SP_TILE in the source)
+TILE = 2048
+# the library's interface (switch_pipeline_abi() in the source)
+ABI = 2
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.switch_pipeline_launch.argtypes = [p] * 9 + [i] + [f] * 5 + [i, p]
+    lib.switch_pipeline_launch.argtypes = [p] * 10 + [i] + [f] * 5 + [i, p]
     lib.switch_pipeline_launch.restype = ctypes.c_int
+    lib.switch_pipeline_ws_bytes.argtypes = [i]
+    lib.switch_pipeline_ws_bytes.restype = ctypes.c_size_t
+    lib.switch_pipeline_abi.argtypes = []
+    lib.switch_pipeline_abi.restype = i
 
 
 _build.register("switch_pipeline", CSRC, _bind)
@@ -83,9 +95,15 @@ def switch_pipeline(steps, psns, lasts, win_ends, uniforms, *, k=0.01,
            torch.empty(P, dtype=torch.int32, device=dev),
            torch.empty(P, dtype=torch.float32, device=dev),
            torch.empty(P, dtype=torch.float32, device=dev))
+    if P == 0:
+        return out
+    # the tile counter, the look-back flags (zeroed by the launch) and the
+    # tiles' aggregate maps and inclusive states
+    ws = torch.empty(lib.switch_pipeline_ws_bytes(P), dtype=torch.uint8,
+                     device=dev)
     rc = lib.switch_pipeline_launch(
         *(x.data_ptr() for x in (steps, psns, lasts, win_ends, uniforms,
-                                 *out)),
+                                 *out, ws)),
         P, float(k), float(tau), float(n_warmup), float(n_sample),
         float(alpha_max), int(bool(exact)),
         torch.cuda.current_stream(dev).cuda_stream)

@@ -25,7 +25,8 @@ import torch
 from ...core.symphony import (Packet, SymphonyParams, init_state,
                               process_packet, window_update)
 
-__all__ = ["LOG2_LUT", "lut_log2", "pipeline_plain", "pipeline_ref"]
+__all__ = ["LOG2_LUT", "lut_log2", "pipeline_plain", "pipeline_ref",
+           "outputs_from_states", "scan_traces"]
 
 # 16-entry mantissa log2 LUT: log2(1 + i/16), the kind of table a switch ALU
 # indexes with the mantissa's top 4 bits (the reference's table).
@@ -87,8 +88,18 @@ def pipeline_plain(steps, psns, lasts, win_ends, uniforms, *, k=0.01,
     pre, post = _state_walk(
         steps.cpu().numpy(), psns.cpu().numpy(), lasts.cpu().numpy(),
         win_ends.cpu().numpy(), tau, n_sample, alpha_max)
-    pre = torch.from_numpy(pre).to(dev)
-    post = torch.from_numpy(post).to(dev)
+    return outputs_from_states(steps, psns, uniforms,
+                               torch.from_numpy(pre).to(dev),
+                               torch.from_numpy(post).to(dev), k=k,
+                               n_warmup=n_warmup, exact=exact)
+
+
+def outputs_from_states(steps, psns, uniforms, pre, post, *, k=0.01,
+                        n_warmup=16, exact=True):
+    """The pipeline's outputs from the state block before and after each
+    packet (``pre``, ``post``: ``[3, P]`` float32 rows step_min, psn_rec,
+    alpha): the marks, decided elementwise against ``pre``, and ``post``."""
+    dev = steps.device
     smin_pre, prec_pre, alpha_pre = pre.unbind(0)
     psn = psns.to(torch.float32)
 
@@ -129,3 +140,74 @@ def pipeline_ref(steps, psns, lasts, win_ends, uniforms,
         out.append((mark, st.step_min, st.psn_rec, st.alpha))
     marks, smin, prec, alpha = (torch.stack(x) for x in zip(*out))
     return marks.to(torch.int32), smin, prec, alpha
+
+
+def scan_traces(tile: int) -> dict:
+    """Packet traces that put the cases of the kernel's scan on the edges
+    of its ``tile``-packet tiles: ``{name: (arrays, kw)}``, ``arrays`` the
+    five numpy inputs (steps, psns, lasts, win_ends, uniforms) and ``kw``
+    the pipeline's options where they differ from the defaults.
+
+    * ``edges``: LAST bits and window ends on the last and first packet of
+      tiles; P = 4 tiles + 37 (not a multiple of the tile).
+    * ``spans``: one window over three tiles, two of them with no window
+      end and no LAST bit; a run of packets at the step_min (psn_rec a
+      running max) over the same tiles.
+    * ``clamps``: 40-packet windows that drive alpha up to a non-integer
+      alpha_max (5.5) and back down to 1, across tile edges.
+    * ``p1_plain``, ``p1_last``, ``p1_win``: one packet.
+    * ``random``: the traces of tests/test_kernels.py, over 3 tiles + 5."""
+    rng = np.random.default_rng(tile)
+    i32, f32 = np.int32, np.float32
+
+    def pack(steps, psns, lasts, wins, us=None):
+        n = len(steps)
+        us = rng.random(n) if us is None else us
+        return (np.asarray(steps, i32), np.asarray(psns, f32),
+                np.asarray(lasts, i32), np.asarray(wins, i32),
+                np.asarray(us, f32))
+
+    out = {}
+    n = 4 * tile + 37
+    steps = np.arange(n) // 50 + rng.integers(0, 4, n)
+    lasts = rng.random(n) < 0.02
+    wins = np.arange(n) % 97 == 96
+    lasts[[tile - 1, tile, 2 * tile - 1, 3 * tile, n - 1]] = True
+    wins[[tile - 1, 2 * tile, 3 * tile - 1, 4 * tile, n - 1]] = True
+    out["edges"] = (pack(steps, rng.integers(1, 5000, n), lasts, wins), {})
+
+    n = 5 * tile + 11
+    q = tile // 4
+    steps = np.full(n, 4)
+    # a LAST at step 4 sets step_min to 5: then step 5 is at the step_min
+    # (psn_rec a running max) and 6 outpaces it
+    lasts = np.zeros(n, bool)
+    lasts[q - 1] = True
+    steps[q:] = np.where(rng.random(n - q) < 0.65, 5, 6)
+    tail = 7 * tile // 2
+    steps[tail:] = 7 + np.arange(n - tail) // 40
+    lasts[tail:] = rng.random(n - tail) < 0.03
+    wins = np.zeros(n, bool)
+    wins[[tile // 2, 15 * tile // 4, n - tile // 10]] = True
+    out["spans"] = (pack(steps, rng.integers(1, 5000, n), lasts, wins), {})
+
+    half = 30 * 40
+    n = max(3 * tile + 3, 2 * half + 7)
+    # rising steps outpace the step_min (cnt_op = cnt: alpha up), then
+    # steps at or below it (cnt_op = 0: alpha down)
+    steps = np.where(np.arange(n) < half, 1 + np.arange(n), 0)
+    lasts = np.zeros(n, bool)
+    wins = np.arange(n) % 40 == 39
+    out["clamps"] = (pack(steps, rng.integers(100, 5000, n), lasts, wins),
+                     dict(alpha_max=5.5))
+
+    for name, last, win in (("p1_plain", 0, 0), ("p1_last", 1, 0),
+                            ("p1_win", 0, 1)):
+        out[name] = (pack([3], [77.0], [last], [win]), {})
+
+    n = 3 * tile + 5
+    steps = np.maximum(0, rng.integers(0, 6, n) + np.arange(n) // 300)
+    out["random"] = (pack(steps, rng.integers(1, 5000, n),
+                          rng.random(n) < 0.02, np.arange(n) % 100 == 99),
+                     {})
+    return out

@@ -98,6 +98,30 @@ def test_grid_lanes_equal_single_runs():
                    f"point {k} seed {s}")
 
 
+@pytest.mark.parametrize("entry", ["grid", "seeds"])
+def test_reference_device_keywords_run_on_one_device(entry):
+    """The reference's default call form, ``devices=None, mesh=None`` (what
+    ``benchmarks/common.py`` passes on every grid), is the one-device path:
+    it equals the call without them.  Any other value raises."""
+    topo, wl = _small(T)
+    cfg = T.SimParams(n_ticks=200, window=16, sym_on=True)
+    seeds = [0, 3]
+    if entry == "grid":
+        struct, knobs = T.grid_from_params([cfg, cfg._replace(pq_on=True)])
+
+        def run(**kw):
+            return T.simulate_grid(topo, wl, struct, knobs, seeds,
+                                   routing="ecmp", device="cpu", **kw)
+    else:
+        def run(**kw):
+            return T.simulate_seeds(topo, wl, cfg, "ecmp", seeds,
+                                    device="cpu", **kw)
+    _equal(run(devices=None, mesh=None), run(), "devices=None, mesh=None")
+    for kw in (dict(devices=2), dict(devices="auto"), dict(mesh="lanes")):
+        with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+            run(**kw)
+
+
 def test_run_window_split_equals_one_shot():
     topo, wl = _small(T)
     cfg = T.SimParams(n_ticks=400, window=16, sym_on=True, record_every=20)

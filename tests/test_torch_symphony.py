@@ -9,6 +9,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
+import jax.experimental  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import symphony as R  # noqa: E402
@@ -73,3 +74,32 @@ def test_process_packet_batch_and_window_update(seed):
     s_w = S.window_update(s_state, p_s)
     for a, b in zip(r_w, s_w):
         assert np.array_equal(np.asarray(a), b.numpy())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_init_state_dtype(dtype):
+    """``init_state(dtype=...)`` types the four float fields as the
+    reference's ``init_state(dtype)`` does; ``step_min`` stays int32."""
+    got = S.init_state(device="cpu", dtype=getattr(torch, dtype))
+    # jax >= 0.5 spells the x64 switch jax.enable_x64; older releases
+    # jax.experimental.enable_x64.  Without either the reference gives the
+    # float32 block, whose values the float64 one must equal.
+    x64 = getattr(jax, "enable_x64", None)
+    if x64 is None:
+        x64 = getattr(jax.experimental, "enable_x64", None)
+    if x64 is None:
+        want = [np.asarray(x).astype(getattr(np, dtype) if i else np.int32)
+                for i, x in enumerate(R.init_state())]
+    else:
+        with x64(True):
+            want = [np.asarray(x) for x in R.init_state(getattr(jnp, dtype))]
+    assert got.step_min.dtype == torch.int32
+    for name, a, b in zip(S.SymphonyState._fields, got, want):
+        assert str(a.dtype) == f"torch.{b.dtype}", name
+        assert a.shape == b.shape and np.array_equal(a.numpy(), b), name
+    if dtype == "float64":
+        assert {str(x.dtype) for x in got[1:]} == {"torch.float64"}
+    # shape and device keep their places
+    block = S.init_state((2, 3), "cpu", dtype=getattr(torch, dtype))
+    assert all(x.shape == (2, 3) for x in block)
+    assert float(block.alpha.sum()) == 6.0

@@ -314,6 +314,30 @@ def test_scratch_split_matches_the_cuda_source():
             assert (smem_fn(1) <= K.SMEM_LIMIT) == bool(in_smem)
 
 
+def test_tiled_smem_and_interface_match_the_cuda_source():
+    """tiled_smem_bytes computes what the source's sweep formulas give
+    (the larger of sweep 0's and sweep 2's), at the three multipod sizes,
+    Table 1 and odd sizes; the wrapper's pointer count and interface tag
+    are the source's; no float atomics."""
+    import re
+    src = (K.CSRC / "netsim_tiled.cu").read_text()
+    hot = (K.CSRC / "netsim_hot.cuh").read_text()
+    threads = int(re.search(r"#define NT_THREADS (\d+)", hot).group(1))
+    ns = _compile(_c_functions(src), {"NT_WARPS": threads // 32})
+    dims = [(L1, 1, DJ) for _, L1, DJ in FABRICS.values()]
+    dims += [(97, 4, 20), (11, 2, 6), (21, 3, 12)]
+    for L1, J, DJ in dims:
+        assert tiled.tiled_smem_bytes(L1, J, DJ) == max(
+            ns["tiled_smem0"](L1, J, DJ), ns["tiled_smem2"](L1))
+    assert int(re.search(r"#define N_TILED_PTRS (\d+)", src).group(1)) == \
+        tiled._N_PTRS
+    assert re.search(r"netsim_tiled_abi\(\) \{ return (\d+); \}",
+                     src).group(1) == str(tiled.ABI)
+    assert not re.search(r"atomic\w+\(&?\w*(sp|shi|slo|cnt|psn|f)\b", src)
+    assert set(re.findall(r"atomic(\w+)\(&(\w+)", src)) == {
+        ("Add", "lcur_s"), ("Add", "scur_s"), ("Min", "jobmin_s")}
+
+
 def test_split_raises_when_the_rows_alone_do_not_fit():
     with pytest.raises(ValueError, match="shared memory"):
         K.hot_smem_split(64, 6, 10_000, 1, 17)
@@ -332,6 +356,112 @@ def test_dims_of_the_512_host_grid():
                                  cfg.knobs(), seeds=[0], device="cpu")
     assert (ctx.F, ctx.L + 1, ctx.DJ, ctx.H, ctx.J) == \
         (512, 1793, 65, 6, 1)
+
+
+# ----------------------- the kernel's per-block sorted folds, modelled
+def _sorted_fold_partials(rows, vals, active, blk, H, R, reverse=False):
+    """The kernel's per-block partials in numpy: per (lane, block), the
+    active instances in ascending order, each row's entries counted, the
+    counts scanned into offsets, the entries placed in batches of 32 in
+    (instance, hop) order (an entry's slot: its row's cursor plus the
+    entries of the same row before it in the batch; then the cursors
+    advance), and each row's segment added in order from zero, float32
+    (``reverse``: from its end, a misordered fold)."""
+    B, E = rows.shape
+    FW = E // H
+    NB = -(-FW // blk)
+    out = np.zeros((B, NB, R), np.float32)
+    for b in range(B):
+        for nb in range(NB):
+            i0, i1 = nb * blk, min((nb + 1) * blk, FW)
+            ents = [(i - i0) * H + h for i in range(i0, i1) if active[b, i]
+                    for h in range(H)]
+            key = rows[b, i0 * H:i1 * H]
+            val = vals[b, i0 * H:i1 * H]
+            cnt = np.bincount([key[e] for e in ents], minlength=R)
+            off = np.concatenate([[0], np.cumsum(cnt)])
+            cur = off[:-1].copy()
+            lst = np.empty(len(ents), np.int64)
+            for e0 in range(0, len(ents), 32):
+                batch = [key[e] for e in ents[e0:e0 + 32]]
+                for lane, e in enumerate(ents[e0:e0 + 32]):
+                    lst[cur[key[e]] + batch[:lane].count(key[e])] = e
+                for k in set(batch):
+                    cur[k] += batch.count(k)
+            for r in range(R):
+                acc = np.float32(0.0)
+                seg = range(off[r], off[r + 1])
+                for p in (reversed(seg) if reverse else seg):
+                    acc = np.float32(acc + val[lst[p]])
+                out[b, nb, r] = acc
+    return out
+
+
+@pytest.mark.parametrize("routing", ["ecmp", "ecmp_flow"])
+@pytest.mark.parametrize("blk", [4, 64])
+def test_sorted_folds_model_equals_plain_partials(blk, routing):
+    """The kernel's design (per-block stable counting sort by row, one
+    ordered fold per row segment, inactive entries left out) gives the
+    plain version's per-block partials of the link loads (proportional,
+    hi, lo) and the Symphony cnt/cntop rows bit for bit, on mid-run states
+    of the 8-host leaf-spine (sym_on/pq_on lanes; 8 of the 64 instances
+    active a lane).  blk 4 (16 blocks) has blocks with no active instance
+    and rows that only one block touches; at blk 64 (one block) with
+    per-step ECMP, folding each segment from its end parts from the plain
+    partials, so the check sees the order."""
+    from repro_torch.core.netsim.stages import engine_tick_eager
+    topo, wl = _small(T)
+    cfg = T.SimParams(n_ticks=100, window=8, sym_win_ticks=5,
+                      backend="cuda", segsum="onehot", blk=blk,
+                      per_step_ecmp=routing == "ecmp")
+    knobs = T.stack_knobs([cfg.knobs(), cfg._replace(sym_on=True).knobs(),
+                           cfg._replace(pq_on=True).knobs()])
+    ctx, ecfg, sim = T.make_lanes(topo, wl, cfg.structure(), knobs,
+                                  seeds=[3], routing=routing, device="cpu")
+    state = sim.engine
+    empty_blocks = lone_rows = checked = misordered = 0
+    with torch.no_grad():
+        for tick in range(WARM + CHECK):
+            if tick >= WARM:
+                starts = t_stage_starts(ctx, state, tick)
+                args, kw = tiled_operands(ctx, ecfg, starts, state, tick,
+                                          blk)
+                got = {}
+                tiled.tiled_tick_ref(*args, **kw, partials=got)
+                active = got["active"].numpy()
+                H = ctx.H
+                for name in ("link_p", "link_hi", "link_lo", "cnt",
+                             "cntop"):
+                    rows, vals, part = (x.numpy() for x in got[name])
+                    R = part.shape[2]
+                    model = _sorted_fold_partials(rows, vals, active, blk,
+                                                  H, R)
+                    assert np.array_equal(model.view(np.int32),
+                                          part.view(np.int32)), \
+                        f"tick {tick}: {name}"
+                    checked += 1
+                    misordered += int((_sorted_fold_partials(
+                        rows, vals, active, blk, H, R, reverse=True
+                    ).view(np.int32) != part.view(np.int32)).sum())
+                # coverage: blocks with no active instance; rows whose
+                # active entries lie in one block only
+                per_block = active.reshape(active.shape[0], -1, blk)
+                empty_blocks += int((~per_block.any(2)).sum())
+                rows = got["link_p"][0].numpy().reshape(
+                    active.shape[0], -1, blk * H)
+                act_e = np.repeat(per_block, H, axis=2)
+                for b in range(rows.shape[0]):
+                    seen = {}
+                    for nb in range(rows.shape[1]):
+                        for r in set(rows[b, nb][act_e[b, nb]].tolist()):
+                            seen[r] = seen.get(r, 0) + 1
+                    lone_rows += sum(1 for c in seen.values() if c == 1)
+            state, _ = engine_tick_eager(ctx, ecfg, state, tick, False)
+    assert checked == 5 * CHECK
+    if blk == 4:
+        assert empty_blocks > 0 and lone_rows > 0
+    if blk == 64 and routing == "ecmp":
+        assert misordered > 0
 
 
 # ------------------------------------------------------- the wrapper
