@@ -10,8 +10,10 @@ width (a 32,768-token prefill through the flash attention kernel, then the
 continuous-batching engine), its training path at full width (train_4k's
 sequence through the flash forward and backward kernels, AdamW) and the
 serving path of mamba2-130m at full width (8 x 32,768 tokens through the
-SSD scan kernel, then the engine) — phase by phase, one line per phase,
-and exits non-zero at the first phase that fails:
+SSD scan kernel, then the engine), the MoE family's on granite-moe-1b-a400m
+at full width, the hybrid's on one period of jamba-v0.1-52b at full width
+and the simulator's lanes split over devices — phase by phase, one line
+per phase, and exits non-zero at the first phase that fails:
 
 1. build    compile every kernel library from the checkout (one nvcc per
             source, in parallel, sm_90a); print the card's name and power
@@ -110,35 +112,67 @@ and exits non-zero at the first phase that fails:
             a planted scan fault must fail), and 12 requests drained
             through ServeEngine (8 slots, 4,096 positions), slot 0 against
             a 1-slot replay of the tokens it was fed
-15. goldens Table 1, 20,000 ticks, seed 3: the ecmp_base and ecmp_sym golden
+15. moe     granite-moe-1b-a400m at full width (24 layers, d_model 1,024,
+            16/8 heads of 64, 32 experts top-8 of d_ff 512; bf16 weights
+            drawn on the card from seed 0; param_count checked),
+            build_model(cfg, use_flash=True): one prefill of 8 x 32,768
+            tokens (24 flash launches counted; the assignments each layer
+            drops at capacity reported), layer 0's attention through the
+            kernel against the chunked plain attention, layer 0's MoE run
+            twice on its own input (bit-equal), the prefill again without
+            the kernel (last-token logits at the model tolerance), a
+            256-token prompt decoded token by token against its prefill
+            (compared when the prefill dropped nothing), and 12 requests
+            of 16-48 prompt tokens drained through ServeEngine (8 slots,
+            4,096 positions)
+16. jamba   jamba-v0.1-52b at full width cut to one period (8 of 32
+            layers: 7 SSM, 1 attention, MoE on the odd ones; 13.0 B bf16
+            parameters drawn on the card from seed 0),
+            build_model(cfg, use_flash=True, use_ssd_kernel=True): one
+            prefill of 1 x 32,768 tokens (7 SSD calls and 1 flash launch
+            counted) against the plain path's last-token logits, layer 0's
+            own scan inputs through the kernel against the plain scan, a
+            256-token prompt decoded against its prefill, 12 requests
+            drained through ServeEngine; the model is freed after
+17. goldens Table 1, 20,000 ticks, seed 3: the ecmp_base and ecmp_sym golden
             finish ticks (two lanes of one grid run) through
             backend="cuda" with tick_window 1 (one tick launch per tick),
             20 (1,000 window launches) and 7 (3,000), and through the tiled
             tick with blk=256 (20,000 tiled launches)
-16. multipod 128-host fat_tree_multipod, 8 seeds as lanes, 2,000 ticks:
+18. multipod 128-host fat_tree_multipod, 8 seeds as lanes, 2,000 ticks:
             backend="cuda" with tick_window 1 and 20 (the main-path runs
             whose launches are counted) against backend="eager"
-17. grid512 the 512-host grid (16 pods; sym off/on x 4 seeds as lanes),
+19. lanes   the grid entry points' devices=: the same 8 lanes over the card
+            named 2 and 3 times (tick_window 1, cut to 500 ticks, and
+            20), and Table 1's four
+            knob points with chunk_knobs=1 over 2 entries (goldens
+            checked), each against the one-device run (integer series bit
+            for bit, float series allclose, bit-differing elements
+            counted; wall times beside each other); a planted fault (shares
+            that renumber their lanes) must fail
+20. grid512 the 512-host grid (16 pods; sym off/on x 4 seeds as lanes),
             1,000 ticks: the tiled tick (blk=2048, tick_window=1) and the
             window kernel (tick_window=20), their launches counted, against
             their plain versions on the card and against eager
-18. control SimController on the card (Table 1, window_ticks=640,
+21. control SimController on the card (Table 1, window_ticks=640,
             tick_window=20): stepping equals one-shot simulate, tau retuned
             mid-run, checkpoint/restore replays bit for bit
-19. timing  each kernel's device time per launch against its plain
+22. timing  each kernel's device time per launch against its plain
             version's and its bound, at the main paths' shapes (the flash
             forward also against one scaled_dot_product_attention call, at
             the prefill's shape with a window mask and at the training
-            shape, B 2 x S 4,096, causal,
+            shape, B 2 x S 4,096, causal, and at granite's and jamba's
+            prefill shapes, causal;
             the backward kernels against one autograd.grad through it,
             also as the pair's sum over that call's time; the SSD kernels
-            have no library counterpart: their bound in float32 on the CUDA
+            (also at jamba's shape, H 128, N 16) have no library
+            counterpart: their bound in float32 on the CUDA
             cores and, beside it, on the tensor cores in TF32 per split
             pass; with ``--against DIR`` another commit's SSD scan, tiled
             tick and switch pipeline (the first port's interface or the
             shipped one, by each library's ``*_abi`` tag), timed in turns
             beside the shipped ones)
-20. profile main-path ticks/s (Table 1 with 1 lane through ``simulate``,
+23. profile main-path ticks/s (Table 1 with 1 lane through ``simulate``,
             128 hosts x 8 lanes, 512 hosts x 8 lanes) and where a tick's
             time goes: wall and device-busy time, the busiest kernels; one
             profiled 32,768-token prefill: the flash kernel's, the matrix
@@ -146,7 +180,9 @@ and exits non-zero at the first phase that fails:
             training step: flash forward, dq, dk/dv, matrix products, the
             optimizer and the rest; one profiled mamba2 prefill of 8 x
             32,768 tokens: the SSD kernels' (all four, by name), the matrix
-            products' and the rest's share
+            products' and the rest's share; one profiled granite prefill of
+            8 x 32,768 tokens: flash, matrix products, the MoE dispatch
+            (sorts, scatters, gathers, index copies) and the rest
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -156,6 +192,7 @@ The line before the last is the kernel report (JSON); the last line is
     python3 chip_smoke.py build kernel window large   # tick and window
     python3 chip_smoke.py build flash_bwd train timing   # training path
     python3 chip_smoke.py build ssd mamba         # the SSM serving path
+    python3 chip_smoke.py build moe jamba lanes   # MoE, hybrid, lanes
     python3 chip_smoke.py --against DIR build ssd mamba timing
         # DIR: another commit's kernels, unpacked under a git-ignored
         # directory (git archive <commit> src/repro_torch/kernels | tar -x
@@ -211,7 +248,8 @@ INT_SERIES = ("finish_ticks", "job_finish_ticks", "ts_min_wire",
               "ts_max_wire", "ts_done_min", "ts_alpha_max")
 PHASES = ("build", "math", "kernel", "window", "tiled", "large", "switch",
           "flash", "flash_bwd", "prefill", "serve", "train", "ssd", "mamba",
-          "goldens", "multipod", "grid512", "control", "timing", "profile")
+          "moe", "jamba", "goldens", "multipod", "lanes", "grid512",
+          "control", "timing", "profile")
 # (F, FW, H, L+1, J, DJ) of the multipod grids the tick and window kernels
 # run at 128 hosts (ids in shared memory) and 512 hosts (ids in global
 # memory); kernel and large check them against the builders'
@@ -272,6 +310,9 @@ SSD_TOL = 5e-4
 # prefill_32k's sequence, batch cut to MAMBA_B: (B, S, H, P, N, chunk)
 MAMBA_B = 8                     # prefill_32k's batch of 32, cut to 8
 SSD_MAIN = (MAMBA_B, 32768, 24, 64, 128, 128)
+# jamba's scan at prefill_32k cut to batch 1: 128 heads (d_inner 8,192 /
+# head dim 64), state 16
+JAMBA_SSD = (1, 32768, 128, 64, 16, 128)
 # planted faults of the SSD check, at B = H (so that row bh % H exists)
 SSD_FAULT_SHAPE = (4, 4096, 4, 64, 128, 128)
 SSD_FAULTS = ("state not carried", "diagonal of L dropped",
@@ -302,6 +343,29 @@ BF16_REL_L2 = 2e-2
 FAULT_LAYER = 12
 # the served slot replayed alone (slot 0 takes requests 0 and 8)
 REPLAY_SLOT = 0
+# granite-moe-1b-a400m at full width: prefill_32k's batch of 32 cut to 8
+# (at 32 the bf16 logits alone take 103 GB): 32 dispatch chunks of 8,192
+# tokens a layer
+MOE_B = 8
+GRANITE_PARAMS = 1_334_628_352
+# jamba-v0.1-52b at full width cut to one period, 8 of its 32 layers (the
+# 51.2 B parameters take 95 GiB in bf16); prefill_32k cut to batch 1
+JAMBA_LAYERS = 8
+JAMBA_PERIOD_PARAMS = 12_999_163_392
+# the prompt each family decodes token by token against its prefill
+DECODE_T = 256
+# jamba's decode against its prefill, in bf16: the largest relative L2
+# distance of a position's logits.  The reference's own jamba SMOKE model
+# parts by 3.9 % there (bf16 SSM state and conv window steps against the
+# chunked scan; the port's: 4.2 %, on the CPU), against 0.8 % for mamba2's
+# SMOKE and 4e-4 for jamba in float32 (its bf16 KV cache): held at 2.5x.
+HYBRID_DECODE_REL_L2 = 0.1
+# the lane split: 128 hosts x 8 seeds over the card named 2 and 3 times;
+# at tick_window=1 the shares' host threads contend for the interpreter
+# (2,000 ticks took 47 s and 127 s split, 15 s on one device, on an H100
+# host), so those runs are cut to LANES_TW1_TICKS ticks
+LANE_SPLITS = (2, 3)
+LANES_TW1_TICKS = 500
 
 
 def say(phase: str, msg: str) -> None:
@@ -466,6 +530,77 @@ def profile_ticks(run, torch) -> tuple[float, dict]:
     return wall_us, by_name
 
 
+def lane_split_check(torch, got, want) -> tuple[bool, str]:
+    """A grid run split over devices (``got``) against its one-device run
+    (``want``), two SimResults: (ok, message).  Every integer series bit
+    for bit, the float series allclose at RTOL_TPUT; the message also
+    counts the float elements whose bits differ."""
+    bad = [f for f in INT_SERIES if not torch.equal(getattr(got, f),
+                                                    getattr(want, f))]
+    close, bits = True, []
+    for f in ("ts_throughput", "ts_qmax"):
+        a, b = getattr(got, f), getattr(want, f)
+        if a.shape != b.shape:
+            close = False
+            bits.append(f"{f} shapes {tuple(a.shape)} and {tuple(b.shape)}")
+            continue
+        close &= bool(torch.isfinite(a).all()) and torch.allclose(
+            a, b, rtol=RTOL_TPUT)
+        n = int((a.view(torch.int32) != b.view(torch.int32)).sum())
+        bits.append(f"{f} {n} of {b.numel()}")
+    return not bad and close, (
+        "integer series " + (f"differ in {', '.join(bad)}" if bad else
+                             "bit-equal") + f"; float series within rtol "
+        f"{RTOL_TPUT}: {close}; elements whose bits differ: "
+        + ", ".join(bits))
+
+
+@contextlib.contextmanager
+def renumbered_shares(sim):
+    """Within: a planted fault of the lane split (``sim`` is
+    repro_torch.core.netsim.simulator): every share renumbers its lanes
+    from 0, as if it were a grid of its own, so a share that starts past
+    lane 0 runs the first lanes' seeds and knob points."""
+    run = sim._run_lanes
+
+    def renumbered(topo, wl, struct, knobs, seeds, routing, lanes, dev, bg):
+        if lanes is not None:
+            lanes = lanes - lanes[0]
+        return run(topo, wl, struct, knobs, seeds, routing, lanes, dev, bg)
+
+    sim._run_lanes = renumbered
+    try:
+        yield
+    finally:
+        sim._run_lanes = run
+
+
+@contextlib.contextmanager
+def moe_drop_counter(moe):
+    """Within: the assignments each MoE dispatch chunk drops at capacity
+    (``moe`` is repro_torch.models.moe), appended in call order as 0-d
+    tensors on the chunk's device (no host sync)."""
+    seen, slots = [], moe._slots
+
+    def counting(flat_e, cfg, T):
+        ekeep, slot = slots(flat_e, cfg, T)
+        seen.append(flat_e.shape[0] - ekeep.sum())
+        return ekeep, slot
+
+    moe._slots = counting
+    try:
+        yield seen
+    finally:
+        moe._slots = slots
+
+
+def per_layer(torch, counts, n_layers: int) -> list[int]:
+    """Per-chunk counts of one forward (call order) summed per layer."""
+    if not counts:
+        return [0] * n_layers
+    return torch.stack(counts).view(n_layers, -1).sum(1).tolist()
+
+
 class Smoke:
     """The phases, sharing the port's modules, the card and what earlier
     phases measured."""
@@ -493,6 +628,8 @@ class Smoke:
                         "ssd": 0.0}
         self.danube = None      # the full-width model of prefill and serve
         self.mamba_lm = None    # the full-width model of ssd and mamba
+        self.granite = None     # the full-width model of moe
+        self.jamba_lm = None    # jamba's first period, of the jamba phase
         self.launches = {}
         self.rates = {}
         self.reports = []
@@ -1933,7 +2070,8 @@ class Smoke:
                                f"relative {errs[0] / max(ymax, 1e-30):.3g}),"
                                f" state {errs[1]:.3g}")
 
-    def ssd_check(self, name, x, a, Bm, Cm, chunk, layouts=True):
+    def ssd_check(self, name, x, a, Bm, Cm, chunk, layouts=True,
+                  phase="ssd"):
         """The kernel through ops.ssd (strided [B, H, S, P] views) and, with
         ``layouts`` (S a multiple of the chunk), through ssd_chunked on
         contiguous [B, H, S, P] copies, against the plain version; a second
@@ -1951,15 +2089,15 @@ class Smoke:
                                             fs4.transpose(-1, -2))))
         torch.cuda.synchronize()
         if not all(torch.equal(u, v) for u, v in zip(got, again)):
-            fail("ssd", f"{name}: two launches give different bits")
+            fail(phase, f"{name}: two launches give different bits")
         msgs = []
         for layout, out in runs:
             ok, err, msg = self.ssd_close(out, want)
             self.max_err["ssd"] = max(self.max_err["ssd"], err)
             if not ok:
-                fail("ssd", f"{name} {layout}: {msg}")
+                fail(phase, f"{name} {layout}: {msg}")
             msgs.append(f"{layout} {msg}")
-        say("ssd", f"{name}: max abs err {'; '.join(msgs)}; bit-equal on a "
+        say(phase, f"{name}: max abs err {'; '.join(msgs)}; bit-equal on a "
                    f"second launch (tolerance {SSD_TOL})")
         return want
 
@@ -2041,14 +2179,14 @@ class Smoke:
         return self.torch.from_numpy(np.random.default_rng(0).integers(
             0, cfg.vocab_size, (MAMBA_B, PREFILL_S))).to(self.dev)
 
-    def mamba_layer0_inputs(self):
-        """Layer 0's scan inputs (xs, a, Bm, Cm) as the model's prefill of
-        MAMBA_B x 32,768 tokens hands them to ops.ssd, captured there (the
-        prefill stops at that call)."""
+    def mamba_layer0_inputs(self, model=None, tokens=None):
+        """Layer 0's scan inputs (xs, a, Bm, Cm) as the model's prefill
+        (mamba2's of MAMBA_B x 32,768 tokens unless given) hands them to
+        ops.ssd, captured there (the prefill stops at that call)."""
         import repro_torch.models.ssm as ssm_mod
         torch = self.torch
-        model = self.mamba_model()
-        tokens = self.mamba_tokens()
+        model = model or self.mamba_model()
+        tokens = self.mamba_tokens() if tokens is None else tokens
         held = {}
 
         class Captured(Exception):
@@ -2105,11 +2243,11 @@ class Smoke:
             f"atol {DECODE_ATOL} rtol {DECODE_RTOL}; argmax is the input "
             f"token: {bool(want.argmax(-1).eq(tokens).all())}")
 
-    def hold_logits(self, *args):
+    def hold_logits(self, *args, phase="mamba"):
         ok, msg = self.logit_spread(*args)
-        say("mamba", msg)
+        say(phase, msg)
         if not ok:
-            fail("mamba", msg)
+            fail(phase, msg)
 
     @contextlib.contextmanager
     def planted(self, fault):
@@ -2327,7 +2465,352 @@ class Smoke:
             fail("mamba", f"serving slot {REPLAY_SLOT}'s caches vs the "
                           f"1-slot replay: rel L2 {rel}")
 
-    # ------------------------------------------------------- 15. goldens
+    # ------------------------------------------- 15. MoE: granite at width
+    def granite_model(self):
+        """granite-moe-1b-a400m at full width, bf16 weights drawn on the
+        card from seed 0, with the flash kernel on."""
+        if self.granite is None:
+            from repro_torch.config import param_count
+            from repro_torch.configs import registry
+            from repro_torch.models import build_model
+            cfg = registry.get_config("granite_moe_1b_a400m")
+            t0 = time.time()
+            self.granite = build_model(cfg, use_flash=True, seed=0)
+            self.torch.cuda.synchronize()
+            n = sum(p.numel() for p in self.granite.parameters())
+            pad = (self.granite.vocab_padded - cfg.vocab_size) * cfg.d_model
+            if n - pad != param_count(cfg) or \
+                    param_count(cfg) != GRANITE_PARAMS:
+                fail("moe", f"{n:,} parameters built, {pad:,} of them vocab "
+                            f"padding; param_count {param_count(cfg):,}")
+            m = cfg.moe
+            say("moe", f"{cfg.name}: {cfg.num_layers} layers, d_model "
+                       f"{cfg.d_model}, heads {cfg.num_heads}/"
+                       f"{cfg.num_kv_heads} of {cfg.resolved_head_dim}, "
+                       f"{m.num_experts} experts top-{m.experts_per_token} "
+                       f"of d_ff {m.d_ff_expert}, capacity factor "
+                       f"{m.capacity_factor}; {n:,} parameters drawn on the "
+                       f"card in {time.time() - t0:.1f} s: param_count "
+                       f"{param_count(cfg):,} plus {pad:,} of vocab padding "
+                       f"({cfg.vocab_size} -> {self.granite.vocab_padded})")
+        return self.granite
+
+    def family_tokens(self, cfg, B, S, seed=0):
+        import numpy as np
+        return self.torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (B, S))).to(self.dev)
+
+    def moe(self):
+        import repro_torch.models.moe as moe_mod
+        torch, Fa = self.torch, self.Fa
+        from repro_torch.models.attention import (attention_block,
+                                                  project_qkv,
+                                                  ref_attention_chunked)
+        from repro_torch.models.layers import apply_embed, apply_norm
+        model = self.granite_model()
+        cfg = model.cfg
+        B, S, L = MOE_B, PREFILL_S, cfg.num_layers
+        tokens = self.family_tokens(cfg, B, S)
+        k = cfg.moe.experts_per_token
+        with torch.inference_mode():
+            model.apply(tokens[:1, :1024])          # warm-up: cuBLAS, caches
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with moe_drop_counter(moe_mod) as drops:
+                Fa.flash_fwd.launches = 0            # main path starts
+                t0 = time.time()
+                logits, aux = model.apply(tokens)
+                last = logits[:, -1].float()
+                torch.cuda.synchronize()
+                secs = time.time() - t0
+                n = Fa.flash_fwd.launches            # main path ends
+            peak = torch.cuda.max_memory_allocated()
+            shape_ok = tuple(logits.shape) == (B, S, model.vocab_padded)
+            del logits
+            per = per_layer(torch, drops, L)
+            if n != L or not shape_ok or not torch.isfinite(last).all() or \
+                    not torch.isfinite(aux):
+                fail("moe", f"{n} flash launches for {L} layers, logits shape "
+                            f"ok: {shape_ok}, finite: "
+                            f"{bool(torch.isfinite(last).all())}, aux "
+                            f"{float(aux)}")
+            self.rates["granite_prefill"] = (B * S / secs, peak)
+            say("moe", f"prefill {B} x {S} tokens: {n} flash launches, "
+                       f"{len(drops) // L} dispatch chunks a layer, "
+                       f"{secs:.3f} s, {B * S / secs:,.0f} tokens/s, peak "
+                       f"memory {peak / 2**30:.2f} GiB, aux loss "
+                       f"{float(aux):.6g}; card {self.card}")
+            say("moe", f"assignments dropped at capacity, per layer (of "
+                       f"{B * S * k:,} a layer): {per}; in all {sum(per):,} "
+                       f"({100 * sum(per) / (B * S * k * L):.4f} %)")
+            # layer 0's attention at full length: kernel vs chunked plain
+            blk = model.blocks[0]
+            pos = torch.arange(S, device=self.dev)[None].expand(B, S)
+            h = apply_norm(blk.ln1, apply_embed(model.embed, tokens).to(
+                torch.bfloat16), cfg)
+            q, kk, v = project_qkv(blk.attn, h, cfg, pos)
+            saved = Fa.flash_fwd.launches
+            o_k = Fa.flash_attention(q, kk, v)
+            Fa.flash_fwd.launches = saved
+            o_r = ref_attention_chunked(q.float(), kk.float(), v.float(),
+                                        pos, pos)
+            torch.cuda.synchronize()
+            err = (o_k.float() - o_r).abs().max().item()
+            rerr = row_err(o_k, o_r)
+            self.max_err["flash_fwd"] = max(self.max_err["flash_fwd"], err)
+            tol = FLASH_TOL["bfloat16"][0]
+            if not torch.allclose(o_k.float(), o_r, atol=tol, rtol=tol) or \
+                    rerr > ROW_TOL:
+                fail("moe", f"layer 0 attention: kernel vs chunked plain max "
+                            f"abs err {err}, row err {rerr}")
+            say("moe", f"layer 0 attention {list(q.shape)}: kernel vs chunked"
+                       f" plain max abs err {err:.3g}, row err {rerr:.3g} "
+                       f"(tolerance {tol}, row {ROW_TOL})")
+            # the MoE combine twice on layer 0's own input (first row),
+            # bit-equal: no float atomics in the dispatch
+            x1 = apply_embed(model.embed, tokens[:1]).to(torch.bfloat16)
+            x1 = x1 + attention_block(blk.attn, apply_norm(blk.ln1, x1, cfg),
+                                      cfg, pos[:1], use_flash=True)
+            Fa.flash_fwd.launches = saved
+            h2 = apply_norm(blk.ln2, x1, cfg)
+            y1, a1 = moe_mod.moe_block(blk.moe, h2, cfg)
+            y2, a2 = moe_mod.moe_block(blk.moe, h2, cfg)
+            torch.cuda.synchronize()
+            if not (torch.equal(y1, y2) and torch.equal(a1, a2)):
+                fail("moe", "the MoE combine run twice on the same input "
+                            "differs")
+            say("moe", f"layer 0's MoE on its own input (1 x {S}, "
+                       f"{S // min(moe_mod.DISPATCH_CHUNK, S)} chunks) run "
+                       "twice: outputs and aux bit-equal")
+            del q, kk, v, h, o_k, o_r, x1, h2, y1, y2
+            # the first row's prefill without the kernel: its 4 dispatch
+            # chunks hold the same tokens as in the batch of 8, so its
+            # routing and capacities are the same
+            model.use_flash = False
+            torch.cuda.synchronize()
+            t0 = time.time()
+            logits, _ = model.apply(tokens[:1])
+            last_ref = logits[:, -1].float()
+            torch.cuda.synchronize()
+            secs_ref = time.time() - t0
+            del logits
+            model.use_flash = True
+        last = last[:1]
+        err = (last - last_ref).abs().max().item()
+        same = bool(last.argmax(-1).eq(last_ref.argmax(-1)).all())
+        if not torch.allclose(last, last_ref, atol=MODEL_ATOL,
+                              rtol=MODEL_RTOL):
+            fail("moe", f"last-token logits, flash vs plain: max abs err "
+                        f"{err}")
+        say("moe", f"row 0 without the kernel: {secs_ref:.3f} s "
+                   f"({S / secs_ref:,.0f} tokens/s); its last-token logits "
+                   f"flash vs plain max abs err {err:.4g} (|logit| max "
+                   f"{last_ref.abs().max().item():.4g}; atol {MODEL_ATOL} "
+                   f"rtol {MODEL_RTOL}), argmax agrees: {same}, argmax is "
+                   f"the last input token: "
+                   f"{bool(last.argmax(-1).eq(tokens[:1, -1]).all())}")
+        self.decode_against_prefill("moe", model)
+        self.family_serve("moe", model)
+
+    def decode_against_prefill(self, phase, model):
+        """A DECODE_T-token prompt decoded token by token (1 slot: k
+        distinct experts, C_loc 1, nothing drops) against its prefill,
+        every position's logits; compared when the prefill's MoE layers
+        dropped nothing (the count is reported either way).  Every
+        position's argmax must agree and its logits' relative L2 distance
+        stay within BF16_REL_L2 (HYBRID_DECODE_REL_L2 for the hybrid); for
+        granite the last position's logits also at the model tolerance,
+        as danube's serve phase holds them (the counts outside it at
+        every position are reported: bf16 roundings put a few near-zero
+        logits past atol 0.15 at full width)."""
+        import repro_torch.models.moe as moe_mod
+        torch = self.torch
+        cfg = model.cfg
+        toks = self.family_tokens(cfg, 1, DECODE_T, seed=1)
+        n_moe = sum("moe" in b._modules for b in model.blocks)
+        with moe_drop_counter(moe_mod) as drops:
+            dec, full = self.decode_and_prefill(model, toks)
+        pre = per_layer(torch, drops[:n_moe], n_moe)
+        dec_drops = int(torch.stack(drops[n_moe:]).sum()) if n_moe else 0
+        say(phase, f"{DECODE_T}-token prompt: the prefill's MoE layers drop "
+                   f"{sum(pre)} assignments ({pre}), the 1-slot decode steps"
+                   f" {dec_drops}")
+        if dec_drops:
+            fail(phase, f"a 1-slot decode dropped {dec_drops} assignments")
+        if sum(pre):
+            say(phase, "decode vs prefill not compared: the prefill dropped "
+                       "assignments")
+            return
+        what = (f"{DECODE_T}-token prompt, all logits, decode_step vs the "
+                "kernels' prefill")
+        err = (dec - full).abs()
+        out = int((err > MODEL_ATOL + MODEL_RTOL * full.abs()).sum())
+        last_ok = torch.allclose(dec[:, -1], full[:, -1], atol=MODEL_ATOL,
+                                 rtol=MODEL_RTOL)
+        same = bool(dec.argmax(-1).eq(full.argmax(-1)).all())
+        rel = ((dec - full).norm(dim=-1) / full.norm(dim=-1).clamp_min(
+            1e-30)).max().item()
+        hybrid = cfg.family == "hybrid"
+        rel_tol = HYBRID_DECODE_REL_L2 if hybrid else BF16_REL_L2
+        say(phase, f"{what}: max abs err {err.max().item():.4g} (|logit| max "
+                   f"{full.abs().max().item():.4g}; {out} of {err.numel()} "
+                   f"outside atol {MODEL_ATOL} rtol {MODEL_RTOL}; the last "
+                   f"position's within: {last_ok}); largest row rel L2 "
+                   f"{rel:.3g} (tolerance {rel_tol}); argmax agrees at every "
+                   f"position: {same}")
+        ok = bool(torch.isfinite(dec).all()) and rel <= rel_tol and same \
+            and (hybrid or last_ok)
+        if not ok:
+            fail(phase, f"{what}: row rel L2 {rel}, argmax agrees: {same}, "
+                        f"last position within the model tolerance: "
+                        f"{last_ok}")
+
+    def family_serve(self, phase, model):
+        """12 requests (16-48 prompt tokens, 32 new tokens each) drained
+        through ServeEngine (8 slots, 4,096 positions).  The prompts are
+        half as long as danube's and mamba2's (32-96): prompt tokens are
+        prefilled one decode call each, and granite's calls are host-bound
+        at ~15 a second."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch.config import ServeConfig
+        from repro_torch.runtime import Request, ServeEngine
+        cfg = model.cfg
+        eng = ServeEngine(model, ServeConfig(batch=8, max_seq=4096))
+        rng = np.random.default_rng(0)
+        reqs = [Request(i, rng.integers(0, cfg.vocab_size,
+                                        int(rng.integers(16, 49))).astype(
+                                            np.int32), max_new_tokens=32)
+                for i in range(12)]
+        for r in reqs:
+            eng.submit(r)
+        calls = [0]
+        decode = eng._decode
+
+        def counted(tokens):
+            calls[0] += 1
+            return decode(tokens)
+
+        eng._decode = counted
+        torch.cuda.synchronize()
+        t0 = time.time()
+        done = eng.run_until_drained()
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        outs = [len(r.out) for r in reqs]
+        if len(done) != 12 or outs != [32] * 12 or not all(
+                0 <= t < model.vocab_padded for r in reqs for t in r.out):
+            fail(phase, f"serving: {len(done)} of 12 requests done, tokens "
+                        f"{outs}")
+        n_prompt = sum(len(r.prompt) for r in reqs)
+        n_new = sum(outs)
+        steps = calls[0] - n_prompt
+        self.rates[f"{phase}_serve"] = (calls[0] / secs, n_new / secs)
+        say(phase, f"serving 12 requests ({n_prompt} prompt tokens, 8 slots, "
+                   f"max_seq 4096) drained in {secs:.2f} s: {calls[0]} "
+                   f"decode_step calls ({calls[0] / secs:.1f}/s), {steps} "
+                   f"decode steps ({steps / secs:.2f} steps/s), {n_new} new "
+                   f"tokens ({n_new / secs:.1f} tokens/s)")
+
+    # ---------------------------------------- 16. hybrid: jamba, one period
+    def jamba_model(self):
+        """jamba-v0.1-52b's first period (8 layers: 7 SSM, 1 attention, MoE
+        on the odd ones) at full width, bf16 weights drawn on the card from
+        seed 0, with the flash and SSD kernels on."""
+        if self.jamba_lm is None:
+            from repro_torch.config import param_count
+            from repro_torch.configs import registry
+            from repro_torch.models import build_model
+            cfg = dataclasses.replace(registry.get_config("jamba_v0_1_52b"),
+                                      num_layers=JAMBA_LAYERS)
+            t0 = time.time()
+            self.jamba_lm = build_model(cfg, use_flash=True,
+                                        use_ssd_kernel=True, seed=0)
+            self.torch.cuda.synchronize()
+            n = sum(p.numel() for p in self.jamba_lm.parameters())
+            if n != param_count(cfg) or n != JAMBA_PERIOD_PARAMS:
+                fail("jamba", f"{n:,} parameters built; param_count "
+                              f"{param_count(cfg):,}")
+            m, s = cfg.moe, cfg.ssm
+            kinds = "".join("A" if self.jamba_lm.layer_kind(i) == "attn"
+                            else "M" for i in range(cfg.num_layers))
+            ffn = "".join("E" if "moe" in b._modules else "D"
+                          for b in self.jamba_lm.blocks)
+            say("jamba", f"{cfg.name} cut to one period ({JAMBA_LAYERS} of "
+                         f"32 layers; mixers {kinds}, FFNs {ffn}): d_model "
+                         f"{cfg.d_model}, heads {cfg.num_heads}/"
+                         f"{cfg.num_kv_heads} of {cfg.resolved_head_dim}, "
+                         f"{m.num_experts} experts top-{m.experts_per_token}"
+                         f" of d_ff {m.d_ff_expert}, SSM state {s.d_state}, "
+                         f"head dim {s.head_dim}, expand {s.expand}; {n:,} "
+                         f"parameters drawn on the card in "
+                         f"{time.time() - t0:.1f} s")
+        return self.jamba_lm
+
+    def jamba(self):
+        torch, Fa, Sd = self.torch, self.Fa, self.Sd
+        model = self.jamba_model()
+        cfg = model.cfg
+        S = PREFILL_S
+        tokens = self.family_tokens(cfg, 1, S)
+        n_ssm = sum(model.layer_kind(i) == "ssm" for i in range(JAMBA_LAYERS))
+
+        def last_logits(kernels):
+            model.use_flash = model.use_ssd_kernel = kernels
+            with torch.inference_mode():
+                logits, aux = model.apply(tokens)
+                out = logits[:, -1].float(), aux, tuple(logits.shape)
+            model.use_flash = model.use_ssd_kernel = True
+            return out
+
+        with torch.inference_mode():
+            model.apply(tokens[:, :1024])          # warm-up: cuBLAS, caches
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        Fa.flash_fwd.launches = 0                   # main path starts
+        Sd.ssd_chunked.launches = 0
+        t0 = time.time()
+        last, aux, shape = last_logits(True)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        nf, ns = Fa.flash_fwd.launches, Sd.ssd_chunked.launches  # ends
+        peak = torch.cuda.max_memory_allocated()
+        if (nf, ns) != (JAMBA_LAYERS - n_ssm, n_ssm) or shape != (
+                1, S, model.vocab_padded) or not torch.isfinite(last).all():
+            fail("jamba", f"{nf} flash and {ns} SSD launches for "
+                          f"{JAMBA_LAYERS - n_ssm} attention and {n_ssm} SSM "
+                          f"layers, logits {shape}, finite: "
+                          f"{bool(torch.isfinite(last).all())}")
+        self.rates["jamba_prefill"] = (S / secs, peak)
+        say("jamba", f"prefill 1 x {S} tokens: {nf} flash and {ns} SSD "
+                     f"launches, {secs:.3f} s, {S / secs:,.0f} tokens/s, peak "
+                     f"memory {peak / 2**30:.2f} GiB, aux loss "
+                     f"{float(aux):.6g}; card {self.card}")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        last_ref, aux_ref, _ = last_logits(False)
+        torch.cuda.synchronize()
+        say("jamba", f"plain path (no flash, plain scan): "
+                     f"{time.time() - t0:.3f} s; aux {float(aux_ref):.6g}")
+        self.hold_logits("last-token logits, kernels vs plain", last,
+                         last_ref, tokens[:, -1], phase="jamba")
+        # layer 0's own scan inputs: the kernel against the plain scan
+        saved = Sd.ssd_chunked.launches
+        args = self.mamba_layer0_inputs(model, tokens)
+        self.ssd_check(f"jamba layer 0's own inputs ({list(args[0].shape)}, "
+                       f"N {args[2].shape[-1]}, B/C {args[2].dtype})", *args,
+                       cfg.ssm.chunk_size, phase="jamba")
+        Sd.ssd_chunked.launches = saved
+        del args
+        self.decode_against_prefill("jamba", model)
+        self.family_serve("jamba", model)
+        # 26 GB of weights: gone before the phases that draw danube's
+        # optimizer state
+        self.jamba_lm = None
+        del model
+        torch.cuda.empty_cache()
+
+    # ------------------------------------------------------- 17. goldens
     def goldens(self):
         torch, T, K, Wn = self.torch, self.T, self.K, self.Wn
         topo, wl, cfg = table1(T)
@@ -2372,7 +2855,7 @@ class Smoke:
                            f"ticks, {nt} tick + {nw} window + {ntl} tiled "
                            f"launches, {cfg.n_ticks / secs:.1f} ticks/s")
 
-    # --------------------------------------------- 16. 128-host, 8 lanes
+    # --------------------------------------------- 18. 128-host, 8 lanes
     def multipod(self):
         torch, T, K, Wn = self.torch, self.T, self.K, self.Wn
         topo, wl, cfg = multipod128(T)
@@ -2417,7 +2900,79 @@ class Smoke:
                             f"{rate:.1f} ticks/s ({rate * 8:.1f} "
                             "lane-ticks/s)")
 
-    # --------------------------------------- 17. 512 hosts, 8 lanes, tiled
+    # ----------------------------------- 19. lanes split over devices
+    def lanes(self):
+        """The grid entry points' devices=: 128 hosts x 8 seeds (tick_window 1
+        for LANES_TW1_TICKS ticks, tick_window 20 for 2,000) with the card
+        named 2 and 3 times (3: shares of 3, 3 and 2 lanes), and Table 1's four (sym_on, pq_on) points
+        with chunk_knobs=1 over 2 entries (2 points a dispatch, 1 a
+        device; 20,000 ticks, tick_window 20), each against the one-device
+        run; a planted fault there (shares renumbering their lanes, so the
+        second runs the first's knob point) must fail."""
+        import repro_torch.core.netsim.simulator as sim
+        torch, T = self.torch, self.T
+        auto = T.resolve_grid_mesh(devices="auto")
+        say("lanes", f"resolve_grid_mesh(devices='auto') on "
+                     f"{torch.cuda.device_count()} card(s): {auto!r}")
+        topo, wl, cfg = multipod128(T)
+        seeds = list(range(8))
+        dev = self.dev
+        for tw in (1, 20):
+            c = cfg._replace(sym_on=True, backend="cuda", tick_window=tw,
+                             n_ticks=LANES_TW1_TICKS if tw == 1
+                             else cfg.n_ticks)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            one = T.simulate_seeds(topo, wl, c, "ecmp", seeds, device=dev)
+            torch.cuda.synchronize()
+            t_one = time.time() - t0
+            for n in LANE_SPLITS:
+                t0 = time.time()
+                got = T.simulate_seeds(topo, wl, c, "ecmp", seeds,
+                                       devices=[dev] * n)
+                torch.cuda.synchronize()
+                t_split = time.time() - t0
+                ok, msg = lane_split_check(torch, got, one)
+                if not ok:
+                    fail("lanes", f"tick_window={tw}, 8 lanes over {n} "
+                                  f"entries: {msg}")
+                self.rates[("lanes", tw, n)] = (t_one, t_split)
+                say("lanes", f"128 hosts, tick_window={tw}, {c.n_ticks} "
+                             f"ticks, 8 lanes over the card named {n} "
+                             f"times vs one device: "
+                             f"{msg}; wall {t_split:.2f} s split, "
+                             f"{t_one:.2f} s on one device")
+        topo, wl, cfg = table1(T)
+        c = cfg._replace(backend="cuda", tick_window=20)
+        knobs = lane_knobs(T, c)
+        one = T.simulate_grid(topo, wl, c.structure(), knobs, [3],
+                              chunk_knobs=1, device=dev)
+        t0 = time.time()
+        got = T.simulate_grid(topo, wl, c.structure(), knobs, [3],
+                              chunk_knobs=1, devices=[dev, dev])
+        torch.cuda.synchronize()
+        ok, msg = lane_split_check(torch, got, one)
+        for k, name in enumerate(("ecmp_base", "ecmp_sym")):
+            if int(got.job_finish_ticks[k, 0, 0]) != GOLDEN_JOB[name] or \
+                    got.finish_ticks[k, 0].tolist() != GOLDEN_FLOWS[name]:
+                ok, msg = False, msg + f"; {name} misses its golden"
+        if not ok:
+            fail("lanes", f"Table 1, chunk_knobs=1 over 2 entries: {msg}")
+        say("lanes", f"Table 1, 4 points x seed 3, chunk_knobs=1 over 2 "
+                     f"entries (2 dispatches of 2 lanes) vs one device: "
+                     f"{msg}; the ecmp_base and ecmp_sym goldens hold; "
+                     f"{time.time() - t0:.2f} s")
+        with renumbered_shares(sim):
+            bad = T.simulate_grid(topo, wl, c.structure(), knobs, [3],
+                                  chunk_knobs=1, devices=[dev, dev])
+        ok, msg = lane_split_check(torch, bad, one)
+        if ok:
+            fail("lanes", "a split whose shares renumber their lanes passed "
+                          "the check")
+        say("lanes", f"planted fault (each dispatch's second share runs its "
+                     f"first lane's point): {msg}; fails, as it must")
+
+    # --------------------------------------- 20. 512 hosts, 8 lanes, tiled
     def grid512(self):
         torch, T, Tl, Wn, Rf = self.torch, self.T, self.Tl, self.Wn, self.Rf
         from repro_torch.kernels.netsim_tick import ops
@@ -2495,7 +3050,7 @@ class Smoke:
                        + (f", first at tick {first}" if first is not None
                           else "") + f"; throughput max abs diff {err}")
 
-    # ------------------------------------------------------- 18. control
+    # ------------------------------------------------------- 21. control
     def control(self):
         torch, T, Wn = self.torch, self.T, self.Wn
         topo, wl, cfg = table1(T)
@@ -2545,7 +3100,7 @@ class Smoke:
                        f"for bit (alpha max {oa.stats.alpha_max:.0f}, queue "
                        f"max {oa.stats.qmax:.0f} B)")
 
-    # -------------------------------------------------------- 19. timing
+    # -------------------------------------------------------- 22. timing
     def timing(self):
         torch, K, Rf, Wn, Tl = self.torch, self.K, self.Rf, self.Wn, self.Tl
         from repro_torch.core.netsim.stages import stage_starts
@@ -2667,8 +3222,10 @@ class Smoke:
                         csrc=self.against["switch_pipeline"]), trace),
                     20 if P < 10**5 else 3)
         self.timing_flash()
+        self.timing_family_flash()
         self.timing_flash_bwd()
         self.timing_ssd()
+        self.timing_ssd(JAMBA_SSD, "jamba")
 
     def against_turns(self, lib, what, shipped, theirs, n):
         """Another commit's kernel (``theirs``) timed in turns with the
@@ -2815,6 +3372,47 @@ class Smoke:
                           f"{k_dev / lib:.2f}x its time; card {self.card}")
             del q, k, v, views
 
+    def timing_family_flash(self):
+        """The flash forward at the families' prefill shapes (S 32,768,
+        causal, no window, bf16, strided [B, H, S, D] views of [B, S, H, D]
+        activations): granite's (B 8, heads 16/8, D 64) and jamba's (B 1,
+        heads 32/8, D 128), beside one causal scaled_dot_product_attention
+        call and one call of the chunked plain version (CUDA events around
+        that call alone)."""
+        torch, Fa = self.torch, self.Fa
+        from repro_torch.models.attention import ref_attention_chunked
+        S = PREFILL_S
+        for model, B, hq, hkv, D in (("granite", MOE_B, 16, 8, 64),
+                                     ("jamba", 1, 32, 8, 128)):
+            q, k, v = self.attn_inputs(B, hq, hkv, S, D, "bfloat16")
+            views = [x.transpose(1, 2) for x in (q, k, v)]
+            saved = Fa.flash_fwd.launches
+            k_dev, k_wall = timed(lambda: Fa.flash_fwd(*views), 10, torch)
+            Fa.flash_fwd.launches = saved
+            pos = torch.arange(S, device=self.dev)[None].expand(B, S)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            ref_attention_chunked(q, k, v, pos, pos)
+            b.record()
+            torch.cuda.synchronize()
+            p_ms = a.elapsed_time(b)
+            lib = self.sdpa_ms(q, k, v, 0)
+            nbytes = B * (2 * S * D * (2 * hq + 2 * hkv) + 4 * hq * S)
+            ops = 4 * D * (S * (S + 1) // 2) * hq * B
+            self.report(f"{model} B={B} S={S}", "flash_fwd", "flash_fwd.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:44",
+                        k_dev, k_wall, p_ms, p_ms, nbytes, ops, 1,
+                        peak=BF16_OPS_PER_S, library_ms=lib,
+                        note=f"(BH={B * hq}, KV heads {hkv}, D={D}, causal, "
+                             "no window, bf16; plain: one call of the chunked"
+                             " version; library: is_causal=True)")
+            say("timing", f"flash forward, {model}'s prefill B={B} S={S} "
+                          f"D={D}: {k_dev:.4f} ms against one "
+                          f"scaled_dot_product_attention {lib:.4f} ms: "
+                          f"{k_dev / lib:.2f}x its time; card {self.card}")
+            del q, k, v, views
+
     def timing_flash_bwd(self):
         """The backward kernels at the training shape (B 2, heads 32/8, S
         4,096, D 120, danube's window, bf16, strided [B, S, H, D] views),
@@ -2880,14 +3478,15 @@ class Smoke:
                           f"{tps:,.0f} tokens/s, peak memory "
                           f"{peak / 2**30:.2f} GiB; card {self.card}")
 
-    def timing_ssd(self):
-        """The SSD kernels at the main path's shape (SSD_MAIN, B/C bf16,
-        strided [B, H, S, P] views of [B, S, H, P] as ops.ssd passes them)
-        and its plain version on [B*H, S, P] copies; with ``--against`` the
-        ssd.cu of another commit timed beside them (:meth:`ssd_against`).
-        No single PyTorch call computes the scan: no library time."""
+    def timing_ssd(self, shape=SSD_MAIN, model="mamba2"):
+        """The SSD kernels at a prefill's shape (the main path's, SSD_MAIN,
+        by default; jamba's too), B/C bf16, strided [B, H, S, P] views of
+        [B, S, H, P] as ops.ssd passes them, and its plain version on
+        [B*H, S, P] copies; with ``--against`` the ssd.cu of another commit
+        timed beside them at the main shape (:meth:`ssd_against`).  No
+        single PyTorch call computes the scan: no library time."""
         torch, Sd = self.torch, self.Sd
-        B, S, H, P, N, Q = SSD_MAIN
+        B, S, H, P, N, Q = shape
         x, a, Bm, Cm = self.ssd_case(B, S, H, P, N, "bfloat16")
         xv, av = x.transpose(1, 2), a.transpose(1, 2)
         saved = Sd.ssd_chunked.launches
@@ -2917,7 +3516,9 @@ class Smoke:
             (nc - 1) * 2 * 2 * Q * N * P)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         f32_ms = ops / F32_OPS_PER_S * 1e3
-        self.report(f"B={B} S={S}", "ssd", "ssd.cu",
+        label = f"B={B} S={S}" if shape == SSD_MAIN else \
+            f"{model} B={B} S={S}"
+        self.report(label, "ssd", "ssd.cu",
                     "src/repro/kernels/ssd/kernel.py:24", k_dev, k_wall,
                     p_dev, p_wall, nbytes, ops_tc, 1,
                     note=f"(H={H}, P={P}, N={N}, chunk {Q}, B/C bf16; four "
@@ -2928,7 +3529,7 @@ class Smoke:
                          f"take {f32_ms:.6f} ms, bound "
                          f"{max(bytes_ms, f32_ms):.6f} ms)",
                     peak=TF32_OPS_PER_S)
-        if "ssd" in (self.against or {}):
+        if "ssd" in (self.against or {}) and shape == SSD_MAIN:
             self.ssd_against(xv, av, Bm, Cm)
         del x, a, Bm, Cm, xv, av
 
@@ -3084,7 +3685,7 @@ class Smoke:
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 library_ms=library_ms))
 
-    # ------------------------------------------------------ 20. profile
+    # ------------------------------------------------------ 23. profile
     def profile(self):
         torch, T = self.torch, self.T
         from repro_torch.core.netsim.simulator import _window_body
@@ -3146,6 +3747,7 @@ class Smoke:
         self.profile_prefill()
         self.profile_train()
         self.profile_mamba()
+        self.profile_granite()
 
     def profile_prefill(self):
         """One profiled 32,768-token prefill of the full-width model: the
@@ -3276,6 +3878,55 @@ class Smoke:
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
         for name, (n, t) in top:
             say("profile", f"  {t / 1e3:.3f} ms  {n} launches  {name[:80]}")
+
+    def profile_granite(self):
+        """One profiled granite prefill of MOE_B x 32,768 tokens: the flash
+        kernel's, the matrix products', the MoE dispatch's (sorts, scatters,
+        gathers and index copies: the routing's sort, the bucket ranks, the
+        send and expert buffers, the gathers back) and the rest's share of
+        device time.  Kernels are told apart by name; the embedding's one
+        gather counts as dispatch."""
+        torch = self.torch
+        model = self.granite_model()
+        tokens = self.family_tokens(model.cfg, MOE_B, PREFILL_S)
+        with torch.inference_mode():
+            model.apply(tokens[:1, :1024])
+            wall_us, by_name = profile_ticks(lambda: model.apply(tokens),
+                                             torch)
+        busy = sum(t for _, t in by_name.values())
+
+        def share(pred):
+            return sum(t for name, (_, t) in by_name.items() if pred(
+                name.lower()))
+
+        def is_mm(n):
+            return "flash_fwd" not in n and any(
+                w in n for w in ("gemm", "xmma", "nvjet", "cutlass",
+                                 "matmul"))
+
+        def is_dispatch(n):
+            return not is_mm(n) and any(
+                w in n for w in ("sort", "scatter", "gather", "index",
+                                 "topk", "searchsorted", "radix", "cub"))
+
+        flash = share(lambda n: "flash_fwd" in n)
+        mm, disp = share(is_mm), share(is_dispatch)
+        rest = busy - flash - mm - disp
+        self.rates["granite_profile"] = (wall_us, busy, flash, mm, disp)
+        say("profile", f"granite prefill {MOE_B} x {PREFILL_S} tokens "
+                       f"(flash): {wall_us / 1e3:.1f} ms wall, device busy "
+                       f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}% "
+                       f"busy), {sum(n for n, _ in by_name.values())} device "
+                       f"kernels; flash kernel {flash / 1e3:.1f} ms "
+                       f"({100 * flash / busy:.1f}%), matrix products "
+                       f"{mm / 1e3:.1f} ms ({100 * mm / busy:.1f}%), MoE "
+                       f"dispatch {disp / 1e3:.1f} ms "
+                       f"({100 * disp / busy:.1f}%), rest {rest / 1e3:.1f} ms"
+                       f" ({100 * rest / busy:.1f}%)")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+        for name, (n, t) in top:
+            say("profile", f"  {t / 1e3:.3f} ms  {n} launches  {name[:80]}")
+
 
 def against_sources(root: Path) -> dict:
     """The kernel sources of another commit that ``--against`` times beside

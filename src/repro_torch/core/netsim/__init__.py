@@ -5,9 +5,10 @@ from .params import (SEGSUM_MODES, EngineParams, PackedTables, RuntimeKnobs,
                      SimParams, SimState, SimStructure, grid_from_params,
                      merge_params, pack_lane_tables, pack_route_tables,
                      plan_tiling, stack_knobs)
-from .simulator import (SimResult, Static, WindowSamples, build_static,
-                        init_state, link_domains, make_lanes, resolve_device,
-                        run_window,
+from .simulator import (GRID_AXIS, LaneMesh, SimResult, Static,
+                        WindowSamples, build_static, init_state,
+                        link_domains, make_lanes, resolve_device,
+                        resolve_grid_mesh, run_window,
                         simulate, simulate_core, simulate_grid,
                         simulate_seeds, wl_arrays)
 from .stages import SHARE_POLICIES, EngineCtx, EngineState
@@ -21,6 +22,7 @@ __all__ = [
     "SimResult", "Static", "simulate", "simulate_core", "simulate_seeds",
     "simulate_grid", "build_static", "link_domains", "wl_arrays",
     "resolve_device", "make_lanes", "init_state", "run_window", "WindowSamples",
+    "resolve_grid_mesh", "LaneMesh", "GRID_AXIS",
     "SHARE_POLICIES", "EngineCtx", "EngineState",
     "Topology", "LeafSpine", "FatTree", "make_leaf_spine", "make_fat_tree",
     "scale_for_hosts",

@@ -12,7 +12,11 @@ Devices: every entry point and builder (``build_static``, ``wl_arrays``,
 ``prng.prng_key``) takes ``device``.  ``None`` means the CUDA card, and
 raises when there is none — nothing runs on the CPU unless the caller asks
 for ``device="cpu"``.  ``simulate_core``, ``init_state`` and ``run_window``
-run where their prepared arrays lie.
+run where their prepared arrays lie.  ``simulate_grid`` and
+``simulate_seeds`` also take the reference's ``devices=``/``mesh=``
+(:func:`resolve_grid_mesh`): the lanes split into contiguous shares, one
+per device, each run from its own host thread (on its own CUDA stream),
+and gathered onto the first device in lane order.
 
 Backends: ``SimParams.backend="eager"`` runs the staged torch tick;
 ``"cuda"`` runs the hot stages in the fused CUDA kernel of
@@ -33,6 +37,8 @@ Time is kept in integer ticks.
 """
 from __future__ import annotations
 
+import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -56,8 +62,12 @@ __all__ = [
     "simulate", "simulate_seeds", "simulate_grid", "simulate_core",
     "init_state", "run_window",
     "build_static", "link_domains", "wl_arrays", "grid_from_params",
-    "stack_knobs", "resolve_device", "make_lanes",
+    "stack_knobs", "resolve_device", "make_lanes", "resolve_grid_mesh",
+    "LaneMesh", "GRID_AXIS",
 ]
+
+# name of the lane axis of a grid-dispatch mesh
+GRID_AXIS = "lanes"
 
 
 class SimResult(NamedTuple):
@@ -344,7 +354,7 @@ def simulate_seeds(topo: Topology, wl: Workload, cfg: SimParams,
                    mesh=None, device=None, **bg) -> SimResult:
     """One lane per seed: both the ECMP path draw and the DCQCN coin flips
     vary.  Result arrays gain a leading ``[S]`` axis.  ``devices`` and
-    ``mesh`` are as for :func:`simulate_grid`."""
+    ``mesh`` split the seed lanes as for :func:`simulate_grid`."""
     struct, knobs = cfg.split()
     res = simulate_grid(topo, wl, struct, knobs.map(lambda x: x[None]),
                         seeds, routing=routing, devices=devices, mesh=mesh,
@@ -352,14 +362,126 @@ def simulate_seeds(topo: Topology, wl: Workload, cfg: SimParams,
     return SimResult(*(x[0] for x in res))
 
 
-def _one_device(devices, mesh) -> None:
-    """The reference's lane-sharding knobs: ``devices=None, mesh=None`` is
-    its plain single-device path, the only one ported so far."""
-    if devices is not None or mesh is not None:
-        raise NotImplementedError(
-            f"simulate_grid: devices={devices!r}, mesh={mesh!r}: lanes "
-            "split over several devices are not ported yet (ROADMAP.md, "
-            "queue 1 item 2); pass device= for the one device to run on")
+@dataclasses.dataclass(frozen=True)
+class LaneMesh:
+    """A 1-D mesh of devices for the lanes of a grid: the port's stand-in
+    for the reference's ``jax.sharding.Mesh`` (one axis, ``GRID_AXIS``).
+    A device may appear more than once."""
+    devices: tuple
+    axis_names: tuple = (GRID_AXIS,)
+
+
+def _no_card(what) -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"devices={what!r}: no CUDA device; name the "
+                           "devices (e.g. devices=['cpu', 'cpu'])")
+
+
+def resolve_grid_mesh(devices=None, mesh=None) -> LaneMesh | None:
+    """Resolve ``simulate_grid``'s ``devices=`` / ``mesh=`` into a
+    :class:`LaneMesh`, or ``None`` for the plain one-device path.
+
+    * ``mesh=``              — used as it is (must be 1-D);
+    * ``devices=None``       — one device;
+    * ``devices="auto"``     — every CUDA card;
+    * ``devices=int``        — the first N CUDA cards;
+    * ``devices=sequence``   — exactly those devices (``torch.device`` or
+      its name; repeats allowed, ``"cpu"`` too).
+
+    ``"auto"`` and an int raise ``RuntimeError`` on a host without a card
+    (no quiet fall-back to the CPU).  A mesh of one device normalizes to
+    ``None``."""
+    if mesh is not None:
+        if devices is not None:
+            raise ValueError("pass either devices= or mesh=, not both")
+        if len(mesh.axis_names) != 1:
+            raise ValueError(
+                f"grid mesh must be 1-D, got axes {mesh.axis_names}")
+        return None if len(mesh.devices) == 1 else mesh
+    if devices is None:
+        return None
+    if isinstance(devices, str):
+        if devices != "auto":
+            raise ValueError(f"devices= accepts 'auto', an int, or a "
+                             f"device sequence; got {devices!r}")
+        _no_card(devices)
+        devs = [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    elif isinstance(devices, int):
+        _no_card(devices)
+        n = torch.cuda.device_count()
+        if not 1 <= devices <= n:
+            raise ValueError(f"devices={devices} out of range; have {n} "
+                             "CUDA devices")
+        devs = [torch.device("cuda", i) for i in range(devices)]
+    else:
+        devs = [torch.device(d) for d in devices]
+        if not devs:
+            raise ValueError("empty device sequence")
+    if len(devs) == 1:
+        return None
+    return LaneMesh(tuple(devs))
+
+
+def _lane_devices(devices, mesh, device) -> list[torch.device]:
+    """The devices a grid's lanes run on, the first gathering the result:
+    the mesh's (a one-device ``devices``/``mesh`` names its device), else
+    ``device``."""
+    if device is not None and (devices is not None or mesh is not None):
+        raise ValueError("pass device= or devices=/mesh=, not both")
+    lm = resolve_grid_mesh(devices, mesh)
+    if lm is not None:
+        return list(lm.devices)
+    one = mesh.devices if mesh is not None else None if isinstance(
+        devices, (str, int)) else devices
+    return [resolve_device(device if one is None else one[0])]
+
+
+def _run_lanes(topo, wl, struct, knobs, seeds, routing, lanes, dev, bg):
+    """Run the flat ``lanes`` of a grid on ``dev``; ``[n, ...]`` results."""
+    ctx, cfg, sim0 = make_lanes(topo, wl, struct, knobs, seeds, routing,
+                                dev, lanes=lanes, **bg)
+    sim, samples = _window_body(ctx, cfg, sim0, cfg.n_ticks)
+    return SimResult(sim.engine.finish, sim.engine.job_finish, *samples)
+
+
+def _split_lanes(topo, wl, struct, knobs, seeds, routing, devs, bg
+                 ) -> SimResult:
+    """Every lane of ``knobs`` x ``seeds`` over ``devs``: contiguous shares
+    of the flat lane axis (``torch.tensor_split``, so shares may differ in
+    size by one, where the reference edge-pads to equal shares and masks
+    the padding off: the same lanes, the same results), each run on its
+    device from its own host thread and CUDA stream, gathered onto
+    ``devs[0]`` in lane order.  ``[n_lanes, ...]`` results."""
+    n = lanes_of(knobs) * len(seeds)
+    if len(devs) == 1:
+        return _run_lanes(topo, wl, struct, knobs, seeds, routing, None,
+                          devs[0], bg)
+    shares = [(d, ix) for d, ix in zip(devs, torch.tensor_split(
+        torch.arange(n), len(devs))) if len(ix)]
+
+    def run(share):
+        dev, ix = share
+        if dev.type != "cuda":
+            return _run_lanes(topo, wl, struct, knobs, seeds, routing, ix,
+                              dev, bg), None
+        stream = torch.cuda.Stream(dev)
+        with torch.cuda.device(dev), torch.cuda.stream(stream):
+            return _run_lanes(topo, wl, struct, knobs, seeds, routing, ix,
+                              dev, bg), stream
+
+    with ThreadPoolExecutor(len(shares)) as pool:
+        outs = list(pool.map(run, shares))
+    first = devs[0]
+    parts = []
+    for res, stream in outs:
+        if stream is not None:          # the share's work, then the gather
+            torch.cuda.current_stream(stream.device).wait_stream(stream)
+            for x in res:
+                x.record_stream(torch.cuda.current_stream(stream.device))
+        parts.append(res)
+    return SimResult(*(torch.cat([x.to(first) for x in xs])
+                       for xs in zip(*parts)))
 
 
 def simulate_grid(topo: Topology, wl: Workload, struct: SimStructure,
@@ -371,13 +493,19 @@ def simulate_grid(topo: Topology, wl: Workload, struct: SimStructure,
     ``knobs_grid`` is a stacked :class:`RuntimeKnobs` (leading axis K) or a
     sequence of per-point ``RuntimeKnobs`` / ``SimParams`` (sharing
     ``struct``'s static fields).  Lanes are the flattened ``K*S`` cross
-    product, row-major; ``chunk_knobs`` runs at most that many knob points
-    at a time to bound memory.  Returns arrays with leading ``[K, S]``.
-    ``devices=None, mesh=None`` (the reference's defaults) run every lane
-    on ``device``; any other value raises ``NotImplementedError``.
+    product, row-major.  Returns arrays with leading ``[K, S]``.
+
+    ``devices=`` / ``mesh=`` (:func:`resolve_grid_mesh`) split the lanes
+    over several devices (:func:`_split_lanes`); the result lies on the
+    first.  Without them every lane runs on ``device`` (not given with
+    them).  Lanes never interact, so a split run equals the
+    one-device run: integer outputs bit for bit.
+
+    ``chunk_knobs`` bounds the knob points per device: a D-device dispatch
+    covers ``chunk_knobs * D`` points at a time (the last chunk may be
+    smaller; the reference pads it to keep one trace).
     """
-    _one_device(devices, mesh)
-    dev = resolve_device(device)
+    devs = _lane_devices(devices, mesh, device)
     if isinstance(knobs_grid, (list, tuple)) and \
             not isinstance(knobs_grid, RuntimeKnobs):
         for p in knobs_grid:
@@ -390,14 +518,12 @@ def simulate_grid(topo: Topology, wl: Workload, struct: SimStructure,
     check_structure(struct)
     K = lanes_of(knobs_grid)
     S = len(seeds)
-    chunk = K if chunk_knobs is None else max(1, min(int(chunk_knobs), K))
+    per_dev = K if chunk_knobs is None else max(1, min(int(chunk_knobs), K))
+    chunk = min(K, per_dev * len(devs))
     outs = []
     for i in range(0, K, chunk):
         kn = knobs_grid.map(lambda x: x[i:i + chunk])
-        ctx, cfg, sim0 = make_lanes(topo, wl, struct, kn, seeds, routing,
-                                    dev, **bg)
-        sim, samples = _window_body(ctx, cfg, sim0, cfg.n_ticks)
-        res = SimResult(sim.engine.finish, sim.engine.job_finish, *samples)
+        res = _split_lanes(topo, wl, struct, kn, seeds, routing, devs, bg)
         outs.append(SimResult(*(x.reshape((lanes_of(kn), S) + x.shape[1:])
                                 for x in res)))
     if len(outs) == 1:
@@ -407,10 +533,12 @@ def simulate_grid(topo: Topology, wl: Workload, struct: SimStructure,
 
 def make_lanes(topo: Topology, wl: Workload, struct: SimStructure,
                knobs: RuntimeKnobs, seeds: Sequence[int],
-               routing: str = "ecmp", device=None, **bg):
+               routing: str = "ecmp", device=None, lanes=None, **bg):
     """Set up the lanes of a grid — knob point ``k`` x seed ``s`` at lane
     ``k*S + s`` — and return ``(ctx, cfg, tick-0 SimState)`` on
-    ``device``, ready for the engine's tick functions."""
+    ``device``, ready for the engine's tick functions.  ``lanes`` (flat
+    lane indices, default all) picks a share of them: each keeps its own
+    seed's statics and PRNG key and its own knob point."""
     dev = resolve_device(device)
     struct, mode = _resolve_routing(struct, routing)
     seeds = [int(s) for s in seeds]
@@ -419,10 +547,12 @@ def make_lanes(topo: Topology, wl: Workload, struct: SimStructure,
         build_static(topo, wl, mode, s, dt=struct.dt, deploy=struct.deploy,
                      device=dev, **bg) for s in seeds])
     knobs = knobs.map(lambda x: x.reshape(-1))
-    lane_seed = torch.arange(lanes_of(knobs) * S, device=dev) % S
+    lanes = torch.arange(lanes_of(knobs) * S) if lanes is None \
+        else torch.as_tensor(lanes, dtype=torch.int64)
+    lane_seed = (lanes % S).to(dev)
     sts = Static(*(x[lane_seed] for x in statics))
-    cfg = merge_params(struct,
-                       knobs.map(lambda x: x.to(dev).repeat_interleave(S)))
+    lane_knob = (lanes // S).to(dev)
+    cfg = merge_params(struct, knobs.map(lambda x: x.to(dev)[lane_knob]))
     resolve_share_policy(cfg)
     ctx = make_ctx(sts, wl_arrays(wl, struct.dt, dev), cfg.window)
     keys = prng.prng_key(seeds, dev)[lane_seed]

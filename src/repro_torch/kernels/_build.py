@@ -17,11 +17,12 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Callable, NamedTuple
 
 __all__ = ["NVCC_FLAGS", "SMEM_LIMIT", "register", "build_all", "build",
-           "registered", "ptxas_entries"]
+           "registered", "ptxas_entries", "count_launch"]
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "--fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -37,6 +38,17 @@ class _Library(NamedTuple):
 
 _REGISTRY: dict[str, _Library] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
+# builds and launch counts may come from several host threads at once (a
+# simulator grid split over devices runs a thread per device)
+_BUILD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, the launch count of a kernel
+    wrapper, under a lock."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def register(name: str, csrc: Path, bind: Callable[[ctypes.CDLL], None]
@@ -81,6 +93,11 @@ def build_all(names=None) -> dict[str, tuple[ctypes.CDLL, str]]:
     if unknown:
         raise KeyError(f"unknown kernel libraries {unknown}; have "
                        f"{tuple(_REGISTRY)}")
+    with _BUILD_LOCK:
+        return _build_locked(names)
+
+
+def _build_locked(names) -> dict[str, tuple[ctypes.CDLL, str]]:
     todo = [name for name in names if name not in _loaded]
     paths, jobs, logs = {}, {}, {}
     for name in todo:
@@ -119,8 +136,9 @@ def build_all(names=None) -> dict[str, tuple[ctypes.CDLL, str]]:
 def build(name: str) -> tuple[ctypes.CDLL, str]:
     """The loaded library ``name``, compiled first if need be.  Returns
     ``(library, compiler log)``."""
-    if name in _loaded:
-        return _loaded[name], ""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib, ""
     return build_all((name,))[name]
 
 

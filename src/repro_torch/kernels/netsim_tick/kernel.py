@@ -21,7 +21,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
-from .._build import SMEM_LIMIT
+from .._build import SMEM_LIMIT, count_launch
 from .ref import TickOut, hot_tick
 
 __all__ = ["TickOut", "netsim_tick", "build", "build_all", "kernel_policy",
@@ -251,7 +251,7 @@ def netsim_tick(step, sent, rate, done_upto, q_prev,
         stream)
     if rc != 0:
         raise RuntimeError(f"netsim_tick kernel launch failed: CUDA error {rc}")
-    netsim_tick.launches += 1
+    count_launch(netsim_tick)
     return out
 
 

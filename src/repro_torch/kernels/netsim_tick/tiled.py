@@ -24,6 +24,7 @@ import ctypes
 import torch
 
 from ...core.netsim.params import PackedTables
+from .._build import count_launch
 from .kernel import POLICIES, SMEM_LIMIT, THREADS, TickOut, _check, build
 from .ref import tiled_tick_ref
 
@@ -170,7 +171,7 @@ def netsim_tiled(step, sent, rate, done_upto, q_prev,
     if rc != 0:
         raise RuntimeError(f"netsim_tiled kernel launch failed: CUDA error "
                            f"{rc}")
-    netsim_tiled.launches += 1
+    count_launch(netsim_tiled)
     return out
 
 

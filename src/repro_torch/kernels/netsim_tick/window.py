@@ -19,6 +19,7 @@ import ctypes
 import torch
 
 from ...core.netsim.stages import EngineState
+from .._build import count_launch
 from .kernel import (POLICIES, _check, build, hot_smem_split,
                      ids_workspace, kernel_policy)
 from .ref import window_ref
@@ -90,7 +91,7 @@ def netsim_window(ctx, cfg, state: EngineState, base_tick: int, n: int):
                          f"{dev}")
     lib, _ = build("netsim_window")
     out = _launch(lib, ctx, cfg, state, base_tick, n)
-    netsim_window.launches += 1
+    count_launch(netsim_window)
     return out
 
 

@@ -1,5 +1,6 @@
-"""The model path of the port: parameter trees, layers, attention, the
-dense GQA decoder and its factory."""
+"""The model path of the port: parameter trees, layers, attention, the SSM
+mixer, the MoE FFN, the decoder (dense, MoE, SSM and hybrid periods) and
+its factory."""
 from .convert import params_from_reference, params_to_reference
 from .lm import LM
 from .model import build_model

@@ -1,20 +1,31 @@
-"""Decoder-only LM assembly for the dense GQA and the Mamba-2 SSM
+"""Decoder-only LM assembly for the dense GQA, MoE, Mamba-2 SSM and hybrid
 families.
 
-The port of ``repro/models/lm.py`` for ``family == "dense"``,
-``attention == "gqa"``, and ``family == "ssm"`` (period 1 both).  The
-reference stacks every layer's parameters on a leading ``[n_groups]`` axis
-and scans over it; the port keeps one :class:`Block` per layer in an
-``nn.ModuleList`` and loops (``models/convert.py`` maps the reference's
-stacked tree onto it).  A block holds ``ln1`` and its mixer (``attn`` or
-``ssm``, by ``cfg.layer_kind``), and ``ln2``/``mlp`` when ``d_ff`` is set.
+The port of ``repro/models/lm.py`` for ``attention == "gqa"`` (or none)
+with RoPE.  The reference groups layers into *periods*, the repeating
+pattern of sub-layers (``lcm(attn_every, moe_every)`` layers: 1 for
+homogeneous stacks, 8 for jamba), keys each period position's parameters
+``block_<i>`` with a leading ``[n_groups]`` axis and scans over groups.
+The port keeps one :class:`Block` per layer in an ``nn.ModuleList`` and
+loops (``models/convert.py`` maps layer ``l`` to ``block_<l % period>``'s
+entry ``l // period``).  A layer's kind is asked of its position *in the
+period*, as the reference asks it: ``cfg.layer_kind(l % period)`` picks
+the mixer (``attn`` or ``ssm``) and ``cfg.is_moe_layer(l % period)`` the
+FFN (``moe``, or ``mlp`` when ``d_ff`` is set), each after ``ln2``.  So
+``MoEConfig.first_k_dense`` makes the first k positions of *every* period
+dense, not the first k layers (ROADMAP, "Known behaviours").
+
 The model owns its parameters: ``apply``, ``init_cache`` and
-``decode_step`` take no parameter tree.  With ``par.remat`` other than
-``"none"`` each block runs under ``torch.utils.checkpoint`` when gradients
-are taken: the reference's per-group ``jax.checkpoint``, a group being one
-layer here.
+``decode_step`` take no parameter tree.  ``apply`` returns the MoE layers'
+aux losses summed per period group in layer order, then over groups.  With
+``par.remat`` other than ``"none"`` each block runs under
+``torch.utils.checkpoint`` when gradients are taken: per layer, which is
+the reference's per-group ``jax.checkpoint`` at period 1 and its per
+sub-layer checkpoint under ``remat="full"`` at period > 1.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -27,6 +38,7 @@ from .attention import (KVCache, attention_block, attn_spec, decode_attention,
                         effective_kv_heads)
 from .layers import (apply_embed, apply_mlp, apply_norm, apply_unembed,
                      embed_spec, mlp_spec, norm_spec)
+from .moe import moe_block, moe_spec
 from .ssm import SSMCache, init_ssm_cache, ssm_block, ssm_decode, ssm_spec
 
 __all__ = ["LM", "Block"]
@@ -37,8 +49,9 @@ def _dtype(name: str) -> torch.dtype:
 
 
 class Block(nn.Module):
-    """One layer: norm, mixer (attention or SSM), and norm and MLP when the
-    model has one, each a dict of parameters under the reference's names."""
+    """One layer: norm, mixer (attention or SSM), and norm and FFN (MLP or
+    MoE) when the layer has one, each a dict of parameters under the
+    reference's names."""
 
     def __init__(self, spec: dict, device):
         super().__init__()
@@ -62,6 +75,13 @@ class LM(nn.Module):
         self.use_ssd_kernel = use_ssd_kernel
         self.tp = 1                     # no mesh: one card
         self.vocab_padded = padded(cfg.vocab_size, self.tp * 128)
+        self.period = cfg.attn_every or 1
+        if cfg.moe is not None and cfg.moe_every > 1:
+            self.period = math.lcm(self.period, cfg.moe_every)
+        if cfg.num_layers % self.period:
+            raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not "
+                             f"whole periods of {self.period}")
+        self.n_groups = cfg.num_layers // self.period
         spec = self.param_spec()
         self.embed = prm.module_from_spec(spec["embed"], device)
         self.blocks = nn.ModuleList(
@@ -70,16 +90,24 @@ class LM(nn.Module):
         self.final_norm = prm.module_from_spec(spec["final_norm"], device)
 
     # ------------------------------------------------------------ specs
+    def layer_kind(self, i: int) -> str:
+        """Layer ``i``'s mixer, ``"attn"`` or ``"ssm"``: the config's kind
+        of its position in the period."""
+        return self.cfg.layer_kind(i % self.period)
+
     def _block_spec(self, i: int) -> dict:
-        cfg, n = self.cfg, self.cfg.num_layers
+        cfg, n, pos = self.cfg, self.n_groups, i % self.period
         d: dict = {"ln1": norm_spec(cfg, n)}
-        if cfg.layer_kind(i) == "attn":
+        if cfg.layer_kind(pos) == "attn":
             d["attn"] = attn_spec(cfg, self.tp, n)
         else:
             d["ssm"] = ssm_spec(cfg, self.tp, n)
-        if cfg.d_ff:
+        if cfg.d_ff or cfg.is_moe_layer(pos):
             d["ln2"] = norm_spec(cfg, n)
-            d["mlp"] = mlp_spec(cfg, cfg.d_ff, n)
+            if cfg.is_moe_layer(pos):
+                d["moe"] = moe_spec(cfg, n)
+            else:
+                d["mlp"] = mlp_spec(cfg, cfg.d_ff, n)
         return d
 
     def param_spec(self) -> dict:
@@ -97,18 +125,29 @@ class LM(nn.Module):
         return self
 
     # ------------------------------------------------------------ forward
+    def _ffn(self, bp: Block, x: torch.Tensor):
+        """The layer's FFN on ``x`` (after ``ln2``): ``(out, aux)``, aux
+        None for an MLP; ``(None, None)`` for a layer without one."""
+        if "moe" in bp._modules:
+            return moe_block(bp.moe, apply_norm(bp.ln2, x, self.cfg),
+                             self.cfg)
+        if "mlp" in bp._modules:
+            return apply_mlp(bp.mlp, apply_norm(bp.ln2, x, self.cfg),
+                             self.cfg), None
+        return None, None
+
     def _apply_block(self, bp: Block, i: int, x: torch.Tensor,
-                     positions: torch.Tensor) -> torch.Tensor:
+                     positions: torch.Tensor):
+        """Layer ``i`` on ``x``: ``(x, aux)``, aux None without MoE."""
         cfg = self.cfg
         h = apply_norm(bp.ln1, x, cfg)
-        if cfg.layer_kind(i) == "attn":
+        if self.layer_kind(i) == "attn":
             h = attention_block(bp.attn, h, cfg, positions, self.use_flash)
         else:
             h = ssm_block(bp.ssm, h, cfg, self.use_ssd_kernel)
         x = x + h
-        if cfg.d_ff:
-            x = x + apply_mlp(bp.mlp, apply_norm(bp.ln2, x, cfg), cfg)
-        return x
+        h, aux = self._ffn(bp, x)
+        return (x if h is None else x + h), aux
 
     def apply(self, tokens: torch.Tensor | None = None,
               positions: torch.Tensor | None = None,
@@ -117,7 +156,8 @@ class LM(nn.Module):
         """Prefill forward.
 
         tokens: [B, S] integer (or ``embeds`` [B, S, d]).  positions: [B, S].
-        Returns (logits [B, S, padded vocab], aux = 0).
+        Returns (logits [B, S, padded vocab], aux): aux is the MoE layers'
+        load-balancing loss, 0 without MoE layers.
         """
         cfg = self.cfg
         dt = _dtype(cfg.dtype)
@@ -128,15 +168,21 @@ class LM(nn.Module):
             positions = torch.arange(S, dtype=torch.int32,
                                      device=x.device).expand(B, S)
         remat = self.par.remat != "none" and torch.is_grad_enabled()
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = group = zero
         for i, bp in enumerate(self.blocks):
             if remat:
-                x = checkpoint(self._apply_block, bp, i, x, positions,
-                               use_reentrant=False)
+                x, a = checkpoint(self._apply_block, bp, i, x, positions,
+                                  use_reentrant=False)
             else:
-                x = self._apply_block(bp, i, x, positions)
+                x, a = self._apply_block(bp, i, x, positions)
+            if a is not None:
+                group = group + a
+            if (i + 1) % self.period == 0:
+                aux, group = aux + group, zero
         x = apply_norm(self.final_norm, x, cfg)
         logits = apply_unembed(self.embed, x, cfg)
-        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+        return logits, aux
 
     # ------------------------------------------------------------ decode
     def kv_cache_len(self, max_seq: int) -> int:
@@ -155,7 +201,7 @@ class LM(nn.Module):
         dev = self.final_norm["scale"].device
         caches: list = []
         for i in range(cfg.num_layers):
-            if cfg.layer_kind(i) != "attn":
+            if self.layer_kind(i) != "attn":
                 caches.append(init_ssm_cache(cfg, batch, self.tp, dev))
                 continue
             shape = (batch, effective_kv_heads(cfg, self.tp),
@@ -169,19 +215,23 @@ class LM(nn.Module):
                     tokens: torch.Tensor, pos: torch.Tensor
                     ) -> tuple[torch.Tensor, list[KVCache | SSMCache]]:
         """tokens: [B, 1]; pos: [B] absolute positions.  Writes the caches
-        in place and returns (logits [B, 1, padded vocab], cache)."""
+        in place and returns (logits [B, 1, padded vocab], cache).  MoE
+        layers route the step's B tokens together (so a slot's output can
+        depend on the other slots' tokens through capacity drops, as in
+        the reference), and their aux losses are dropped."""
         cfg = self.cfg
         x = apply_embed(self.embed, tokens).to(_dtype(cfg.dtype))
         for i, (bp, c) in enumerate(zip(self.blocks, cache)):
             h = apply_norm(bp.ln1, x, cfg)
-            if cfg.layer_kind(i) == "attn":
+            if self.layer_kind(i) == "attn":
                 h, _ = decode_attention(bp.attn, h, cfg, c, pos)
             else:
                 h, new = ssm_decode(bp.ssm, h, cfg, c)
                 c.conv.copy_(new.conv)
                 c.state.copy_(new.state)
             x = x + h
-            if cfg.d_ff:
-                x = x + apply_mlp(bp.mlp, apply_norm(bp.ln2, x, cfg), cfg)
+            h, _ = self._ffn(bp, x)
+            if h is not None:
+                x = x + h
         x = apply_norm(self.final_norm, x, cfg)
         return apply_unembed(self.embed, x, cfg), cache

@@ -12,8 +12,6 @@ __all__ = ["build_model", "check_ported", "NOT_PORTED"]
 # what this slice of the port does not build yet, and the ROADMAP item
 # (queue 1 item 1, "left" list) that ports it
 NOT_PORTED = {
-    "moe": "moe.py: ROADMAP queue 1 item 1, left 3",
-    "hybrid": "moe.py: ROADMAP queue 1 item 1, left 3",
     "encdec": "encdec.py: ROADMAP queue 1 item 1, left 3",
     "vlm": "M-RoPE: ROADMAP queue 1 item 1, left 3",
     "mla": "mla.py: ROADMAP queue 1 item 1, left 3",
@@ -26,10 +24,10 @@ def check_ported(cfg: ModelConfig) -> None:
         if key in NOT_PORTED:
             raise NotImplementedError(
                 f"{cfg.name}: {key} is not ported yet ({NOT_PORTED[key]})")
-    dense = (cfg.family, cfg.attention, cfg.pos_emb) == ("dense", "gqa",
-                                                         "rope")
+    gqa = cfg.family in ("dense", "moe", "hybrid") and \
+        (cfg.attention, cfg.pos_emb) == ("gqa", "rope")
     ssm = (cfg.family, cfg.attention, cfg.pos_emb) == ("ssm", "none", "none")
-    if not (dense or ssm):
+    if not (gqa or ssm):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r}, attention "
             f"{cfg.attention!r}, positions {cfg.pos_emb!r} are not ported")

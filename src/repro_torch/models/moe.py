@@ -1,0 +1,214 @@
+"""Mixture-of-Experts FFN: top-k routing, capacity-bounded dispatch.
+
+The port of ``repro/models/moe.py`` on one device (the reference's
+``ep=1, has_a2a=False`` path).  The expert-parallel ``all_to_all`` path
+under a mesh (``moe_block``'s ``rules``/``mesh``) waits for the parallel
+step, ROADMAP queue 1 item 1, left 4.  The reference's dispatch is XLA
+sort, scatter and gather plus ``einsum`` products, no Pallas kernel, so it
+stays plain torch here; the expert products are ``torch.bmm``.
+
+Which assignments a full capacity drops depends on their order, so the
+port keeps the reference's exactly:
+
+- top-k is a stable descending sort of the router's probabilities: the k
+  largest in descending order, the lower expert index first on a tie
+  (``jax.lax.top_k``);
+- the flat assignments are token-major, then gate order
+  (``jnp.repeat(jnp.arange(T), k)``);
+- ranks within a bucket come from a stable argsort (:func:`_rank_in_bucket`).
+
+With one device every assignment goes to one send bucket, so its rank is
+its flat position and the send buffer is the first ``C_send`` flat rows.
+Buffers are written by index at unique slots; a dropped row goes to one
+extra slot past the end, which is cut off (the reference adds zeros at its
+spill slot instead: the same values, and no host sync for a mask here).
+The combine adds each token's k weighted rows one after another in the
+activation dtype, as XLA's scatter-add does, in a fixed order on every
+device (no float atomics).
+
+dtypes: the router and its softmax are float32; routed experts keep the
+activation dtype (bf16), SiLU included; the shared expert's SiLU goes
+through float32; gates are cast to the activation dtype before the
+multiply.  ``jax.nn.gelu`` is the tanh approximation.  The auxiliary loss
+``E * coef * sum(mean(probs) * counts / (T k))`` carries its gradient
+through the probabilities only.
+
+Long inputs are dispatched in ``DISPATCH_CHUNK``-token chunks (one chunk
+when the token count is not a multiple); their aux losses are summed.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..config import ModelConfig
+from .params import ParamSpec
+
+__all__ = ["DISPATCH_CHUNK", "moe_spec", "moe_block", "top_k", "capacities"]
+
+DISPATCH_CHUNK = 8192   # tokens per dispatch round (bounds buffer memory)
+
+
+def moe_spec(cfg: ModelConfig, layers: int | None = None) -> dict:
+    """One layer's experts; ``layers`` is the reference's stacked axis."""
+    m, d, st = cfg.moe, cfg.d_model, layers or 1
+    n_in = 2 if cfg.activation == "swiglu" else 1
+    spec = {
+        "router": ParamSpec((d, m.num_experts), ("embed", "experts"),
+                            init="normal", scale=0.02, dtype=torch.float32,
+                            stack=st),
+        "wi": ParamSpec((m.num_experts, d, n_in, m.d_ff_expert),
+                        ("experts", "embed", None, "expert_mlp"), stack=st),
+        "wo": ParamSpec((m.num_experts, m.d_ff_expert, d),
+                        ("experts", "expert_mlp", "embed"), stack=st),
+    }
+    if m.shared_expert_d_ff:
+        spec["shared_wi"] = ParamSpec((d, n_in, m.shared_expert_d_ff),
+                                      ("embed", None, "mlp"), stack=st)
+        spec["shared_wo"] = ParamSpec((m.shared_expert_d_ff, d),
+                                      ("mlp", "embed"), stack=st)
+    return spec
+
+
+def _expert_ffn(wi, wo, x, activation: str) -> torch.Tensor:
+    """x: [E, C, d] -> [E, C, d], in the input dtype throughout (the
+    reference's SiLU is ``x * sigmoid(x)``, each op rounded)."""
+    E, d = wi.shape[0], wi.shape[1]
+    h = torch.bmm(x, wi.reshape(E, d, -1)).unflatten(-1, wi.shape[2:])
+    if activation == "swiglu":
+        g, u = h[..., 0, :], h[..., 1, :]
+        a = g * torch.sigmoid(g) * u
+    elif activation == "relu2":
+        a = torch.square(torch.relu(h[..., 0, :]))
+    else:
+        a = F.gelu(h[..., 0, :], approximate="tanh")
+    return torch.bmm(a, wo)
+
+
+def _rank_in_bucket(bucket_ids: torch.Tensor, n_buckets: int
+                    ) -> torch.Tensor:
+    """rank[i] = #(j < i with bucket_ids[j] == bucket_ids[i]), by a stable
+    sort."""
+    n = bucket_ids.shape[0]
+    order = torch.argsort(bucket_ids, stable=True)
+    sorted_b = bucket_ids[order]
+    start = torch.searchsorted(sorted_b, torch.arange(
+        n_buckets, dtype=sorted_b.dtype, device=sorted_b.device))
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(n, device=order.device) - start[sorted_b]
+    return rank
+
+
+def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k``: the k largest of each row in descending order,
+    the lower index first among equal values."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def capacities(cfg: ModelConfig, T: int) -> tuple[int, int]:
+    """``(C_send, C_loc)`` of one dispatch chunk of ``T`` tokens on one
+    device: the send buffer's rows, and each expert's."""
+    m = cfg.moe
+    E = m.num_experts
+    c_send = int(math.ceil(T * m.experts_per_token * m.capacity_factor))
+    c_loc = int(math.ceil(c_send / E * m.capacity_factor)) if E > 1 \
+        else c_send
+    return c_send, c_loc
+
+
+def _route(xt, router, cfg):
+    """Router probabilities [T, E], normalized gates and expert ids [T, k]
+    and the chunk's aux loss."""
+    m = cfg.moe
+    T, k, E = xt.shape[0], m.experts_per_token, m.num_experts
+    probs = torch.softmax(xt.float() @ router, dim=-1)
+    gate_vals, expert_idx = top_k(probs, k)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    me = probs.mean(0)
+    counts = torch.zeros(E, dtype=torch.int64, device=xt.device)
+    counts.scatter_add_(0, expert_idx.reshape(-1),
+                        torch.ones_like(expert_idx.reshape(-1)))
+    ce = counts.float() / (T * k)
+    aux = (me * ce).sum() * E * m.aux_loss_coef
+    return gate_vals, expert_idx, aux
+
+
+def _slots(flat_e: torch.Tensor, cfg: ModelConfig, T: int):
+    """Where the send buffer's rows land: ``(ekeep [C_send], slot
+    [C_send])`` — kept at their expert, and their row of the flat
+    ``[E * C_loc]`` expert buffer (``E * C_loc`` for rows that are empty or
+    dropped).  The send buffer holds the first ``C_send`` of the ``T * k``
+    flat assignments (expert ids token-major): with one device they all go
+    to one bucket, where each one's rank is its flat position."""
+    E = cfg.moe.num_experts
+    c_send, c_loc = capacities(cfg, T)
+    m = min(flat_e.shape[0], c_send)
+    re = torch.full((c_send,), E, dtype=flat_e.dtype, device=flat_e.device)
+    re[:m] = flat_e[:m]
+    er = _rank_in_bucket(re, E + 1)
+    ekeep = (re < E) & (er < c_loc)
+    return ekeep, torch.where(ekeep, re * c_loc + er, E * c_loc)
+
+
+def _moe_chunk(xt, router, wi, wo, cfg: ModelConfig):
+    """One dispatch chunk.  xt: [T, d].  Returns (y [T, d], aux)."""
+    m = cfg.moe
+    T, d = xt.shape
+    k, E = m.experts_per_token, m.num_experts
+    c_send, c_loc = capacities(cfg, T)
+    gate_vals, expert_idx, aux = _route(xt, router, cfg)
+    flat_e = expert_idx.reshape(-1)
+    src_tok = torch.arange(T, device=xt.device).repeat_interleave(k)
+    ekeep, slot = _slots(flat_e, cfg, T)
+    # the send buffer is the first C_send flat rows (zeros past T*k)
+    m_ = min(T * k, c_send)
+    rx = xt.new_zeros((c_send, d))
+    rx[:m_] = xt[src_tok[:m_]]
+    buf = xt.new_zeros((E * c_loc + 1, d))
+    buf[slot] = rx
+    out = _expert_ffn(wi, wo, buf[:-1].view(E, c_loc, d), cfg.activation)
+    back = torch.where(ekeep[:, None],
+                       out.reshape(E * c_loc, d)[slot.clamp_max(
+                           E * c_loc - 1)], 0)
+    gathered = xt.new_zeros((T * k, d))
+    gathered[:m_] = back[:m_]
+    w = gate_vals.reshape(-1, 1).to(xt.dtype)
+    rows = (gathered * w).view(T, k, d)
+    y = rows[:, 0]
+    for j in range(1, k):            # XLA's scatter-add order, rounded
+        y = y + rows[:, j]
+    return y, aux
+
+
+def _moe_tokens(xt, router, wi, wo, cfg: ModelConfig):
+    """Chunked dispatch over the token axis."""
+    T, d = xt.shape
+    chunk = min(DISPATCH_CHUNK, T)
+    if T % chunk:
+        chunk = T       # irregular small inputs: a single chunk
+    if chunk == T:
+        return _moe_chunk(xt, router, wi, wo, cfg)
+    ys, auxs = zip(*(_moe_chunk(xt[i:i + chunk], router, wi, wo, cfg)
+                     for i in range(0, T, chunk)))
+    return torch.cat(ys), torch.stack(auxs).sum()
+
+
+def moe_block(p, x: torch.Tensor, cfg: ModelConfig
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, S, d].  Returns (y [B, S, d], aux loss)."""
+    B, S, d = x.shape
+    xt = x.reshape(-1, d)
+    y, aux = _moe_tokens(xt, p["router"], p["wi"], p["wo"], cfg)
+    y = y.reshape(B, S, d)
+    if cfg.moe.shared_expert_d_ff:
+        wi = p["shared_wi"]
+        h = (xt @ wi.reshape(d, -1)).unflatten(-1, wi.shape[1:])
+        if cfg.activation == "swiglu":
+            a = F.silu(h[..., 0, :].float()).to(x.dtype) * h[..., 1, :]
+        else:
+            a = F.gelu(h[..., 0, :], approximate="tanh")
+        y = y + (a @ p["shared_wo"]).reshape(B, S, d)
+    return y, aux

@@ -61,7 +61,7 @@ class ServeEngine:
         cfg = model.cfg
         # positions a KV cache holds (None: the model has no attention)
         self.kv_len = model.kv_cache_len(S) if any(
-            cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers)) \
+            model.layer_kind(i) == "attn" for i in range(cfg.num_layers)) \
             else None
         self.pos = np.zeros(B, np.int32)
         self.active: list[Request | None] = [None] * B

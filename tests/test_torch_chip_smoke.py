@@ -1,8 +1,11 @@
-"""``chip_smoke.py``'s pieces that need no card, for the tiled tick and the
-switch scan: the build report of their kernels (from a crafted ptxas log),
-where ``--against`` finds another commit's sources, and which interface it
-calls another commit's library through (by its ``*_abi()`` tag; stub
-libraries, nothing is launched).
+"""``chip_smoke.py``'s pieces that need no card.  For the tiled tick and
+the switch scan: the build report of their kernels (from a crafted ptxas
+log), where ``--against`` finds another commit's sources, and which
+interface it calls another commit's library through (by its ``*_abi()``
+tag; stub libraries, nothing is launched).  For the lanes, moe and jamba
+phases: the dropped-assignment counter against a hand-built routing, and
+the lane-split check, which a planted fault (shares that renumber their
+lanes) must fail.
 """
 import importlib.util
 import types
@@ -149,3 +152,71 @@ def test_tiled_against_takes_the_interface_its_tag_names(smoke, tag):
         assert len(lib.netsim_tiled_smem_bytes.argtypes) == 3
     else:
         assert not hasattr(lib.netsim_tiled_launch, "argtypes")
+
+
+# ------------------------------------- the lanes, moe and jamba phases
+
+def test_moe_drop_counter_counts_a_hand_built_routing(cs, monkeypatch):
+    """moe_drop_counter's count against a routing built by hand: 4
+    experts, top-2, 4 tokens at capacity factor 1 (C_send 8, C_loc 2).
+    Expert 0 takes 4 assignments (2 drop), expert 1 three (1 drops)."""
+    import repro_torch.models.moe as moe
+    from repro_torch.config import ModelConfig, MoEConfig
+    cfg = ModelConfig(name="t", family="moe", num_layers=1, d_model=8,
+                      num_heads=2, num_kv_heads=2, d_ff=0, vocab_size=16,
+                      moe=MoEConfig(num_experts=4, experts_per_token=2,
+                                    d_ff_expert=4, capacity_factor=1.0))
+    assert moe.capacities(cfg, 4) == (8, 2)
+    idx = torch.tensor([[0, 1], [1, 0], [0, 2], [1, 0]])
+    gates = torch.full((4, 2), 0.5)
+    monkeypatch.setattr(moe, "_route", lambda xt, router, c: (
+        gates, idx, torch.zeros(())))
+    p = {"router": torch.zeros(8, 4), "wi": torch.zeros(4, 8, 2, 4),
+         "wo": torch.zeros(4, 4, 8)}
+    slots = moe._slots
+    with cs.moe_drop_counter(moe) as seen:
+        moe.moe_block(p, torch.ones(1, 4, 8), cfg)
+        moe.moe_block(p, torch.ones(1, 4, 8), cfg)
+    assert moe._slots is slots
+    assert [int(n) for n in seen] == [3, 3]
+    assert cs.per_layer(torch, seen, 2) == [3, 3]
+    assert cs.per_layer(torch, seen, 1) == [6]
+
+
+def _split_grid(T, devices):
+    topo = T.make_leaf_spine(8, 2, 2)
+    b = T.WorkloadBuilder()
+    b.add_ring_job(hosts=list(range(8)), ring_size=4, chunk_bytes=2e5,
+                   passes=1, barrier=False)
+    cfg = T.SimParams(n_ticks=200, window=8, record_every=10)
+    struct, knobs = T.grid_from_params([
+        cfg._replace(sym_on=bool(i % 2), pq_on=bool(i // 2))
+        for i in range(4)])
+    kw = dict(device="cpu") if devices is None else dict(devices=devices)
+    return T.simulate_grid(topo, b.build(), struct, knobs, [0, 3],
+                           routing="ecmp", **kw)
+
+
+def test_lane_split_check_passes_a_split_and_fails_a_planted_fault(cs):
+    """8 lanes over the CPU named 3 times (shares of 3, 3, 2): the split
+    passes lane_split_check against the one-device run; with each share
+    renumbering its lanes from 0 (renumbered_shares) the shares past lane
+    0 run the first lanes' seeds and knob points, and the check fails."""
+    import repro_torch.core.netsim as T
+    import repro_torch.core.netsim.simulator as sim
+    one = _split_grid(T, None)
+    ok, msg = cs.lane_split_check(torch, _split_grid(T, ["cpu"] * 3), one)
+    assert ok and "bit-equal" in msg and "ts_qmax 0 of" in msg, msg
+    run = sim._run_lanes
+    with cs.renumbered_shares(sim):
+        bad = _split_grid(T, ["cpu"] * 3)
+    assert sim._run_lanes is run
+    ok, msg = cs.lane_split_check(torch, bad, one)
+    assert not ok and "differ in" in msg, msg
+
+
+def test_new_phases_are_listed_in_order(cs):
+    p = list(cs.PHASES)
+    assert p.index("mamba") < p.index("moe") < p.index("jamba") < \
+        p.index("goldens") and p.index("multipod") < p.index("lanes")
+    assert all(hasattr(cs.Smoke, name) for name in p)

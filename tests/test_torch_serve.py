@@ -1,5 +1,6 @@
 """The port's ServeEngine against the reference's, on danube's SMOKE config
-in float32 (``ServeConfig(batch=4, max_seq=64)``).
+in float32 (``ServeConfig(batch=4, max_seq=64)``), and on the SMOKE configs
+of granite, kimi (MoE) and jamba (hybrid, one period).
 
 The same 6 requests (prompts of 3-12 tokens from a seeded generator, 6 new
 tokens each) go through both engines with the same weights
@@ -14,6 +15,7 @@ differently at a smaller margin the runs part, and the comparison stops,
 but not before the first wave of 4 requests has been compared whole.
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -36,6 +38,7 @@ from repro_torch.models.params import cast_tree  # noqa: E402
 from repro_torch.runtime import Request, ServeEngine  # noqa: E402
 
 ARCH = "h2o_danube_3_4b"
+FAMILIES = ["granite_moe_1b_a400m", "kimi_k2_1t_a32b", "jamba_v0_1_52b"]
 ATOL, RTOL = 1e-2, 1e-4
 N_REQ, NEW, SLOTS = 6, 6, 4
 
@@ -46,13 +49,13 @@ def _requests():
         np.int32)) for i in range(N_REQ)]
 
 
-@pytest.fixture(scope="module")
-def runs():
-    """Both engines drained; each with its requests and every decode call's
-    (tokens fed, logits)."""
-    rcfg = dataclasses.replace(r_registry.get_config(ARCH, smoke=True),
+@functools.lru_cache(maxsize=None)
+def _drain(arch):
+    """Both engines drained on ``arch``'s SMOKE config; each with its
+    requests and every decode call's (tokens fed, logits)."""
+    rcfg = dataclasses.replace(r_registry.get_config(arch, smoke=True),
                                dtype="float32")
-    pcfg = dataclasses.replace(registry.get_config(ARCH, smoke=True),
+    pcfg = dataclasses.replace(registry.get_config(arch, smoke=True),
                                dtype="float32")
     rmodel = r_build_model(rcfg)
     params = rmodel.init(jax.random.PRNGKey(0))
@@ -93,14 +96,19 @@ def runs():
     return (rreqs, rdone, rlog), (preqs, pdone, plog)
 
 
-def test_every_request_finishes(runs):
+@pytest.fixture(scope="module")
+def runs():
+    return _drain(ARCH)
+
+
+def _finished(runs):
     for reqs, done, _ in runs:
         assert len(done) == N_REQ
         assert [len(r.out) for r in reqs] == [NEW] * N_REQ
         assert all(r.done for r in reqs)
 
 
-def test_decode_logits_and_tokens_match_reference(runs):
+def _matched(runs):
     (rreqs, _, rlog), (preqs, _, plog) = runs
     assert len(plog) == len(rlog)
     compared = 0
@@ -124,6 +132,26 @@ def test_decode_logits_and_tokens_match_reference(runs):
     if compared == len(rlog):
         for r, p in zip(rreqs, preqs):
             assert (r.rid, r.out) == (p.rid, p.out)
+
+
+def test_every_request_finishes(runs):
+    _finished(runs)
+
+
+def test_decode_logits_and_tokens_match_reference(runs):
+    _matched(runs)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_engines_match(arch):
+    """granite, kimi and jamba at smoke width: every request finishes on
+    both engines, every decode call's logits and tokens as for danube.
+    MoE layers route each call's 4 slots together (idle and prefilling
+    slots on token 0), so a slot's logits depend on the other slots'
+    tokens: both engines feed the same batches and must agree on them."""
+    runs = _drain(arch)
+    _finished(runs)
+    _matched(runs)
 
 
 def test_default_device_needs_a_card():

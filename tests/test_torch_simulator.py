@@ -102,24 +102,32 @@ def test_grid_lanes_equal_single_runs():
 def test_reference_device_keywords_run_on_one_device(entry):
     """The reference's default call form, ``devices=None, mesh=None`` (what
     ``benchmarks/common.py`` passes on every grid), is the one-device path:
-    it equals the call without them.  Any other value raises."""
+    it equals the call without them, as do a one-device sequence and a
+    one-device mesh.  ``"auto"`` and an int count CUDA cards: without one
+    they raise, with no quiet fall-back to the CPU."""
     topo, wl = _small(T)
     cfg = T.SimParams(n_ticks=200, window=16, sym_on=True)
     seeds = [0, 3]
     if entry == "grid":
         struct, knobs = T.grid_from_params([cfg, cfg._replace(pq_on=True)])
 
-        def run(**kw):
+        def run(device="cpu", **kw):
             return T.simulate_grid(topo, wl, struct, knobs, seeds,
-                                   routing="ecmp", device="cpu", **kw)
+                                   routing="ecmp", device=device, **kw)
     else:
-        def run(**kw):
+        def run(device="cpu", **kw):
             return T.simulate_seeds(topo, wl, cfg, "ecmp", seeds,
-                                    device="cpu", **kw)
-    _equal(run(devices=None, mesh=None), run(), "devices=None, mesh=None")
-    for kw in (dict(devices=2), dict(devices="auto"), dict(mesh="lanes")):
-        with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-            run(**kw)
+                                    device=device, **kw)
+    plain = run()
+    _equal(run(devices=None, mesh=None), plain, "devices=None, mesh=None")
+    _equal(run(None, devices=["cpu"]), plain, "devices=['cpu']")
+    _equal(run(None, mesh=T.LaneMesh((torch.device("cpu"),))), plain,
+           "a one-device mesh")
+    if torch.cuda.is_available():
+        return
+    for kw in (dict(devices=2), dict(devices="auto")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run(None, **kw)
 
 
 def test_run_window_split_equals_one_shot():
