@@ -1,13 +1,20 @@
 """Attention: GQA (+ sliding window), full prefill path and cached decode
-path.
+path, RoPE or M-RoPE, and unmasked cross attention.
 
 The port of ``repro/models/attention.py``.  The prefill softmax attention
 dispatches to the flash kernel when enabled, else to the plain torch
-version.  Shapes: activations are [batch, seq, d_model]; q/k/v are
-[batch, seq, heads, head_dim].  Decode KV caches are
-[batch, kv_heads, max_seq, head_dim] and are written in place.  Decode
-attention stays plain torch, as the reference computes it outside any
-Pallas kernel.  M-RoPE waits for its model (ROADMAP queue 1).
+version; cross attention (``cross=True``: no mask, positions may be
+``None``) never goes to the kernel, as in the reference.  Shapes:
+activations are [batch, seq, d_model]; q/k/v are [batch, seq, heads,
+head_dim].  Decode KV caches are [batch, kv_heads, max_seq, head_dim] and
+are written in place.  Decode attention stays plain torch, as the
+reference computes it outside any Pallas kernel.
+
+M-RoPE prefill takes [B, S, 3] (t, h, w) positions and masks by the t
+column, as the reference does; anything else raises ``ValueError``, where
+the reference takes ``positions[..., 0]`` of [B, S] positions as a [B]
+vector and its mask stops being causal.  Decode's [B, 1] positions stand
+for t = h = w.
 """
 from __future__ import annotations
 
@@ -19,12 +26,13 @@ import torch
 from ..config import ModelConfig
 from ..kernels.flash_attention.ops import flash_attention
 from ..parallel.sharding import padded
-from .layers import apply_rope
+from .layers import apply_mrope, apply_rope
 from .params import ParamSpec
 
 __all__ = ["NEG_INF", "attn_spec", "effective_kv_heads", "ref_attention",
            "ref_attention_chunked", "flash_or_ref", "KVCache", "project_qkv",
-           "attention_block", "decode_attention", "cached_attention"]
+           "mask_positions", "attention_block", "decode_attention",
+           "cached_attention"]
 
 NEG_INF = -1e30
 CHUNK = 512             # query rows per step of the chunked plain version
@@ -63,10 +71,12 @@ def _mask_bias(q_pos, k_pos, window: int) -> torch.Tensor:
     return torch.where(ok, zero, zero + NEG_INF)
 
 
-def ref_attention(q, k, v, q_pos, k_pos, window: int = 0) -> torch.Tensor:
+def ref_attention(q, k, v, q_pos, k_pos, window: int = 0,
+                  cross: bool = False) -> torch.Tensor:
     """Reference softmax attention with GQA head-group mapping.
 
-    q: [B, Sq, Hq, D]; k/v: [B, Sk, Hkv, D].  fp32 softmax.
+    q: [B, Sq, Hq, D]; k/v: [B, Sk, Hkv, D].  fp32 softmax.  ``cross``:
+    no mask (the positions are not read).
     """
     B, Sq, Hq, D = q.shape
     Hkv = k.shape[2]
@@ -74,14 +84,16 @@ def ref_attention(q, k, v, q_pos, k_pos, window: int = 0) -> torch.Tensor:
     qg = q.reshape(B, Sq, Hkv, g, D)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
                           k.float()) / math.sqrt(D)
-    logits = logits + _mask_bias(q_pos, k_pos, window)[:, None, None]
+    if not cross:
+        logits = logits + _mask_bias(q_pos, k_pos, window)[:, None, None]
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", w, v.float())
     return out.reshape(B, Sq, Hq, D).to(q.dtype)
 
 
 def ref_attention_chunked(q, k, v, q_pos, k_pos, window: int = 0,
-                          chunk: int = CHUNK) -> torch.Tensor:
+                          cross: bool = False, chunk: int = CHUNK
+                          ) -> torch.Tensor:
     """Streaming reference: one block of ``chunk`` query rows at a time, so
     the logits transient is [B, Hq, chunk, Sk] instead of [B, Hq, Sq, Sk].
     Same FLOPs, bounded memory."""
@@ -90,19 +102,21 @@ def ref_attention_chunked(q, k, v, q_pos, k_pos, window: int = 0,
         raise ValueError(f"sequence {Sq} is not a multiple of chunk {chunk}")
     out = torch.empty_like(q)
     for i in range(0, Sq, chunk):
-        out[:, i:i + chunk] = ref_attention(q[:, i:i + chunk], k, v,
-                                            q_pos[..., i:i + chunk], k_pos,
-                                            window=window)
+        qp = None if q_pos is None else q_pos[..., i:i + chunk]
+        out[:, i:i + chunk] = ref_attention(q[:, i:i + chunk], k, v, qp,
+                                            k_pos, window=window,
+                                            cross=cross)
     return out
 
 
-def flash_or_ref(q, k, v, q_pos, k_pos, window: int = 0,
+def flash_or_ref(q, k, v, q_pos, k_pos, window: int = 0, cross: bool = False,
                  use_flash: bool = False) -> torch.Tensor:
-    if use_flash:
+    if use_flash and not cross:
         return flash_attention(q, k, v, q_pos, k_pos, window=window)
     if q.shape[1] > CHUNK_ABOVE:
-        return ref_attention_chunked(q, k, v, q_pos, k_pos, window=window)
-    return ref_attention(q, k, v, q_pos, k_pos, window=window)
+        return ref_attention_chunked(q, k, v, q_pos, k_pos, window=window,
+                                     cross=cross)
+    return ref_attention(q, k, v, q_pos, k_pos, window=window, cross=cross)
 
 
 class KVCache(NamedTuple):
@@ -115,14 +129,36 @@ def _proj(x, w) -> torch.Tensor:
     return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
 
 
-def project_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions):
+def project_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions,
+                rope: bool = True):
+    """q, k, v [B, S, heads, head_dim] of ``x``, turned by the config's
+    positions unless ``rope`` is False (whisper's learned positions and
+    cross attention).  M-RoPE takes [B, S, 3] (t, h, w) positions; [B, S]
+    ones (decode's [B, 1]) stand for t = h = w."""
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
-    if cfg.pos_emb == "rope":
+    if rope and cfg.pos_emb == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    elif cfg.pos_emb == "mrope":
-        raise NotImplementedError("M-RoPE: ROADMAP queue 1 item 1, left 3")
+    elif rope and cfg.pos_emb == "mrope":
+        if positions.dim() == 2:              # text only: t = h = w
+            positions = positions[..., None].expand(*positions.shape, 3)
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     return q, k, v
+
+
+def mask_positions(cfg: ModelConfig, positions: torch.Tensor
+                   ) -> torch.Tensor:
+    """The [B, S] positions a prefill masks by: M-RoPE's t column (raises
+    ``ValueError`` unless ``positions`` is [B, S, 3]), else ``positions``."""
+    if cfg.pos_emb != "mrope":
+        return positions
+    if positions.dim() != 3 or positions.shape[-1] != 3:
+        raise ValueError(
+            f"{cfg.name}: an M-RoPE prefill takes [B, S, 3] (t, h, w) "
+            f"positions, not {tuple(positions.shape)} (the reference masks "
+            "by positions[..., 0], which is then not causal)")
+    return positions[..., 0]
 
 
 def _out(o, wo) -> torch.Tensor:
@@ -136,9 +172,10 @@ def attention_block(p, x: torch.Tensor, cfg: ModelConfig,
                     positions: torch.Tensor, use_flash: bool = False
                     ) -> torch.Tensor:
     """Full (prefill) self-attention."""
+    pos1d = mask_positions(cfg, positions)
     q, k, v = project_qkv(p, x, cfg, positions)
-    o = flash_or_ref(q, k, v, positions, positions,
-                     window=cfg.sliding_window, use_flash=use_flash)
+    o = flash_or_ref(q, k, v, pos1d, pos1d, window=cfg.sliding_window,
+                     use_flash=use_flash)
     return _out(o, p["wo"])
 
 

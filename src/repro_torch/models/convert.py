@@ -1,13 +1,16 @@
 """Carry parameter trees between the reference and the port's model.
 
-The reference (``repro.models.lm.LM``) keeps each period position's
-parameters under ``block_<i>`` with a leading ``[n_groups]`` axis, so
-layer ``l`` is ``block_<l % period>[l // period]`` (``block_0[l]`` at
-period 1; mixer leaves under ``attn`` or ``ssm``, FFN leaves under ``mlp``
-or ``moe``).  Each leaf takes its ``ParamSpec``'s dtype: bf16, or float32
-for the norms, the MoE router and the SSM's ``dt_bias``, ``A_log``, ``D``
-and ``norm``, as the reference declares them.  The port keeps one :class:`~repro_torch.models.lm.Block`
-per layer.  :func:`params_from_reference` carries the reference's tree in;
+The reference's ``LM`` keeps each period position's parameters under
+``block_<i>`` with a leading ``[n_groups]`` axis, so layer ``l`` is
+``block_<l % period>[l // period]`` (``block_0[l]`` at period 1; mixer
+leaves under ``attn`` (GQA or MLA) or ``ssm``, FFN leaves under ``mlp`` or
+``moe``).  Its ``EncDec`` stacks ``encoder`` ``[E, ...]`` and ``decoder``
+``[L, ...]``, so encoder layer ``l`` is ``encoder[...][l]``.  Each leaf
+takes its ``ParamSpec``'s dtype: bf16, or float32 for the norms (MLA's
+latent norms too), the MoE router and the SSM's ``dt_bias``, ``A_log``,
+``D`` and ``norm``, as the reference declares them.  The port keeps one
+:class:`~repro_torch.models.lm.Block` per layer.
+:func:`params_from_reference` carries the reference's tree in;
 :func:`params_to_reference` gives the port's parameters back in the
 reference's layout (to compare models trained on both sides).
 """
@@ -18,32 +21,42 @@ import torch
 
 from ..config import ModelConfig, ParallelConfig
 from ..device import resolve_device
+from .encdec import EncDec
 from .lm import LM
-from .model import check_ported
+from .model import make_model
 from .params import param_at, tree_leaves_with_path
 
 __all__ = ["params_from_reference", "params_to_reference"]
 
 
-def _reference_leaf(tree: dict, path: tuple, period: int) -> np.ndarray:
+def _stacked(model, path: tuple) -> tuple[tuple, int] | None:
+    """Where the reference stacks the port's per-layer leaf ``path``: (its
+    path without the layer, the index on the leading axis), or None for a
+    leaf the reference keeps as it is.  ``("blocks", l, ...)`` ->
+    ``block_<l % period>[...][l // period]``; ``("encoder" | "decoder",
+    l, ...)`` -> ``encoder | decoder[...][l]``."""
+    if path[0] == "blocks":
+        g, i = divmod(int(path[1]), model.period)
+        return (f"block_{i}",) + path[2:], g
+    if path[0] in ("encoder", "decoder"):
+        return (path[0],) + path[2:], int(path[1])
+    return None
+
+
+def _reference_leaf(tree: dict, path: tuple, model) -> np.ndarray:
     """The reference's leaf for the port's ``path``."""
-    if path[0] == "blocks":     # ("blocks", l, ...) -> block_<l % p>[l // p]
-        g, i = divmod(int(path[1]), period)
-        node = tree[f"block_{i}"]
-        for k in path[2:]:
-            node = node[k]
-        return node[g]
+    at = _stacked(model, path)
     node = tree
-    for k in path:
+    for k in (path if at is None else at[0]):
         node = node[k]
-    return node
+    return node if at is None else node[at[1]]
 
 
 @torch.no_grad()
 def params_from_reference(cfg: ModelConfig, tree: dict, device=None, *,
                           use_flash: bool = False,
                           use_ssd_kernel: bool = False,
-                          par: ParallelConfig | None = None) -> LM:
+                          par: ParallelConfig | None = None) -> LM | EncDec:
     """The port's model of ``cfg`` holding the reference's parameters.
 
     ``tree`` is the reference's parameter tree as nested dicts of float32
@@ -52,12 +65,9 @@ def params_from_reference(cfg: ModelConfig, tree: dict, device=None, *,
     ``device`` (``None`` is the CUDA card).
     """
     dev = resolve_device(device)
-    check_ported(cfg)
-    model = LM(cfg, par, use_flash=use_flash, use_ssd_kernel=use_ssd_kernel,
-               device=dev)
+    model = make_model(cfg, par, use_flash, use_ssd_kernel, dev)
     for path, spec in tree_leaves_with_path(model.param_spec()):
-        src = np.array(_reference_leaf(tree, path, model.period),
-                       np.float32)
+        src = np.array(_reference_leaf(tree, path, model), np.float32)
         if src.shape != spec.shape:
             raise ValueError(f"{'/'.join(path)}: reference shape "
                              f"{src.shape}, port shape {spec.shape}")
@@ -66,18 +76,19 @@ def params_from_reference(cfg: ModelConfig, tree: dict, device=None, *,
 
 
 @torch.no_grad()
-def params_to_reference(model: LM) -> dict:
+def params_to_reference(model: LM | EncDec) -> dict:
     """The model's parameters as the reference's tree (nested dicts; layer
     ``l`` of each block leaf stacked at ``block_<l % period>[...][l //
-    period]``) of float32 numpy arrays: the inverse of
+    period]``, of each encoder or decoder leaf at ``encoder | decoder[...]
+    [l]``) of float32 numpy arrays: the inverse of
     :func:`params_from_reference`."""
     out: dict = {}
     stacked: dict = {}
     for path, _ in tree_leaves_with_path(model.param_spec()):
         x = param_at(model, path).detach().float().cpu().numpy()
-        if path[0] == "blocks":
-            g, i = divmod(int(path[1]), model.period)
-            stacked.setdefault((f"block_{i}",) + path[2:], {})[g] = x
+        at = _stacked(model, path)
+        if at is not None:
+            stacked.setdefault(at[0], {})[at[1]] = x
             continue
         node = out
         for k in path[:-1]:

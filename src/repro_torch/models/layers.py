@@ -1,9 +1,9 @@
-"""Shared building blocks: norms, MLPs, embeddings, RoPE.
+"""Shared building blocks: norms, MLPs, embeddings, RoPE, M-RoPE and
+learned positions.
 
 The port of ``repro/models/layers.py``.  Parameters come as dicts of
 tensors (``nn.ParameterDict``s) with the reference's names and per-layer
-shapes; activations keep the reference's layouts.  M-RoPE and learned
-positions come with the models that use them (ROADMAP queue 1).
+shapes; activations keep the reference's layouts.
 """
 from __future__ import annotations
 
@@ -15,7 +15,8 @@ from ..config import ModelConfig
 from .params import ParamSpec
 
 __all__ = ["norm_spec", "apply_norm", "mlp_spec", "apply_mlp", "embed_spec",
-           "apply_embed", "apply_unembed", "rope_freqs", "apply_rope"]
+           "apply_embed", "apply_unembed", "rope_freqs", "apply_rope",
+           "apply_mrope", "learned_pos_spec"]
 
 # ---------------------------------------------------------------- norms
 
@@ -123,3 +124,37 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = x[..., : hd // 2], x[..., hd // 2:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: tuple[int, ...]) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL).  x: [..., seq, heads, head_dim];
+    positions: [..., seq, 3], the (t, h, w) ids.  The head_dim / 2
+    frequency bands are split into ``sections`` (t's, h's, w's), and each
+    band turns by its own stream's position, in float32."""
+    hd = x.shape[-1]
+    half = hd // 2
+    if sum(sections) != half:
+        raise ValueError(f"apply_mrope: sections {sections} do not add up "
+                         f"to half the head dim ({half})")
+    freqs = torch.as_tensor(rope_freqs(hd, theta), dtype=torch.float32,
+                            device=x.device)                       # [half]
+    sec_id = torch.as_tensor(np.repeat(np.arange(len(sections)), sections),
+                             device=x.device)                      # [half]
+    band_pos = positions.float()[..., sec_id]          # [..., S, half]
+    ang = band_pos * freqs
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------- learned
+
+
+def learned_pos_spec(cfg: ModelConfig, max_pos: int) -> dict:
+    """A learned position table [max_pos, d_model] (whisper's)."""
+    return {"pos_embedding": ParamSpec((max_pos, cfg.d_model),
+                                       (None, "embed"), init="normal",
+                                       scale=0.02)}

@@ -1,10 +1,10 @@
-"""Decoder-only LM assembly for the dense GQA, MoE, Mamba-2 SSM and hybrid
-families.
+"""Decoder-only LM assembly for the dense GQA, MLA, M-RoPE (VLM), MoE,
+Mamba-2 SSM and hybrid families.
 
-The port of ``repro/models/lm.py`` for ``attention == "gqa"`` (or none)
-with RoPE.  The reference groups layers into *periods*, the repeating
-pattern of sub-layers (``lcm(attn_every, moe_every)`` layers: 1 for
-homogeneous stacks, 8 for jamba), keys each period position's parameters
+The port of ``repro/models/lm.py``.  The reference groups layers into
+*periods*, the repeating pattern of sub-layers (``lcm(attn_every,
+moe_every)`` layers: 1 for homogeneous stacks, 8 for jamba), keys each
+period position's parameters
 ``block_<i>`` with a leading ``[n_groups]`` axis and scans over groups.
 The port keeps one :class:`Block` per layer in an ``nn.ModuleList`` and
 loops (``models/convert.py`` maps layer ``l`` to ``block_<l % period>``'s
@@ -22,6 +22,11 @@ aux losses summed per period group in layer order, then over groups.  With
 ``torch.utils.checkpoint`` when gradients are taken: per layer, which is
 the reference's per-group ``jax.checkpoint`` at period 1 and its per
 sub-layer checkpoint under ``remat="full"`` at period > 1.
+
+MLA layers (``cfg.attention == "mla"``) keep their parameters under
+``attn`` as the reference does and one :class:`~.mla.MLACache` (latent and
+rope key, no window) a layer for decode.  The VLM's stub frontend feeds
+``apply(embeds=[B, S, d], positions=[B, S, 3])``.
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ from .attention import (KVCache, attention_block, attn_spec, decode_attention,
                         effective_kv_heads)
 from .layers import (apply_embed, apply_mlp, apply_norm, apply_unembed,
                      embed_spec, mlp_spec, norm_spec)
+from .mla import MLACache, init_mla_cache, mla_block, mla_decode, mla_spec
 from .moe import moe_block, moe_spec
 from .ssm import SSMCache, init_ssm_cache, ssm_block, ssm_decode, ssm_spec
 
@@ -99,7 +105,8 @@ class LM(nn.Module):
         cfg, n, pos = self.cfg, self.n_groups, i % self.period
         d: dict = {"ln1": norm_spec(cfg, n)}
         if cfg.layer_kind(pos) == "attn":
-            d["attn"] = attn_spec(cfg, self.tp, n)
+            d["attn"] = (mla_spec if cfg.attention == "mla" else attn_spec)(
+                cfg, self.tp, n)
         else:
             d["ssm"] = ssm_spec(cfg, self.tp, n)
         if cfg.d_ff or cfg.is_moe_layer(pos):
@@ -142,7 +149,8 @@ class LM(nn.Module):
         cfg = self.cfg
         h = apply_norm(bp.ln1, x, cfg)
         if self.layer_kind(i) == "attn":
-            h = attention_block(bp.attn, h, cfg, positions, self.use_flash)
+            block = mla_block if cfg.attention == "mla" else attention_block
+            h = block(bp.attn, h, cfg, positions, self.use_flash)
         else:
             h = ssm_block(bp.ssm, h, cfg, self.use_ssd_kernel)
         x = x + h
@@ -155,9 +163,11 @@ class LM(nn.Module):
               ) -> tuple[torch.Tensor, torch.Tensor]:
         """Prefill forward.
 
-        tokens: [B, S] integer (or ``embeds`` [B, S, d]).  positions: [B, S].
-        Returns (logits [B, S, padded vocab], aux): aux is the MoE layers'
-        load-balancing loss, 0 without MoE layers.
+        tokens: [B, S] integer (or ``embeds`` [B, S, d], the VLM's stub
+        frontend).  positions: [B, S], or [B, S, 3] (t, h, w) for M-RoPE,
+        which raises ``ValueError`` without them.  Returns (logits [B, S,
+        padded vocab], aux): aux is the MoE layers' load-balancing loss, 0
+        without MoE layers.
         """
         cfg = self.cfg
         dt = _dtype(cfg.dtype)
@@ -187,22 +197,27 @@ class LM(nn.Module):
     # ------------------------------------------------------------ decode
     def kv_cache_len(self, max_seq: int) -> int:
         """Positions a layer's KV cache holds: ``min(max_seq, window)`` for
-        sliding windows, else ``max_seq``."""
+        sliding windows, else ``max_seq`` (MLA's latent cache too: the
+        port builds MLA without a window)."""
         w = self.cfg.sliding_window
         return min(max_seq, w) if w else max_seq
 
     def init_cache(self, batch: int, max_seq: int
-                   ) -> list[KVCache | SSMCache]:
+                   ) -> list[KVCache | MLACache | SSMCache]:
         """One cache per layer: a bf16 KV cache ``[batch, kv_heads, S,
-        head_dim]`` (``S`` = :meth:`kv_cache_len`) for attention, a conv
-        window and float32 state (:func:`~.ssm.init_ssm_cache`) for SSM
-        layers."""
+        head_dim]`` (``S`` = :meth:`kv_cache_len`) for attention, a bf16
+        latent and rope-key cache (:func:`~.mla.init_mla_cache`) for MLA, a
+        conv window and float32 state (:func:`~.ssm.init_ssm_cache`) for
+        SSM layers."""
         cfg = self.cfg
         dev = self.final_norm["scale"].device
         caches: list = []
         for i in range(cfg.num_layers):
             if self.layer_kind(i) != "attn":
                 caches.append(init_ssm_cache(cfg, batch, self.tp, dev))
+                continue
+            if cfg.attention == "mla":
+                caches.append(init_mla_cache(cfg, batch, max_seq, dev))
                 continue
             shape = (batch, effective_kv_heads(cfg, self.tp),
                      self.kv_cache_len(max_seq), cfg.resolved_head_dim)
@@ -211,9 +226,10 @@ class LM(nn.Module):
                 torch.zeros(shape, dtype=torch.bfloat16, device=dev)))
         return caches
 
-    def decode_step(self, cache: list[KVCache | SSMCache],
+    def decode_step(self, cache: list[KVCache | MLACache | SSMCache],
                     tokens: torch.Tensor, pos: torch.Tensor
-                    ) -> tuple[torch.Tensor, list[KVCache | SSMCache]]:
+                    ) -> tuple[torch.Tensor,
+                               list[KVCache | MLACache | SSMCache]]:
         """tokens: [B, 1]; pos: [B] absolute positions.  Writes the caches
         in place and returns (logits [B, 1, padded vocab], cache).  MoE
         layers route the step's B tokens together (so a slot's output can
@@ -224,7 +240,9 @@ class LM(nn.Module):
         for i, (bp, c) in enumerate(zip(self.blocks, cache)):
             h = apply_norm(bp.ln1, x, cfg)
             if self.layer_kind(i) == "attn":
-                h, _ = decode_attention(bp.attn, h, cfg, c, pos)
+                step = mla_decode if cfg.attention == "mla" \
+                    else decode_attention
+                h, _ = step(bp.attn, h, cfg, c, pos)
             else:
                 h, new = ssm_decode(bp.ssm, h, cfg, c)
                 c.conv.copy_(new.conv)

@@ -1,50 +1,65 @@
-"""Model factory: ModelConfig -> LM, on the caller's device."""
+"""Model factory: ModelConfig -> LM or EncDec, on the caller's device."""
 from __future__ import annotations
 
 import torch
 
 from ..config import ModelConfig, ParallelConfig
 from ..device import resolve_device
+from .encdec import EncDec
 from .lm import LM
 
-__all__ = ["build_model", "check_ported", "NOT_PORTED"]
+__all__ = ["build_model", "check_ported", "make_model", "NOT_PORTED"]
 
-# what this slice of the port does not build yet, and the ROADMAP item
-# (queue 1 item 1, "left" list) that ports it
-NOT_PORTED = {
-    "encdec": "encdec.py: ROADMAP queue 1 item 1, left 3",
-    "vlm": "M-RoPE: ROADMAP queue 1 item 1, left 3",
-    "mla": "mla.py: ROADMAP queue 1 item 1, left 3",
-}
+# what this port does not build yet, and the ROADMAP item (queue 1 item 1,
+# "left" list) that ports it: every family of the shipped configs is ported
+NOT_PORTED: dict[str, str] = {}
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless this slice builds ``cfg``."""
+    """Raise ``NotImplementedError`` unless the port builds ``cfg``: the
+    combinations of family, attention and positions that the shipped
+    configs use."""
     for key in (cfg.family, cfg.attention):
         if key in NOT_PORTED:
             raise NotImplementedError(
                 f"{cfg.name}: {key} is not ported yet ({NOT_PORTED[key]})")
+    kind = (cfg.family, cfg.attention, cfg.pos_emb)
+    if kind == ("dense", "mla", "rope") and cfg.sliding_window:
+        raise NotImplementedError(
+            f"{cfg.name}: MLA with a sliding window is not ported (the "
+            "reference's latent cache has no window)")
     gqa = cfg.family in ("dense", "moe", "hybrid") and \
-        (cfg.attention, cfg.pos_emb) == ("gqa", "rope")
-    ssm = (cfg.family, cfg.attention, cfg.pos_emb) == ("ssm", "none", "none")
-    if not (gqa or ssm):
+        kind[1:] == ("gqa", "rope")
+    if not (gqa or kind in (("dense", "mla", "rope"), ("ssm", "none", "none"),
+                            ("vlm", "gqa", "mrope"),
+                            ("encdec", "gqa", "learned"))):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r}, attention "
             f"{cfg.attention!r}, positions {cfg.pos_emb!r} are not ported")
 
 
+def make_model(cfg: ModelConfig, par: ParallelConfig | None = None,
+               use_flash: bool = False, use_ssd_kernel: bool = False,
+               device=None) -> LM | EncDec:
+    """The unfilled model of ``cfg`` on ``device`` (a ``torch.device``):
+    :class:`EncDec` for the ``encdec`` family, :class:`LM` otherwise."""
+    check_ported(cfg)
+    if cfg.family == "encdec":
+        return EncDec(cfg, par, use_flash=use_flash, device=device)
+    return LM(cfg, par, use_flash=use_flash, use_ssd_kernel=use_ssd_kernel,
+              device=device)
+
+
 def build_model(cfg: ModelConfig, par: ParallelConfig | None = None,
                 use_flash: bool = False, use_ssd_kernel: bool = False,
-                device=None, seed: int = 0) -> LM:
+                device=None, seed: int = 0) -> LM | EncDec:
     """The model of ``cfg`` with its parameters drawn on ``device`` (``None``
     is the CUDA card; raises without one) from a generator seeded with
     ``seed``, by the reference's initializers.  ``par.remat`` other than
     ``"none"`` recomputes each block in the backward; ``use_flash`` routes
-    the full-sequence attention (prefill and training) through the flash
-    kernels, ``use_ssd_kernel`` the SSM mixer's prefill scan through the
-    SSD kernel (forward only: training raises there)."""
-    check_ported(cfg)
+    the full-sequence causal self-attention (prefill and training) through
+    the flash kernels, ``use_ssd_kernel`` the SSM mixer's prefill scan
+    through the SSD kernel (forward only: training raises there)."""
     dev = resolve_device(device)
-    model = LM(cfg, par, use_flash=use_flash, use_ssd_kernel=use_ssd_kernel,
-               device=dev)
+    model = make_model(cfg, par, use_flash, use_ssd_kernel, dev)
     return model.init(torch.Generator(device=dev).manual_seed(seed))

@@ -218,5 +218,6 @@ def test_lane_split_check_passes_a_split_and_fails_a_planted_fault(cs):
 def test_new_phases_are_listed_in_order(cs):
     p = list(cs.PHASES)
     assert p.index("mamba") < p.index("moe") < p.index("jamba") < \
+        p.index("mla") < p.index("vlm") < p.index("whisper") < \
         p.index("goldens") and p.index("multipod") < p.index("lanes")
     assert all(hasattr(cs.Smoke, name) for name in p)

@@ -4,7 +4,9 @@ On CPU tensors every entry point runs the CUDA kernel's plain version
 (``kernels/flash_attention/ref.py``).  Each is held against the reference's
 ``flash_fwd`` (the Pallas kernel in interpret mode) on the reference's
 ``FLASH_CASES`` (``tests/test_kernels.py:19-26``) and on danube-like cases
-(head dim 120, GQA group 4, windows 64 and 128, S 256 and 384), at the
+(head dim 120, GQA group 4, windows 64 and 128, S 256 and 384), on
+minicpm3-like (head dim 96, MHA) and qwen2-vl-like cases (head dim 128,
+GQA group 6), at the
 reference's tolerances: ``o`` atol = rtol = 2e-5 in float32 and 2e-2 in
 bf16, ``lse`` 1e-5 in float32 and 1e-2 in bf16.  The kernel itself is held
 against the plain version on the card by ``chip_smoke.py`` (*flash*).
@@ -48,6 +50,12 @@ CASES = [
     (8, 4, 384, 120, 128, "float32"),
     (8, 4, 256, 120, 128, "bfloat16"),
     (8, 4, 384, 120, 64, "bfloat16"),
+    # minicpm3's MLA: head dim 96 (V padded to it), one KV row a query row
+    (4, 1, 256, 96, 0, "float32"),
+    (4, 1, 384, 96, 0, "bfloat16"),
+    # qwen2-vl: head dim 128, GQA group 6
+    (12, 6, 256, 128, 0, "float32"),
+    (12, 6, 256, 128, 0, "bfloat16"),
 ]
 TOL = {"float32": (2e-5, 1e-5), "bfloat16": (2e-2, 1e-2)}     # (o, lse)
 ENTRIES = ("attention_ref", "flash_fwd", "flash_fwd_view", "flash_attention")

@@ -39,10 +39,11 @@ from repro.models.params import cast_tree as r_cast_tree  # noqa: E402
 
 from repro_torch.config import param_count  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
-from repro_torch.models import (LM, build_model, params_from_reference,  # noqa: E402,E501
-                                params_to_reference)
+from repro_torch.models import (LM, EncDec, build_model,  # noqa: E402
+                                params_from_reference, params_to_reference)
 from repro_torch.models import attention as P_attention  # noqa: E402
 from repro_torch.models import layers as P_layers  # noqa: E402
+from repro_torch.models.model import NOT_PORTED, make_model  # noqa: E402
 from repro_torch.models.params import cast_tree, count_params  # noqa: E402
 
 ARCH = "h2o_danube_3_4b"
@@ -295,13 +296,46 @@ def test_init_matches_reference_distributions(reference):
     _check_init(model, tree)
 
 
-@pytest.mark.parametrize("arch", [a for a in registry.ARCHS
-                                  if a not in [ARCH, "nemotron_4_15b",
-                                               "nemotron_4_340b",
-                                               "mamba2_130m"] + FAMILIES])
-def test_build_model_raises_for_unported(arch):
-    cfg = registry.get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 1"):
+# the MLA, M-RoPE and encoder-decoder families, and the reference's
+# param_count of each at full width
+LEFT3 = {"minicpm3_4b": 4_073_875_968, "qwen2_vl_2b": 1_543_656_960,
+         "whisper_large_v3": 1_537_303_040}
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("arch", list(LEFT3))
+def test_build_model_builds_mla_mrope_encdec(arch, smoke):
+    """param_count equals the reference's (and the published sizes at full
+    width); the parameter tree less the rows that pad the vocabulary to a
+    multiple of 128 equals it (the meta device: no allocation), and so do
+    the parameters build_model draws at smoke width."""
+    cfg = registry.get_config(arch, smoke=smoke)
+    assert param_count(cfg) == r_param_count(
+        r_registry.get_config(arch, smoke=smoke))
+    if not smoke:
+        assert param_count(cfg) == LEFT3[arch]
+    assert NOT_PORTED == {}
+    model = make_model(cfg, device=torch.device("meta"))
+    assert isinstance(model, EncDec) == (cfg.family == "encdec")
+    pad = (model.vocab_padded - cfg.vocab_size) * cfg.d_model
+    assert count_params(model.param_spec()) - pad == param_count(cfg)
+    if smoke:
+        built = build_model(cfg, device="cpu")
+        assert sum(p.numel() for p in built.parameters()) - pad == \
+            param_count(cfg)
+
+
+@pytest.mark.parametrize("change", [dict(attention="mla"),
+                                    dict(pos_emb="rope"),
+                                    dict(sliding_window=64)])
+def test_check_ported_rejects_what_no_shipped_config_has(change):
+    """An encoder-decoder with MLA, a VLM with plain RoPE, an MLA model with
+    a sliding window: no shipped config has them, and the port raises."""
+    arch = {"attention": "whisper_large_v3", "pos_emb": "qwen2_vl_2b",
+            "sliding_window": "minicpm3_4b"}[next(iter(change))]
+    cfg = dataclasses.replace(registry.get_config(arch, smoke=True),
+                              **change)
+    with pytest.raises(NotImplementedError, match="not ported"):
         build_model(cfg, device="cpu")
 
 

@@ -1,6 +1,8 @@
 """The port's ServeEngine against the reference's, on danube's SMOKE config
 in float32 (``ServeConfig(batch=4, max_seq=64)``), and on the SMOKE configs
-of granite, kimi (MoE) and jamba (hybrid, one period).
+of granite, kimi (MoE), jamba (hybrid, one period), minicpm3 (MLA: the
+absorbed decode over latent caches) and qwen2-vl (M-RoPE: text tokens,
+whose decode positions stand for t = h = w).
 
 The same 6 requests (prompts of 3-12 tokens from a seeded generator, 6 new
 tokens each) go through both engines with the same weights
@@ -38,7 +40,8 @@ from repro_torch.models.params import cast_tree  # noqa: E402
 from repro_torch.runtime import Request, ServeEngine  # noqa: E402
 
 ARCH = "h2o_danube_3_4b"
-FAMILIES = ["granite_moe_1b_a400m", "kimi_k2_1t_a32b", "jamba_v0_1_52b"]
+FAMILIES = ["granite_moe_1b_a400m", "kimi_k2_1t_a32b", "jamba_v0_1_52b",
+            "minicpm3_4b", "qwen2_vl_2b"]
 ATOL, RTOL = 1e-2, 1e-4
 N_REQ, NEW, SLOTS = 6, 6, 4
 
@@ -144,8 +147,9 @@ def test_decode_logits_and_tokens_match_reference(runs):
 
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_family_engines_match(arch):
-    """granite, kimi and jamba at smoke width: every request finishes on
-    both engines, every decode call's logits and tokens as for danube.
+    """granite, kimi, jamba, minicpm3 and qwen2-vl at smoke width: every
+    request finishes on both engines, every decode call's logits and
+    tokens as for danube.
     MoE layers route each call's 4 slots together (idle and prefilling
     slots on token 0), so a slot's logits depend on the other slots'
     tokens: both engines feed the same batches and must agree on them."""
