@@ -13,9 +13,11 @@ serving path of mamba2-130m at full width (8 x 32,768 tokens through the
 SSD scan kernel, then the engine), the MoE family's on granite-moe-1b-a400m
 at full width, the hybrid's on one period of jamba-v0.1-52b at full width,
 the MLA, M-RoPE and encoder-decoder families' on minicpm3-4b, qwen2-vl-2b
-and whisper-large-v3 at full width and the simulator's lanes split over
-devices — phase by phase, one line
-per phase, and exits non-zero at the first phase that fails:
+and whisper-large-v3 at full width, the simulator's lanes split over
+devices, the explicit ring collectives, ring-synced data-parallel training
+of danube (full width, 2 layers), the MoE's expert-parallel dispatch and
+GPipe over ranks on the card named several times — phase by phase, one
+line per phase, and exits non-zero at the first phase that fails:
 
 1. build    compile every kernel library from the checkout (one nvcc per
             source, in parallel, sm_90a); print the card's name and power
@@ -188,14 +190,45 @@ per phase, and exits non-zero at the first phase that fails:
             for bit, float series allclose, bit-differing elements
             counted; wall times beside each other); a planted fault (shares
             that renumber their lanes) must fail
-23. grid512 the 512-host grid (16 pods; sym off/on x 4 seeds as lanes),
+23. ring    the explicit ring collectives over the card named 4 and 8
+            times (a host thread and CUDA stream a rank): ring_all_reduce
+            (plain, channels=2, bidirectional) and ring_all_reduce_nd over
+            the reference test's sweep in float32 and bf16,
+            ring_reduce_scatter + ring_all_gather, hierarchical_all_reduce
+            on (pod 2, data 2) and (2, 4) with and without int8 compress,
+            sync_grads_local in its three modes (bucket_bytes=64) and a
+            256 MiB float32 all-reduce: every case bit-equal to the same
+            call over CPU ranks, within the reference's tolerance of the
+            plain sum, 2(N-1) ppermutes per ring per channel; two planted
+            faults (a ring shifted by two, the last reduce-scatter step
+            dropped) must fail; the 256 MiB all-reduce timed with CUDA
+            events over 4 and 8 ranks beside one stack(...).sum(0)
+24. dp      h2o-danube-3-4b at full width cut to 2 of 24 layers (432.6 M
+            parameters; remat per block, ARCH_POLICY's AdamW, flash):
+            step 0's ring-synced gradients on mesh (data 4) against one
+            device's on the whole 4 x 4,096 batch (rel L2 2e-2 a leaf,
+            losses 1e-2), then 3 grad_sync="ring" steps on (data 4) and 3
+            "hierarchical" steps on (pod 2, data 2), the card named 4
+            times: the four replicas bit-equal after every step, flash
+            calls counted per rank (by its stream), ms a step, the sync's
+            ms and peak memory
+25. ep      granite-moe-1b-a400m's layer-0 moe_block at full width over
+            (data 2, model 4), the card named 8 times (all_to_all over
+            model), on 2 x 4,096 N(0,1) bf16 tokens: at capacity 8.0
+            (nothing drops) against the one-device path at BF16_REL_L2;
+            at granite's 1.25 two runs bit-equal, drops reported
+26. gpipe   4 stages of one danube block each at full width over the card
+            named 4 times, 4 microbatches of 1 x 4,096: GPipe's 7 ticks,
+            each microbatch bit-equal to the 4 blocks applied in turn on
+            one device
+27. grid512 the 512-host grid (16 pods; sym off/on x 4 seeds as lanes),
             1,000 ticks: the tiled tick (blk=2048, tick_window=1) and the
             window kernel (tick_window=20), their launches counted, against
             their plain versions on the card and against eager
-24. control SimController on the card (Table 1, window_ticks=640,
+28. control SimController on the card (Table 1, window_ticks=640,
             tick_window=20): stepping equals one-shot simulate, tau retuned
             mid-run, checkpoint/restore replays bit for bit
-25. timing  each kernel's device time per launch against its plain
+29. timing  each kernel's device time per launch against its plain
             version's and its bound, at the main paths' shapes (the flash
             forward also against one scaled_dot_product_attention call, at
             the prefill's shape with a window mask and at the training
@@ -211,7 +244,7 @@ per phase, and exits non-zero at the first phase that fails:
             tick and switch pipeline (the first port's interface or the
             shipped one, by each library's ``*_abi`` tag), timed in turns
             beside the shipped ones)
-26. profile main-path ticks/s (Table 1 with 1 lane through ``simulate``,
+30. profile main-path ticks/s (Table 1 with 1 lane through ``simulate``,
             128 hosts x 8 lanes, 512 hosts x 8 lanes) and where a tick's
             time goes: wall and device-busy time, the busiest kernels; one
             profiled 32,768-token prefill: the flash kernel's, the matrix
@@ -234,6 +267,8 @@ The line before the last is the kernel report (JSON); the last line is
     python3 chip_smoke.py build moe jamba lanes   # MoE, hybrid, lanes
     python3 chip_smoke.py build flash mla vlm whisper timing
         # the MLA, M-RoPE and encoder-decoder families
+    python3 chip_smoke.py build ring dp ep gpipe
+        # collectives, data-parallel training, EP and GPipe over ranks
     python3 chip_smoke.py --against DIR build ssd mamba timing
         # DIR: another commit's kernels, unpacked under a git-ignored
         # directory (git archive <commit> src/repro_torch/kernels | tar -x
@@ -244,6 +279,7 @@ non-zero before printing any result.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import dataclasses
@@ -251,6 +287,7 @@ import json
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -290,7 +327,8 @@ INT_SERIES = ("finish_ticks", "job_finish_ticks", "ts_min_wire",
 PHASES = ("build", "math", "kernel", "window", "tiled", "large", "switch",
           "flash", "flash_bwd", "prefill", "serve", "train", "ssd", "mamba",
           "moe", "jamba", "mla", "vlm", "whisper", "goldens", "multipod",
-          "lanes", "grid512", "control", "timing", "profile")
+          "lanes", "ring", "dp", "ep", "gpipe", "grid512", "control",
+          "timing", "profile")
 # (F, FW, H, L+1, J, DJ) of the multipod grids the tick and window kernels
 # run at 128 hosts (ids in shared memory) and 512 hosts (ids in global
 # memory); kernel and large check them against the builders'
@@ -434,6 +472,36 @@ HYBRID_DECODE_REL_L2 = 0.1
 # host), so those runs are cut to LANES_TW1_TICKS ticks
 LANE_SPLITS = (2, 3)
 LANES_TW1_TICKS = 500
+# the ring phase: the card named 4 and 8 times; (pods, ranks a pod) of the
+# hierarchical cases; the reference test's sweep (tests/test_collectives.py:
+# 29-86) and its tolerance against the plain sum; the timed all-reduce's
+# float32 elements a rank (256 MiB)
+RING_RANKS = (4, 8)
+RING_PODS = {4: (2, 2), 8: (2, 4)}
+RING_SHAPES = ((8, 16), (16, 7, 3), (64,))
+RING_VARIANTS = {"plain": {}, "channels=2": {"channels": 2},
+                 "bidirectional": {"bidirectional": True}}
+RING_TOL = (2e-2, 1e-2)
+RING_BIG = 64 << 20
+# the dp phase: danube at full width cut to 2 of its 24 layers (4 replicas
+# with float32 master, m and v fit the card: ~6.9 GB each), train_4k's
+# sequence at a global batch of 4 (one row a rank), 3 steps per sync mode;
+# step 0's synced gradients against one device's on the whole batch through
+# a float32 copy of the model (the ranks' bf16 gradients, averaged in
+# float32 on the ring, read 1.8e-2 on the tied embedding on an H100; the
+# whole batch's own bf16 gradient there reads 7.8e-2 from float32, so it is
+# no yardstick) and against the mean of one device's one-row bf16
+# gradients (equal but for the synced mean's bf16 rounding, 2^-8)
+DP_LAYERS = 2
+DP_PARAMS = 432_556_800
+DP_B, DP_STEPS = 4, 3
+DP_GRAD_REL_L2 = 2e-2
+DP_ROWS_REL_L2 = 2.0 ** -8
+DP_LOSS_ABS = 1e-2
+# the ep phase: granite's layer-0 MoE on 2 x 4,096 tokens over (data 2,
+# model 4); the gpipe phase: 4 danube blocks as stages, 4 microbatches
+EP_B, EP_S = 2, 4096
+GPIPE_STAGES, GPIPE_MB = 4, 4
 
 
 def say(phase: str, msg: str) -> None:
@@ -667,6 +735,200 @@ def per_layer(torch, counts, n_layers: int) -> list[int]:
     if not counts:
         return [0] * n_layers
     return torch.stack(counts).view(n_layers, -1).sum(1).tolist()
+
+
+# ------------------------------------------------ ring, dp, ep and gpipe
+
+def ring_cases(torch, devices, n: int, big: bool = False) -> dict:
+    """The ring phase's collectives over ``n`` ranks on ``devices`` (a list
+    of n devices, a name repeated): ``{case: (output on the CPU, ppermute
+    counts, counts wanted, plain result or None, (rtol, atol) or None)}``.
+    Inputs come from a CPU generator seeded with ``n``: N(0,1) float32 and
+    bf16 at the reference test's shapes, its (pod, data) hierarchies, its
+    gradient trees (``bucket_bytes=64``), and with ``big`` a RING_BIG-element
+    float32 block a rank."""
+    from repro_torch.collectives import (hierarchical_all_reduce,
+                                         ring_all_gather, ring_all_reduce,
+                                         ring_all_reduce_nd,
+                                         ring_reduce_scatter,
+                                         sync_grads_local)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.compress import decode_int8, encode_int8
+    from repro_torch.parallel.spmd import P, ppermute, shard_map
+    flat = make_mesh((n,), ("data",), devices)
+    pods, inner = RING_PODS[n]
+    two = make_mesh((pods, inner), ("pod", "data"), devices)
+    g = torch.Generator().manual_seed(n)
+    out = {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g)
+
+    def run(name, fn, x, mesh, spec, counts, plain=None, tol=None,
+            out_spec=P()):
+        ppermute.counts.clear()
+        y = shard_map(fn, mesh=mesh, in_specs=spec, out_specs=out_spec)(x)
+        if isinstance(y, dict):       # a gradient tree, flattened
+            y = torch.cat([y["a"].reshape(-1), y["b"]["c"].reshape(-1)])
+        out[name] = (y.cpu(), dict(ppermute.counts), counts, plain, tol)
+
+    ring = 2 * (n - 1)
+    for shape in RING_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = randn(*shape).to(dtype)
+            plain = x.float().reshape((n, shape[0] // n) + shape[1:]).sum(0)
+            dt = str(dtype).split(".")[1]
+            for v, kw in RING_VARIANTS.items():
+                rings = kw.get("channels", 1) * (
+                    2 if kw.get("bidirectional") else 1)
+                run(f"ring_all_reduce {shape} {dt} {v}",
+                    lambda a, kw=kw: ring_all_reduce(a.float(), "data", **kw),
+                    x, flat, P("data"), {"data": ring * rings}, plain,
+                    RING_TOL)
+            run(f"ring_all_reduce_nd {shape} {dt}",
+                lambda a: ring_all_reduce_nd(a.float(), "data"), x, flat,
+                P("data"), {"data": ring}, plain, RING_TOL)
+    x = randn(n, 32)
+    run("ring_reduce_scatter + ring_all_gather",
+        lambda a: ring_all_gather(ring_reduce_scatter(a, "data"), "data"),
+        x, flat, P(), {"data": ring}, n * x, (1e-5, 1e-5))
+    hier = {"data": 2 * (inner - 1), "pod": 2 * (pods - 1)}
+    x = randn(n, 40)
+    run(f"hierarchical_all_reduce ({pods}, {inner})",
+        lambda a: hierarchical_all_reduce(a, "data", "pod"), x, two,
+        P(("pod", "data")), hier, x.sum(0, keepdim=True), (1e-4, 1e-4))
+    x = randn(n, 4096)          # int8 shards of whole BLOCKs
+    run(f"hierarchical_all_reduce ({pods}, {inner}) int8",
+        lambda a: hierarchical_all_reduce(
+            a, "data", "pod", compress=(encode_int8, decode_int8)), x, two,
+        P(("pod", "data")), hier, x.sum(0, keepdim=True))
+    grads = {"a": randn(n, 6, 5), "b": {"c": randn(n, 33)}}
+    spec = {"a": P(("pod", "data")), "b": {"c": P(("pod", "data"))}}
+    mean = torch.cat([grads["a"].mean(0, keepdim=True).expand(
+        n, 6, 5).reshape(-1), grads["b"]["c"].mean(0, keepdim=True).expand(
+            n, 33).reshape(-1)])
+    for mode, counts in (("ring", {"pod": 2 * 2 * (pods - 1),
+                                   "data": 2 * 2 * (inner - 1)}),
+                         ("hierarchical", {"data": 2 * 2 * (inner - 1),
+                                           "pod": 2 * 2 * (pods - 1) * 4}),
+                         ("psum", {})):
+        run(f"sync_grads_local {mode}",
+            lambda t, mode=mode: sync_grads_local(
+                t, ("pod", "data"), mode=mode, bucket_bytes=64),
+            grads, two, (spec,), counts, mean, (1e-5, 1e-5), out_spec=spec)
+    if big:
+        x = randn(n, RING_BIG)
+        run(f"ring_all_reduce [{n}, {RING_BIG}] float32",
+            lambda a: ring_all_reduce(a, "data"), x, flat, P("data"),
+            {"data": ring}, x.sum(0, keepdim=True), RING_TOL)
+    return out
+
+
+def ring_case_ok(case) -> bool:
+    """A ring case's output within its tolerance of its plain result."""
+    import torch
+    y, _, _, plain, tol = case
+    return plain is None or tol is None or torch.allclose(
+        y.float(), plain.float(), rtol=tol[0], atol=tol[1])
+
+
+@contextlib.contextmanager
+def planted_ring(ring, fault: str):
+    """Within: a planted fault of the rings (``ring`` is
+    repro_torch.collectives.ring), a patched copy of its function: "shifted
+    by two" sends every step to the rank two ahead; "last step dropped"
+    stops the reduce-scatter one step early."""
+    saved = ring._perm, ring.ring_reduce_scatter
+    if fault == "shifted by two":
+        ring._perm = lambda n, shift=1: [(i, (i + 2 * shift) % n)
+                                         for i in range(n)]
+    elif fault == "last step dropped":
+        def short(x, axis, reverse=False):
+            n = ring.axis_size(axis)
+            idx = ring.axis_index(axis)
+            k = x.shape[0] // n
+            chunks = x.reshape((n, k) + tuple(x.shape[1:]))
+            sgn = -1 if reverse else 1
+            acc = chunks[(idx - sgn) % n]
+            for s in range(1, n - 1):
+                acc = chunks[(idx - sgn * (s + 1)) % n] + ring.ppermute(
+                    acc, axis, ring._perm(n, sgn))
+            return acc
+        ring.ring_reduce_scatter = short
+    else:
+        raise ValueError(fault)
+    try:
+        yield
+    finally:
+        ring._perm, ring.ring_reduce_scatter = saved
+
+
+@contextlib.contextmanager
+def flash_calls_by_stream(torch, ops):
+    """Within: the flash forward and backward wrappers' calls through
+    ``ops`` (repro_torch.kernels.flash_attention.ops, whose autograd
+    function calls them), counted per (direction, CUDA stream) under a
+    lock: a rank's forward, remat recompute and backward all run on its
+    stream."""
+    counts, lock = collections.Counter(), threading.Lock()
+    fwd, bwd = ops.flash_fwd, ops.flash_bwd
+
+    def counted(kind, fn):
+        def call(*args, **kw):
+            with lock:
+                counts[kind, torch.cuda.current_stream().cuda_stream] += 1
+            return fn(*args, **kw)
+        return call
+
+    ops.flash_fwd, ops.flash_bwd = counted("fwd", fwd), counted("bwd", bwd)
+    try:
+        yield counts
+    finally:
+        ops.flash_fwd, ops.flash_bwd = fwd, bwd
+
+
+@contextlib.contextmanager
+def ep_drop_counter(moe):
+    """Within: the assignments each expert-parallel dispatch chunk drops,
+    at the send buffer's capacity and at the experts' (``moe`` is
+    repro_torch.models.moe), as 0-d device tensors."""
+    seen, slots, lock = {"send": [], "expert": []}, moe.ep_slots, \
+        threading.Lock()
+
+    def counting(bucket, n_buckets, cap, valid=None):
+        keep, slot = slots(bucket, n_buckets, cap, valid)
+        n = bucket.numel() if valid is None else valid.sum()
+        with lock:
+            seen["send" if valid is None else "expert"].append(
+                n - keep.sum())
+        return keep, slot
+
+    moe.ep_slots = counting
+    try:
+        yield seen
+    finally:
+        moe.ep_slots = slots
+
+
+def danube_block(cfg, p: dict, x, positions, use_flash: bool = True):
+    """One dense danube layer from a plain dict of its parameters (the
+    sequence of ``LM._apply_block`` on a layer without MoE)."""
+    from repro_torch.models.attention import attention_block
+    from repro_torch.models.layers import apply_mlp, apply_norm
+    h = attention_block(p["attn"], apply_norm(p["ln1"], x, cfg), cfg,
+                        positions, use_flash)
+    x = x + h
+    return x + apply_mlp(p["mlp"], apply_norm(p["ln2"], x, cfg), cfg)
+
+
+def stacked_blocks(torch, blocks) -> dict:
+    """The parameters of ``blocks`` stacked on a leading [n_stages] axis, as
+    a plain tree of the blocks' parameter names."""
+    first = blocks[0]
+    return {sub: {k: torch.stack([b._modules[sub][k].detach()
+                                  for b in blocks])
+                  for k in first._modules[sub].keys()}
+            for sub in first._modules}
 
 
 class Smoke:
@@ -3305,7 +3567,449 @@ class Smoke:
         say("lanes", f"planted fault (each dispatch's second share runs its "
                      f"first lane's point): {msg}; fails, as it must")
 
-    # --------------------------------------- 23. 512 hosts, 8 lanes, tiled
+    # ------------------------------------- 23. explicit ring collectives
+    def ring(self):
+        """The ring collectives over the card named 4 and 8 times, each case
+        bit-equal to the same call over CPU ranks and within its tolerance
+        of the plain sum, ppermute counts 2(N-1) per ring per channel; two
+        planted faults; the 256 MiB all-reduce timed."""
+        torch = self.torch
+        import repro_torch.collectives.ring as ring_mod
+        from repro_torch.collectives import ring_all_reduce
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.parallel.spmd import P, shard_map
+        dev = self.dev
+        for n in RING_RANKS:
+            t0 = time.time()
+            got = ring_cases(torch, [dev] * n, n, big=True)
+            t_dev = time.time() - t0
+            t0 = time.time()
+            want = ring_cases(torch, ["cpu"] * n, n, big=True)
+            t_cpu = time.time() - t0
+            worst = {}
+            for name, case in got.items():
+                y, counts, wanted, plain, tol = case
+                if counts != wanted:
+                    fail("ring", f"{n} ranks, {name}: ppermute counts "
+                                 f"{counts}, want {wanted}")
+                if not torch.equal(y, want[name][0]):
+                    fail("ring", f"{n} ranks, {name}: the card's result "
+                                 "differs from CPU ranks' in "
+                                 f"{int((y != want[name][0]).sum())} of "
+                                 f"{y.numel()} elements")
+                if not ring_case_ok(case):
+                    fail("ring", f"{n} ranks, {name}: outside {tol} of "
+                                 "the plain sum")
+                if plain is not None:
+                    worst[name] = float((y.float() - plain.float()).abs()
+                                        .max())
+            err = max(v for k, v in worst.items() if "int8" not in k)
+            int8 = [v for k, v in worst.items() if "int8" in k]
+            say("ring", f"{n} ranks (the card named {n} times): {len(got)} "
+                        f"cases bit-equal to CPU ranks, ppermute counts 2(N-1)"
+                        f" per ring per channel; max |error| against the "
+                        f"plain sum {err:.3g} (int8-compressed hierarchy "
+                        f"{int8[0]:.3g}, reported); {t_dev:.1f} s on the "
+                        f"card, {t_cpu:.1f} s on CPU ranks")
+        mesh = make_mesh((8,), ("data",), [dev] * 8)
+        g = torch.Generator().manual_seed(99)
+        x = torch.randn(8, 16, generator=g)
+        plain = x.sum(0, keepdim=True)
+        for fault in ("shifted by two", "last step dropped"):
+            with planted_ring(ring_mod, fault):
+                y = shard_map(lambda a: ring_all_reduce(a, "data"), mesh=mesh,
+                              in_specs=P("data"), out_specs=P())(x).cpu()
+            if torch.allclose(y, plain, rtol=RING_TOL[0], atol=RING_TOL[1]):
+                fail("ring", f"planted fault ({fault}) passed the check")
+            say("ring", f"planted fault ({fault}): max |error| "
+                        f"{float((y - plain).abs().max()):.3g}; fails, as it "
+                        "must")
+        for n in RING_RANKS:
+            self.ring_timing(n)
+
+    def ring_timing(self, n: int):
+        """The RING_BIG-element float32 all-reduce over the card named n
+        times, CUDA events around the whole call (host included), beside
+        one stack(...).sum(0) of the same shards on the card."""
+        torch = self.torch
+        from repro_torch.collectives import ring_all_reduce
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.parallel.spmd import P, shard_map
+        mesh = make_mesh((n,), ("data",), [self.dev] * n)
+        x = torch.randn(n, RING_BIG, device=self.dev)
+        fn = shard_map(lambda a: ring_all_reduce(a, "data"), mesh=mesh,
+                       in_specs=P("data"), out_specs=P())
+        shards = list(x.unbind(0))
+
+        def events(call, reps=3):
+            call()
+            ms = []
+            for _ in range(reps):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                call()
+                b.record()
+                torch.cuda.synchronize()
+                ms.append(a.elapsed_time(b))
+            return sorted(ms)[len(ms) // 2]
+
+        ring_ms = events(lambda: fn(x))
+        plain_ms = events(lambda: torch.stack(shards).sum(0))
+        nbytes = RING_BIG * 4
+        bus = 2 * (n - 1) / n * nbytes / (ring_ms * 1e-3) / 1e9
+        self.rates[("ring", n)] = (ring_ms, plain_ms)
+        say("ring", f"{n} ranks, {nbytes / 2**20:.0f} MiB float32 a rank: "
+                    f"ring_all_reduce {ring_ms:.3f} ms (median of 3, CUDA "
+                    f"events around the call; {bus:.1f} GB/s of ring "
+                    f"traffic a rank), one stack(...).sum(0) of the same "
+                    f"shards {plain_ms:.3f} ms; card {self.card}")
+        del x, shards
+
+    # ------------------------------- 24. data-parallel training, 4 ranks
+    def dp(self):
+        """danube at full width cut to DP_LAYERS layers, trained with ring
+        then hierarchical gradient sync over the card named 4 times."""
+        torch = self.torch
+        from repro_torch.config import LM_SHAPES, param_count
+        from repro_torch.configs import registry
+        from repro_torch.data import DataConfig, SyntheticLM
+        from repro_torch.kernels.flash_attention import ops as flash_ops
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.launch.steps import (make_parallel_config,
+                                              make_train_config)
+        from repro_torch.models import build_model
+        from repro_torch.runtime import make_train_step
+        arch = "h2o_danube_3_4b"
+        cfg = dataclasses.replace(registry.get_config(arch),
+                                  num_layers=DP_LAYERS)
+        if param_count(cfg) != DP_PARAMS:
+            fail("dp", f"param_count {param_count(cfg):,}, want "
+                       f"{DP_PARAMS:,}")
+        spec = next(sp for sp in LM_SHAPES if sp.name == "train_4k")
+        tcfg = dataclasses.replace(make_train_config(arch, spec),
+                                   global_batch=DP_B)
+        par = dataclasses.replace(make_parallel_config(arch, "train_4k"),
+                                  grad_sync="ring")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(cfg, par, use_flash=True, seed=0)
+        data = SyntheticLM(DataConfig(cfg.vocab_size, spec.seq_len, DP_B,
+                                      seed=0))
+        batches = []
+        for s in range(DP_STEPS):
+            toks, labs = data.batch(s)
+            batches.append({"tokens": torch.from_numpy(toks).to(self.dev),
+                            "labels": torch.from_numpy(labs).to(self.dev)})
+        say("dp", f"{cfg.name} at full width cut to {DP_LAYERS} of 24 "
+                  f"layers: {DP_PARAMS:,} parameters (param_count) drawn on "
+                  f"the card; remat {par.remat}, AdamW float32 m/v and "
+                  f"master weights; SyntheticLM {DP_B} x {spec.seq_len}")
+        # step 0's synced gradients against one device's on the whole batch
+        params = dict(model.named_parameters())
+        mesh = make_mesh((4,), ("data",), [self.dev] * 4)
+        step = make_train_step(model, cfg, tcfg, par, mesh)
+        ring_loss, synced = step.grads(batches[0])
+        same = all(torch.equal(g[k], synced[0][k])
+                   for g in synced[1:] for k in params)
+        ring = [synced[0][k].float() for k in params]
+        whole_loss, rel = self.dp_references(model, batches[0], ring)
+        worst = {k: max(rel[k], key=rel[k].get) for k in rel}
+        if not same or rel["float32"][worst["float32"]] > DP_GRAD_REL_L2 \
+                or rel["rows"][worst["rows"]] > DP_ROWS_REL_L2 or \
+                abs(float(ring_loss) - whole_loss) > DP_LOSS_ABS:
+            leaves = [(k, v, rel[k][v]) for k, v in worst.items()]
+            fail("dp", f"ring-synced step 0: ranks bit-equal {same}; worst "
+                       f"leaves {leaves}; losses {float(ring_loss)} vs "
+                       f"{whole_loss}")
+        say("dp", f"step 0's ring-synced gradients: the 4 ranks' bit-equal; "
+                  f"against one device's on the whole {DP_B} x "
+                  f"{spec.seq_len} batch in float32 at most "
+                  f"{rel['float32'][worst['float32']]:.3g} rel L2 "
+                  f"({worst['float32']}; tolerance {DP_GRAD_REL_L2}), against"
+                  f" the mean of one device's {DP_B} one-row bf16 gradients "
+                  f"at most {rel['rows'][worst['rows']]:.3g} "
+                  f"({worst['rows']}; tolerance {DP_ROWS_REL_L2:.3g}: the "
+                  f"synced mean's bf16 rounding); the whole batch's bf16 "
+                  f"gradients read {rel['bf16'][worst['bf16']]:.3g} "
+                  f"({worst['bf16']}), themselves "
+                  f"{rel['bf16~float32'][worst['bf16']]:.3g} from float32 "
+                  f"there; loss {float(ring_loss):.5f} vs {whole_loss:.5f}")
+        del ring
+        sync_ms = self.dp_sync_ms(step, synced, "ring")
+        del synced
+        self.dp_steps(step, "ring", mesh, batches, flash_ops, sync_ms)
+        del step
+        mesh = make_mesh((2, 2), ("pod", "data"), [self.dev] * 4)
+        par = dataclasses.replace(par, grad_sync="hierarchical")
+        step = make_train_step(model, cfg, tcfg, par, mesh)
+        _, synced = step.grads(batches[0])
+        sync_ms = self.dp_sync_ms(step, synced, "hierarchical")
+        del synced
+        self.dp_steps(step, "hierarchical", mesh, batches, flash_ops,
+                      sync_ms)
+        del step, model, params
+        torch.cuda.empty_cache()
+
+    def dp_references(self, model, batch, ring) -> tuple[float, dict]:
+        """One device's gradients that ring-synced ones (``ring``, float32
+        copies, in parameter order) are held to: the whole batch through a
+        float32 copy of the model (what the sync computes, without bf16
+        gradients' roundings), the mean of the batch's one-row bf16
+        gradients (what the ranks compute, summed in float32), and the
+        whole batch in bf16 (reported: the tied embedding's bf16 gradient
+        over the whole batch is itself off).  Returns (the whole batch's
+        bf16 loss, {reference: {leaf: relative L2 distance}})."""
+        torch = self.torch
+        from repro_torch.models.model import replicate
+        from repro_torch.models.params import cast_tree
+        from repro_torch.runtime import make_loss_fn
+        names = [n for n, _ in model.named_parameters()]
+
+        def grads(m, b):
+            loss = make_loss_fn(m, m.cfg)(b)
+            g = torch.autograd.grad(loss, list(m.parameters()))
+            return float(loss.detach()), [x.float() for x in g]
+
+        def rel(a, b):
+            return {n: float((x - y).norm() / y.norm().clamp_min(1e-30))
+                    for n, x, y in zip(names, a, b)}
+
+        out = {}
+        rows = None
+        for i in range(batch["tokens"].shape[0]):
+            _, g = grads(model, {k: v[i:i + 1] for k, v in batch.items()})
+            rows = g if rows is None else [a + b for a, b in zip(rows, g)]
+        n = torch.full((), float(batch["tokens"].shape[0]), device=self.dev)
+        out["rows"] = rel(ring, [r / n for r in rows])
+        del rows
+        loss, bf16 = grads(model, batch)
+        out["bf16"] = rel(ring, bf16)
+        f32 = replicate(model, self.dev)
+        cast_tree(f32, torch.float32)
+        f32.cfg = dataclasses.replace(model.cfg, dtype="float32")
+        _, whole = grads(f32, batch)
+        del f32
+        out["float32"] = rel(ring, whole)
+        out["bf16~float32"] = rel(bf16, whole)
+        return loss, out
+
+    def dp_sync_ms(self, step, grads, mode) -> float:
+        """One sync_grads_local of the ranks' gradients, as the step runs it,
+        timed with CUDA events (median of 3 after a warm-up)."""
+        torch = self.torch
+        from repro_torch.collectives import sync_grads_local
+        from repro_torch.parallel.spmd import P, axis_index, shard_map
+        axes = step.data_axes
+
+        def local():
+            sync_grads_local(grads[axis_index(axes)], axes, mode=mode,
+                             channels=step.par.ring_buckets,
+                             bidirectional=step.par.ring_bidirectional)
+
+        fn = shard_map(local, mesh=step.mesh, in_specs=(), out_specs=P(),
+                       axis_names=axes)
+        fn()
+        ms = []
+        for _ in range(3):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        return sorted(ms)[1]
+
+    def dp_steps(self, step, mode, mesh, batches, flash_ops, sync_ms):
+        """DP_STEPS steps of ``step``; replicas bit-equal after each; flash
+        calls per rank (by the ranks' streams)."""
+        torch, Fa = self.torch, self.Fa
+        from repro_torch.optim import init_opt_state
+        model = step.replicas[0]
+        opt = init_opt_state(dict(model.named_parameters()), step.tcfg)
+        Fa.flash_fwd.launches = 0                     # main path starts
+        Fa.flash_bwd.launches_dq = Fa.flash_bwd.launches_dkv = 0
+        losses, ms = [], []
+        with flash_calls_by_stream(torch, flash_ops) as calls:
+            for b in batches:
+                torch.cuda.synchronize()
+                t0 = time.time()
+                opt, met = step(opt, b)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.time() - t0))
+                losses.append(float(met["loss"]))
+                first = list(step.replicas[0].parameters())
+                for r, rep in enumerate(step.replicas[1:], 1):
+                    diff = [i for i, (a, c) in enumerate(zip(
+                        first, rep.parameters())) if not torch.equal(a, c)]
+                    if diff:
+                        fail("dp", f"{mode} step {len(ms) - 1}: replica {r} "
+                                   f"differs from rank 0 in {len(diff)} "
+                                   "leaves")
+        n_fwd = Fa.flash_fwd.launches                 # main path ends
+        n_dq, n_dkv = Fa.flash_bwd.launches_dq, Fa.flash_bwd.launches_dkv
+        rank_of = {s.cuda_stream: key[0] for key, s in mesh.streams.items()}
+        per_rank = {r: (0, 0) for r in range(len(step.replicas))}
+        for (kind, sid), c in calls.items():
+            r = rank_of.get(sid, -1)
+            f, b = per_rank.get(r, (0, 0))
+            per_rank[r] = (f + c, b) if kind == "fwd" else (f, b + c)
+        L = len(model.blocks)
+        want = (2 * L * len(batches), L * len(batches))
+        n = len(step.replicas)
+        if any(per_rank[r] != want for r in range(n)) or len(per_rank) != n \
+                or (n_fwd, n_dq, n_dkv) != (n * want[0], n * want[1],
+                                            n * want[1]):
+            fail("dp", f"{mode}: flash calls per rank (forward, backward) "
+                       f"{per_rank}, want {want} on each of {n}; launches "
+                       f"{n_fwd} forward, {n_dq} dq, {n_dkv} dk/dv")
+        if not all(x == x and abs(x) != float("inf") for x in losses):
+            fail("dp", f"{mode}: losses {losses}")
+        self.launches[("dp", mode)] = (n_fwd, n_dq, n_dkv)
+        peak = torch.cuda.max_memory_allocated()
+        tokens = len(batches) * step.tcfg.global_batch * \
+            batches[0]["tokens"].shape[1]
+        self.rates[("dp", mode)] = (ms, sync_ms, peak)
+        say("dp", f"{mode} sync over {dict(mesh.shape)} ({n} replicas on "
+                  f"the card): {len(batches)} steps, losses "
+                  f"{[round(x, 4) for x in losses]}; replicas bit-equal "
+                  f"after every step; flash per rank {want[0]} forward "
+                  f"(forward and remat recompute) and {want[1]} backward "
+                  f"calls, {n_fwd} forward, {n_dq} dq, {n_dkv} dk/dv "
+                  f"launches in all; ms a step "
+                  f"{[round(x, 1) for x in ms]} ({tokens / sum(ms) * 1e3:,.0f}"
+                  f" tokens/s), the sync alone {sync_ms:.1f} ms; peak "
+                  f"memory {peak / 2**30:.2f} GiB; card {self.card}")
+
+    # ----------------------------- 25. expert-parallel dispatch, 8 ranks
+    def ep(self):
+        """granite's layer-0 MoE at full width over (data 2, model 4) on
+        the card named 8 times: at capacity 8.0 against the one-device
+        path, at its own 1.25 twice (bit-equal), drops reported."""
+        torch = self.torch
+        import repro_torch.models.moe as moe
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.parallel.sharding import make_rules
+        model = self.granite_model()
+        cfg = model.cfg
+        p = {k: v.detach() for k, v in model.blocks[0].moe.items()}
+        g = torch.Generator(device=self.dev).manual_seed(5)
+        x = torch.randn(EP_B, EP_S, cfg.d_model, generator=g,
+                        device=self.dev).to(torch.bfloat16)
+        mesh = make_mesh((2, 4), ("data", "model"), [self.dev] * 8)
+        rules = make_rules()
+        cf8 = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
+        with torch.no_grad():
+            t0 = time.time()
+            y1, a1 = moe.moe_block(p, x, cf8)
+            torch.cuda.synchronize()
+            t1 = time.time()
+            with ep_drop_counter(moe) as drops8:
+                y8, a8 = moe.moe_block(p, x, cf8, rules, mesh)
+            torch.cuda.synchronize()
+            t8 = time.time()
+        rel = float((y8.float() - y1.float()).norm() / y1.float().norm())
+        bits = int((y8.view(torch.int16) != y1.view(torch.int16)).sum())
+        lost = int(torch.stack(drops8["send"] + drops8["expert"]).sum())
+        if rel > BF16_REL_L2 or lost or not torch.isfinite(y8).all():
+            fail("ep", f"capacity 8.0: EP vs one device rel L2 {rel}, "
+                       f"{lost} assignments dropped")
+        say("ep", f"{cfg.name} layer 0 MoE ({cfg.moe.num_experts} experts "
+                  f"top-{cfg.moe.experts_per_token}, d_model {cfg.d_model}),"
+                  f" {EP_B} x {EP_S} N(0,1) bf16 tokens over (data 2, model "
+                  f"4), the card named 8 times: at capacity 8.0 nothing "
+                  f"drops and the output is within {rel:.3g} rel L2 of the "
+                  f"one-device path ({bits} of {y1.numel()} elements' bits "
+                  f"differ; tolerance {BF16_REL_L2}); aux {float(a8):.6g} "
+                  f"(pmean of the ranks') vs {float(a1):.6g}; "
+                  f"{1e3 * (t8 - t1):.1f} ms EP, {1e3 * (t1 - t0):.1f} ms "
+                  f"one device (wall, first calls)")
+        del y1, y8
+        outs = []
+        with torch.no_grad():
+            for _ in range(2):
+                with ep_drop_counter(moe) as drops:
+                    torch.cuda.synchronize()
+                    t0 = time.time()
+                    y, aux = moe.moe_block(p, x, cfg, rules, mesh)
+                    torch.cuda.synchronize()
+                    outs.append((y, time.time() - t0, {
+                        k: int(torch.stack(v).sum()) for k, v in
+                        drops.items()}))
+        (ya, ta, da), (yb, tb, db) = outs
+        if not torch.equal(ya, yb) or da != db or \
+                not torch.isfinite(ya).all():
+            fail("ep", f"capacity {cfg.moe.capacity_factor}: two runs differ "
+                       f"(drops {da} vs {db})")
+        n_assign = EP_B * EP_S * cfg.moe.experts_per_token
+        say("ep", f"at granite's capacity {cfg.moe.capacity_factor}: two runs"
+                  f" bit-equal; of {n_assign:,} assignments {da['send']:,} "
+                  f"dropped at the send buffers' capacity and "
+                  f"{da['expert']:,} at the experts'; {1e3 * tb:.1f} ms a "
+                  f"run (wall, second); card {self.card}")
+        self.rates["ep"] = (1e3 * tb, da)
+
+    # ------------------------------------------ 26. GPipe over 4 stages
+    def gpipe(self):
+        """4 stages of one danube block each at full width over the card
+        named 4 times, GPIPE_MB microbatches of 1 x TRAIN_S: each
+        microbatch's output bit-equal to the blocks applied in turn."""
+        torch, Fa = self.torch, self.Fa
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.parallel.pipeline import run_pipelined
+        model = self.danube_model()
+        cfg = model.cfg
+        blocks = [model.blocks[i] for i in range(GPIPE_STAGES)]
+        stages = stacked_blocks(torch, blocks)
+        g = torch.Generator(device=self.dev).manual_seed(6)
+        x = torch.randn(GPIPE_MB, TRAIN_S, cfg.d_model, generator=g,
+                        device=self.dev).to(torch.bfloat16)
+        pos = torch.arange(TRAIN_S, dtype=torch.int32,
+                           device=self.dev).expand(1, TRAIN_S)
+        mesh = make_mesh((GPIPE_STAGES,), ("pod",), [self.dev] * GPIPE_STAGES)
+
+        def layer_fn(sp, h):
+            return danube_block(cfg, {k: {n: t[0] for n, t in v.items()}
+                                      for k, v in sp.items()}, h, pos)
+
+        with torch.no_grad():
+            run_pipelined(mesh, layer_fn, stages, x, GPIPE_MB)   # warm-up
+            torch.cuda.synchronize()
+            Fa.flash_fwd.launches = 0                 # main path starts
+            t0 = time.time()
+            got = run_pipelined(mesh, layer_fn, stages, x, GPIPE_MB)
+            torch.cuda.synchronize()
+            t_pipe = time.time() - t0
+            n_fwd = Fa.flash_fwd.launches             # main path ends
+            t0 = time.time()
+            want = []
+            for i in range(GPIPE_MB):
+                h = x[i:i + 1]
+                for j, bp in enumerate(blocks):
+                    h, _ = model._apply_block(bp, j, h, pos)
+                want.append(h)
+            torch.cuda.synchronize()
+            t_seq = time.time() - t0
+        ticks = GPIPE_MB + GPIPE_STAGES - 1
+        same = [torch.equal(got[i:i + 1], want[i]) for i in range(GPIPE_MB)]
+        if not all(same) or n_fwd != ticks * GPIPE_STAGES:
+            fail("gpipe", f"microbatches bit-equal {same}; {n_fwd} flash "
+                          f"launches, want {ticks * GPIPE_STAGES}")
+        self.rates["gpipe"] = (t_pipe, t_seq)
+        say("gpipe", f"{GPIPE_STAGES} stages of one {cfg.name} block each "
+                     f"(full width), the card named {GPIPE_STAGES} times, "
+                     f"{GPIPE_MB} microbatches of 1 x {TRAIN_S}: every "
+                     f"microbatch bit-equal to the blocks applied in turn on "
+                     f"one device; {ticks} ticks, {n_fwd} flash launches "
+                     f"(every stage every tick: bubble "
+                     f"{(GPIPE_STAGES - 1) / ticks:.2f}); "
+                     f"{1e3 * t_pipe:.1f} ms pipelined, {1e3 * t_seq:.1f} ms "
+                     f"in turn (wall); card {self.card}")
+        del stages, got, want
+
+    # --------------------------------------- 27. 512 hosts, 8 lanes, tiled
     def grid512(self):
         torch, T, Tl, Wn, Rf = self.torch, self.T, self.Tl, self.Wn, self.Rf
         from repro_torch.kernels.netsim_tick import ops
@@ -3383,7 +4087,7 @@ class Smoke:
                        + (f", first at tick {first}" if first is not None
                           else "") + f"; throughput max abs diff {err}")
 
-    # ------------------------------------------------------- 24. control
+    # ------------------------------------------------------- 28. control
     def control(self):
         torch, T, Wn = self.torch, self.T, self.Wn
         topo, wl, cfg = table1(T)
@@ -3433,7 +4137,7 @@ class Smoke:
                        f"for bit (alpha max {oa.stats.alpha_max:.0f}, queue "
                        f"max {oa.stats.qmax:.0f} B)")
 
-    # -------------------------------------------------------- 25. timing
+    # -------------------------------------------------------- 29. timing
     def timing(self):
         torch, K, Rf, Wn, Tl = self.torch, self.K, self.Rf, self.Wn, self.Tl
         from repro_torch.core.netsim.stages import stage_starts
@@ -4026,7 +4730,7 @@ class Smoke:
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 library_ms=library_ms))
 
-    # ------------------------------------------------------ 26. profile
+    # ------------------------------------------------------ 30. profile
     def profile(self):
         torch, T = self.torch, self.T
         from repro_torch.core.netsim.simulator import _window_body

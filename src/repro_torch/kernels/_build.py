@@ -39,16 +39,17 @@ class _Library(NamedTuple):
 _REGISTRY: dict[str, _Library] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
 # builds and launch counts may come from several host threads at once (a
-# simulator grid split over devices runs a thread per device)
+# simulator grid split over devices runs a thread per device; shard_map
+# ranks run a thread each, their backward in autograd's device thread)
 _BUILD_LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``, the launch count of a kernel
-    wrapper, under a lock."""
+def count_launch(wrapper, attr: str = "launches") -> None:
+    """Add one to ``wrapper.<attr>``, a launch count of a kernel wrapper,
+    under a lock."""
     with _COUNT_LOCK:
-        wrapper.launches += 1
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
 
 
 def register(name: str, csrc: Path, bind: Callable[[ctypes.CDLL], None]

@@ -231,7 +231,7 @@ def flash_fwd(q, k, v, *, window: int = 0, causal: bool = True):
                               torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {rc}")
-    flash_fwd.launches += 1
+    _build.count_launch(flash_fwd)
     return o, (lse[0] if q.dim() == 3 else lse)
 
 
@@ -324,7 +324,7 @@ class BwdCall:
         if rc != 0:
             raise RuntimeError(f"flash_bwd dq kernel launch failed: CUDA "
                                f"error {rc}")
-        flash_bwd.launches_dq += 1
+        _build.count_launch(flash_bwd, "launches_dq")
 
     def dkv(self) -> None:
         rc = self._lib.flash_bwd_dkv_launch(*self._head, *self._out[1:],
@@ -332,7 +332,7 @@ class BwdCall:
         if rc != 0:
             raise RuntimeError(f"flash_bwd dk/dv kernel launch failed: "
                                f"CUDA error {rc}")
-        flash_bwd.launches_dkv += 1
+        _build.count_launch(flash_bwd, "launches_dkv")
 
 
 flash_bwd.launches_dq = 0

@@ -2,8 +2,10 @@
 
 The port of part of ``repro/launch/steps.py``: ``ARCH_POLICY``,
 :func:`make_parallel_config`, :func:`make_train_config` (``:29-64``) and
-:func:`cross_entropy` (``:197-219``).  ``Cell``, ``build_cell`` and the
-dry-run cells come with the launch step of ROADMAP queue 1.
+:func:`cross_entropy` (``:197-219``).  The meshes are ``launch/mesh.py``.
+``Cell``, ``build_cell`` and the dry-run cells come with the launch step,
+ROADMAP queue 1 item 1, left 5: their XLA lower-and-compile memory and
+cost analyses need a counterpart of their own.
 """
 from __future__ import annotations
 

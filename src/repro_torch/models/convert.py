@@ -56,16 +56,19 @@ def _reference_leaf(tree: dict, path: tuple, model) -> np.ndarray:
 def params_from_reference(cfg: ModelConfig, tree: dict, device=None, *,
                           use_flash: bool = False,
                           use_ssd_kernel: bool = False,
-                          par: ParallelConfig | None = None) -> LM | EncDec:
+                          par: ParallelConfig | None = None, mesh=None,
+                          rules=None) -> LM | EncDec:
     """The port's model of ``cfg`` holding the reference's parameters.
 
     ``tree`` is the reference's parameter tree as nested dicts of float32
     numpy arrays (``np.asarray(x, np.float32)`` of each leaf, which is exact
     for bf16 leaves); each is cast to its ``ParamSpec``'s dtype on
-    ``device`` (``None`` is the CUDA card).
+    ``device`` (``None`` is the CUDA card).  Under a ``mesh`` with a
+    ``model`` axis the trees are padded (heads, vocabulary) as the
+    reference's model built on that mesh pads them.
     """
     dev = resolve_device(device)
-    model = make_model(cfg, par, use_flash, use_ssd_kernel, dev)
+    model = make_model(cfg, par, use_flash, use_ssd_kernel, dev, mesh, rules)
     for path, spec in tree_leaves_with_path(model.param_spec()):
         src = np.array(_reference_leaf(tree, path, model), np.float32)
         if src.shape != spec.shape:

@@ -13,7 +13,9 @@ tables are learned and wrap (``pe[arange(S) % rows]``).
 The reference stacks each leaf over layers (``encoder``/``decoder``
 ``[E, ...]``/``[L, ...]``) and scans; the port keeps one
 :class:`~.lm.Block` a layer (``models/convert.py`` maps them) and loops.
-The model owns its parameters, as :class:`~.lm.LM` does.  The reference
+The model owns its parameters, as :class:`~.lm.LM` does, and takes the
+reference's ``mesh=``/``rules=`` as it does (``tp`` from the mesh's
+``model`` axis; ``constrain`` where the reference calls it).  The reference
 has no serving engine for it: it is served through :meth:`init_cache` and
 :meth:`decode_step`.
 """
@@ -26,7 +28,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig, ParallelConfig
-from ..parallel.sharding import padded
+from ..parallel.sharding import constrain, padded
 from . import params as prm
 from .attention import (KVCache, _out, _proj, attn_spec, decode_attention,
                         effective_kv_heads, flash_or_ref, project_qkv)
@@ -49,12 +51,14 @@ class EncDec(nn.Module):
     the two final norms.  Built without values; :meth:`init` draws them."""
 
     def __init__(self, cfg: ModelConfig, par: ParallelConfig | None = None,
-                 use_flash: bool = False, device=None):
+                 use_flash: bool = False, device=None, mesh=None,
+                 rules=None):
         super().__init__()
         self.cfg = cfg
         self.par = par or ParallelConfig()
         self.use_flash = use_flash
-        self.tp = 1                     # no mesh: one card
+        self.mesh, self.rules = mesh, rules
+        self.tp = 1 if mesh is None else mesh.shape.get("model", 1)
         self.vocab_padded = padded(cfg.vocab_size, self.tp * 128)
         spec = self.param_spec()
         for name in ("embed", "dec_pos", "enc_pos", "enc_norm",
@@ -97,11 +101,14 @@ class EncDec(nn.Module):
     def _layers(self, body, blocks, x: torch.Tensor, *args) -> torch.Tensor:
         """``x`` through ``body(block, x, *args)`` for each block, each
         recomputed in the backward under ``par.remat`` when gradients are
-        taken."""
+        taken; each output constrained as the reference's scan body does."""
         remat = self.par.remat != "none" and torch.is_grad_enabled()
+        sp = "seq_sp" if x.shape[1] % max(self.tp, 1) == 0 else "seq"
         for bp in blocks:
             x = checkpoint(body, bp, x, *args, use_reentrant=False) \
                 if remat else body(bp, x, *args)
+            x = constrain(x, ("batch", sp, "act_embed"), self.rules,
+                          self.mesh)
         return x
 
     # ------------------------------------------------------------ encoder
@@ -121,6 +128,7 @@ class EncDec(nn.Module):
         ar = torch.arange(S, device=frames.device)
         x = frames.to(self._dt()) + pe[ar % pe.shape[0]].to(self._dt())
         positions = ar.to(torch.int32).expand(B, S)
+        x = constrain(x, ("batch", "seq", "act_embed"), self.rules, self.mesh)
         x = self._layers(self._enc_block, self.encoder, x, positions)
         return apply_norm(self.enc_norm, x, self.cfg)
 

@@ -16,9 +16,14 @@ FFN (``moe``, or ``mlp`` when ``d_ff`` is set), each after ``ln2``.  So
 dense, not the first k layers (ROADMAP, "Known behaviours").
 
 The model owns its parameters: ``apply``, ``init_cache`` and
-``decode_step`` take no parameter tree.  ``apply`` returns the MoE layers'
-aux losses summed per period group in layer order, then over groups.  With
-``par.remat`` other than ``"none"`` each block runs under
+``decode_step`` take no parameter tree.  ``mesh=``/``rules=`` are the
+reference's: the tensor-parallel width ``tp`` is the mesh's ``model``
+axis, heads and vocabulary are padded to it as the reference pads them,
+MoE layers dispatch expert-parallel over it (``moe_block``), and
+:func:`~repro_torch.parallel.sharding.constrain` is called where the
+reference calls it (it leaves values as they are).  ``apply`` returns the
+MoE layers' aux losses summed per period group in layer order, then over
+groups.  With ``par.remat`` other than ``"none"`` each block runs under
 ``torch.utils.checkpoint`` when gradients are taken: per layer, which is
 the reference's per-group ``jax.checkpoint`` at period 1 and its per
 sub-layer checkpoint under ``remat="full"`` at period > 1.
@@ -37,7 +42,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig, ParallelConfig
-from ..parallel.sharding import padded
+from ..parallel.sharding import constrain, padded
 from . import params as prm
 from .attention import (KVCache, attention_block, attn_spec, decode_attention,
                         effective_kv_heads)
@@ -69,17 +74,20 @@ class LM(nn.Module):
     """Decoder: embedding, ``num_layers`` blocks, final norm, (tied)
     unembedding.  Built without values; :meth:`init` draws them.
     ``use_flash`` sends full-sequence attention through the flash kernels,
-    ``use_ssd_kernel`` the SSM mixer's scan through the SSD kernel."""
+    ``use_ssd_kernel`` the SSM mixer's scan through the SSD kernel; ``mesh``
+    (a :class:`~repro_torch.launch.mesh.Mesh`) and ``rules`` (a sharding
+    rules table) are the reference's."""
 
     def __init__(self, cfg: ModelConfig, par: ParallelConfig | None = None,
                  use_flash: bool = False, use_ssd_kernel: bool = False,
-                 device=None):
+                 device=None, mesh=None, rules=None):
         super().__init__()
         self.cfg = cfg
         self.par = par or ParallelConfig()
         self.use_flash = use_flash
         self.use_ssd_kernel = use_ssd_kernel
-        self.tp = 1                     # no mesh: one card
+        self.mesh, self.rules = mesh, rules
+        self.tp = 1 if mesh is None else mesh.shape.get("model", 1)
         self.vocab_padded = padded(cfg.vocab_size, self.tp * 128)
         self.period = cfg.attn_every or 1
         if cfg.moe is not None and cfg.moe_every > 1:
@@ -137,7 +145,7 @@ class LM(nn.Module):
         None for an MLP; ``(None, None)`` for a layer without one."""
         if "moe" in bp._modules:
             return moe_block(bp.moe, apply_norm(bp.ln2, x, self.cfg),
-                             self.cfg)
+                             self.cfg, self.rules, self.mesh)
         if "mlp" in bp._modules:
             return apply_mlp(bp.mlp, apply_norm(bp.ln2, x, self.cfg),
                              self.cfg), None
@@ -155,7 +163,9 @@ class LM(nn.Module):
             h = ssm_block(bp.ssm, h, cfg, self.use_ssd_kernel)
         x = x + h
         h, aux = self._ffn(bp, x)
-        return (x if h is None else x + h), aux
+        x = x if h is None else x + h
+        return constrain(x, ("batch", "seq", "act_embed"), self.rules,
+                         self.mesh), aux
 
     def apply(self, tokens: torch.Tensor | None = None,
               positions: torch.Tensor | None = None,
@@ -177,6 +187,10 @@ class LM(nn.Module):
         if positions is None:
             positions = torch.arange(S, dtype=torch.int32,
                                      device=x.device).expand(B, S)
+        x = constrain(x, ("batch", "seq", "act_embed"), self.rules, self.mesh)
+        # residuals at period-group boundaries are sequence-sharded over
+        # the TP axis (Megatron-SP) in the reference
+        sp_ok = S % (self.tp or 1) == 0 and S > 1
         remat = self.par.remat != "none" and torch.is_grad_enabled()
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         aux = group = zero
@@ -190,8 +204,13 @@ class LM(nn.Module):
                 group = group + a
             if (i + 1) % self.period == 0:
                 aux, group = aux + group, zero
+                if sp_ok:
+                    x = constrain(x, ("batch", "seq_sp", "act_embed"),
+                                  self.rules, self.mesh)
         x = apply_norm(self.final_norm, x, cfg)
         logits = apply_unembed(self.embed, x, cfg)
+        logits = constrain(logits, ("batch", "seq", "act_heads"),
+                           self.rules, self.mesh)
         return logits, aux
 
     # ------------------------------------------------------------ decode
@@ -237,6 +256,7 @@ class LM(nn.Module):
         the reference), and their aux losses are dropped."""
         cfg = self.cfg
         x = apply_embed(self.embed, tokens).to(_dtype(cfg.dtype))
+        x = constrain(x, ("batch", None, "act_embed"), self.rules, self.mesh)
         for i, (bp, c) in enumerate(zip(self.blocks, cache)):
             h = apply_norm(bp.ln1, x, cfg)
             if self.layer_kind(i) == "attn":

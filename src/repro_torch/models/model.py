@@ -1,14 +1,17 @@
-"""Model factory: ModelConfig -> LM or EncDec, on the caller's device."""
+"""Model factory: ModelConfig -> LM or EncDec, on the caller's device,
+with the reference's mesh-aware sharding rules."""
 from __future__ import annotations
 
 import torch
 
 from ..config import ModelConfig, ParallelConfig
 from ..device import resolve_device
+from ..parallel.sharding import make_rules
 from .encdec import EncDec
 from .lm import LM
 
-__all__ = ["build_model", "check_ported", "make_model", "NOT_PORTED"]
+__all__ = ["build_model", "check_ported", "make_model", "replicate",
+           "NOT_PORTED"]
 
 # what this port does not build yet, and the ROADMAP item (queue 1 item 1,
 # "left" list) that ports it: every family of the shipped configs is ported
@@ -40,26 +43,48 @@ def check_ported(cfg: ModelConfig) -> None:
 
 def make_model(cfg: ModelConfig, par: ParallelConfig | None = None,
                use_flash: bool = False, use_ssd_kernel: bool = False,
-               device=None) -> LM | EncDec:
+               device=None, mesh=None, rules=None) -> LM | EncDec:
     """The unfilled model of ``cfg`` on ``device`` (a ``torch.device``):
-    :class:`EncDec` for the ``encdec`` family, :class:`LM` otherwise."""
+    :class:`EncDec` for the ``encdec`` family, :class:`LM` otherwise.
+    Under a ``mesh`` without ``rules`` the rules are the reference's
+    ``make_rules(fsdp=par.fsdp, seq_shard_decode=par.seq_shard_decode)``."""
     check_ported(cfg)
+    if rules is None and mesh is not None:
+        p = par or ParallelConfig()
+        rules = make_rules(fsdp=p.fsdp, seq_shard_decode=p.seq_shard_decode)
     if cfg.family == "encdec":
-        return EncDec(cfg, par, use_flash=use_flash, device=device)
+        return EncDec(cfg, par, use_flash=use_flash, device=device,
+                      mesh=mesh, rules=rules)
     return LM(cfg, par, use_flash=use_flash, use_ssd_kernel=use_ssd_kernel,
-              device=device)
+              device=device, mesh=mesh, rules=rules)
+
+
+def replicate(model: LM | EncDec, device) -> LM | EncDec:
+    """A copy of ``model`` (its configuration, mesh and parameters, in
+    their dtypes) on ``device``."""
+    dev = torch.device(device)
+    rep = make_model(model.cfg, model.par, model.use_flash,
+                     getattr(model, "use_ssd_kernel", False), dev,
+                     model.mesh, model.rules)
+    for p, q in zip(rep.parameters(), model.parameters()):
+        p.data = q.detach().to(dev, copy=True)
+    return rep
 
 
 def build_model(cfg: ModelConfig, par: ParallelConfig | None = None,
                 use_flash: bool = False, use_ssd_kernel: bool = False,
-                device=None, seed: int = 0) -> LM | EncDec:
+                device=None, seed: int = 0, mesh=None,
+                rules=None) -> LM | EncDec:
     """The model of ``cfg`` with its parameters drawn on ``device`` (``None``
-    is the CUDA card; raises without one) from a generator seeded with
-    ``seed``, by the reference's initializers.  ``par.remat`` other than
+    is the mesh's first device, else the CUDA card; raises without one)
+    from a generator seeded with ``seed``, by the reference's initializers.
+    ``mesh``/``rules`` as in :func:`make_model`.  ``par.remat`` other than
     ``"none"`` recomputes each block in the backward; ``use_flash`` routes
     the full-sequence causal self-attention (prefill and training) through
     the flash kernels, ``use_ssd_kernel`` the SSM mixer's prefill scan
     through the SSD kernel (forward only: training raises there)."""
+    if device is None and mesh is not None:
+        device = mesh.devices.flat[0]
     dev = resolve_device(device)
-    model = make_model(cfg, par, use_flash, use_ssd_kernel, dev)
+    model = make_model(cfg, par, use_flash, use_ssd_kernel, dev, mesh, rules)
     return model.init(torch.Generator(device=dev).manual_seed(seed))

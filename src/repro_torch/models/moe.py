@@ -1,11 +1,21 @@
 """Mixture-of-Experts FFN: top-k routing, capacity-bounded dispatch.
 
-The port of ``repro/models/moe.py`` on one device (the reference's
-``ep=1, has_a2a=False`` path).  The expert-parallel ``all_to_all`` path
-under a mesh (``moe_block``'s ``rules``/``mesh``) waits for the parallel
-step, ROADMAP queue 1 item 1, left 4.  The reference's dispatch is XLA
+The port of ``repro/models/moe.py``.  The reference's dispatch is XLA
 sort, scatter and gather plus ``einsum`` products, no Pallas kernel, so it
-stays plain torch here; the expert products are ``torch.bmm``.
+stays plain torch here; the expert products are ``torch.bmm``.  Without a
+mesh it runs the reference's ``ep=1, has_a2a=False`` path.  Under a mesh
+(``moe_block``'s ``mesh``) it runs the reference's expert-parallel path
+under :func:`~repro_torch.parallel.spmd.shard_map`, manual over every axis:
+the batch split over the data axes that divide it and the sequence over
+``model`` when it divides, the experts split over ``model``; each rank
+routes its own tokens, buckets them by destination rank into ``[ep,
+C_send, d]`` send buffers, exchanges them with ``all_to_all`` over
+``model``, runs its ``E / ep`` experts, returns the rows with a second
+``all_to_all`` and combines them at the source; the aux loss is
+``pmean``-ed over the mesh.  The collectives carry no gradient, so this
+path is forward only (the port's trainer refuses a ``model`` axis larger
+than 1).  Inside a rank of the trainer's data-parallel ``shard_map`` the
+rank's tokens take the one-device path.
 
 Which assignments a full capacity drops depends on their order, so the
 port keeps the reference's exactly:
@@ -44,9 +54,11 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ModelConfig
+from ..parallel.spmd import P, all_to_all, in_rank, pmean, shard_map
 from .params import ParamSpec
 
-__all__ = ["DISPATCH_CHUNK", "moe_spec", "moe_block", "top_k", "capacities"]
+__all__ = ["DISPATCH_CHUNK", "moe_spec", "moe_block", "top_k", "capacities",
+           "ep_slots"]
 
 DISPATCH_CHUNK = 8192   # tokens per dispatch round (bounds buffer memory)
 
@@ -183,26 +195,128 @@ def _moe_chunk(xt, router, wi, wo, cfg: ModelConfig):
     return y, aux
 
 
-def _moe_tokens(xt, router, wi, wo, cfg: ModelConfig):
-    """Chunked dispatch over the token axis."""
+def ep_slots(bucket: torch.Tensor, n_buckets: int, cap: int,
+             valid: torch.Tensor | None = None):
+    """Where the rows of a bucketed buffer go: ``(keep, slot)``.  A row's
+    rank in its bucket comes from a stable argsort; rows of rank below
+    ``cap`` (and ``valid``) keep slot ``bucket * cap + rank``, the others
+    go to the spill slot ``n_buckets * cap``, which is cut off."""
+    rank = _rank_in_bucket(bucket, n_buckets)
+    keep = rank < cap
+    if valid is not None:
+        keep = keep & valid
+    return keep, torch.where(keep, bucket * cap + rank, n_buckets * cap)
+
+
+def _moe_chunk_ep(xt, router, wi, wo, cfg: ModelConfig, ep: int):
+    """One dispatch chunk on one rank of the expert-parallel ``model``
+    axis (the reference's ``has_a2a`` path): ``wi``/``wo`` are this rank's
+    ``E / ep`` experts.  xt: [T, d].  Returns (y [T, d], aux)."""
+    m = cfg.moe
+    T, d = xt.shape
+    k, E = m.experts_per_token, m.num_experts
+    e_loc = E // ep
+    gate_vals, expert_idx, aux = _route(xt, router, cfg)
+    flat_e = expert_idx.reshape(-1)
+    src_tok = torch.arange(T, device=xt.device).repeat_interleave(k)
+    c_send = int(math.ceil(T * k / ep * m.capacity_factor))
+    n_send = ep * c_send
+    keep, sslot = ep_slots(flat_e // e_loc, ep, c_send)
+    send_x = xt.new_zeros((n_send + 1, d))
+    send_x[sslot] = xt[src_tok]
+    send_e = torch.full((n_send + 1,), -1, dtype=flat_e.dtype,
+                        device=xt.device)
+    send_e[sslot] = flat_e % e_loc
+    rx = all_to_all(send_x[:-1].view(ep, c_send, d), "model", 0, 0)
+    re = all_to_all(send_e[:-1].view(ep, c_send), "model", 0, 0)
+    rx, re = rx.reshape(n_send, d), re.reshape(n_send)
+    # C_send already carries the capacity slack; the local buffer only
+    # needs mild imbalance headroom across the rank's experts.  Empty rows
+    # (re = -1) rank in a spare bucket e_loc and are never kept.
+    c_loc = int(math.ceil(n_send / max(e_loc, 1) * m.capacity_factor)) \
+        if e_loc > 1 else n_send
+    ekeep, eslot = ep_slots(torch.where(re >= 0, re, e_loc), e_loc + 1,
+                            c_loc, re >= 0)
+    n_exp = e_loc * c_loc
+    buf = xt.new_zeros(((e_loc + 1) * c_loc + 1, d))
+    buf[eslot] = rx
+    out = _expert_ffn(wi, wo, buf[:n_exp].view(e_loc, c_loc, d),
+                      cfg.activation)
+    back = torch.where(ekeep[:, None], out.reshape(n_exp, d)[
+        eslot.clamp_max(n_exp - 1)], 0)
+    back = all_to_all(back.view(ep, c_send, d), "model", 0, 0)
+    gathered = torch.where(keep[:, None], back.reshape(n_send, d)[
+        sslot.clamp_max(n_send - 1)], 0)
+    w = gate_vals.reshape(-1, 1).to(xt.dtype)
+    rows = (gathered * w).view(T, k, d)
+    y = rows[:, 0]
+    for j in range(1, k):            # XLA's scatter-add order, rounded
+        y = y + rows[:, j]
+    return y, aux
+
+
+def _moe_tokens(xt, router, wi, wo, cfg: ModelConfig, ep: int = 1):
+    """Chunked dispatch over the token axis (over ``ep`` ranks)."""
     T, d = xt.shape
     chunk = min(DISPATCH_CHUNK, T)
     if T % chunk:
         chunk = T       # irregular small inputs: a single chunk
-    if chunk == T:
+    if ep > 1:
+        ys, auxs = zip(*(_moe_chunk_ep(xt[i:i + chunk], router, wi, wo, cfg,
+                                       ep) for i in range(0, T, chunk)))
+    elif chunk == T:
         return _moe_chunk(xt, router, wi, wo, cfg)
-    ys, auxs = zip(*(_moe_chunk(xt[i:i + chunk], router, wi, wo, cfg)
-                     for i in range(0, T, chunk)))
+    else:
+        ys, auxs = zip(*(_moe_chunk(xt[i:i + chunk], router, wi, wo, cfg)
+                         for i in range(0, T, chunk)))
+    if len(ys) == 1:
+        return ys[0], auxs[0]
     return torch.cat(ys), torch.stack(auxs).sum()
 
 
-def moe_block(p, x: torch.Tensor, cfg: ModelConfig
+def _moe_mesh(p, x: torch.Tensor, cfg: ModelConfig, mesh):
+    """The reference's mesh branch (``moe.py:151-191``): (y, aux)."""
+    B, S, d = x.shape
+    manual = tuple(a for a in ("pod", "data", "model") if a in mesh.shape)
+    # shard the batch over whatever data axes divide it (long-context
+    # decode has B=1: tokens then replicate over data, a2a still over EP)
+    batch_ax, nb = [], 1
+    for a in ("pod", "data"):
+        if a in mesh.shape and B % (nb * mesh.shape[a]) == 0:
+            batch_ax.append(a)
+            nb *= mesh.shape[a]
+    batch_ax = tuple(batch_ax) or None
+    ep = mesh.shape.get("model", 1)
+    # tokens also split over the EP axis (sequence split), else every EP
+    # rank would route the same tokens; decode steps (S == 1) replicate
+    seq_ax = "model" if S % max(ep, 1) == 0 and S >= ep else None
+
+    def local(xl, router, wi_loc, wo_loc):
+        bl, sl = xl.shape[0], xl.shape[1]
+        y, aux = _moe_tokens(xl.reshape(bl * sl, d), router, wi_loc, wo_loc,
+                             cfg, ep)
+        return y.reshape(bl, sl, d), pmean(aux, manual)
+
+    fn = shard_map(local, mesh=mesh,
+                   in_specs=(P(batch_ax, seq_ax, None), P(), P("model"),
+                             P("model")),
+                   out_specs=(P(batch_ax, seq_ax, None), P()))
+    return fn(x, p["router"], p["wi"], p["wo"])
+
+
+def moe_block(p, x: torch.Tensor, cfg: ModelConfig, rules=None, mesh=None
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, S, d].  Returns (y [B, S, d], aux loss)."""
+    """x: [B, S, d].  Returns (y [B, S, d], aux loss).  ``mesh`` (the
+    reference's argument, as ``rules``, which the dispatch does not read)
+    runs the expert-parallel path; a mesh of one device, or a call inside
+    a ``shard_map`` rank, the one-device path."""
     B, S, d = x.shape
     xt = x.reshape(-1, d)
-    y, aux = _moe_tokens(xt, p["router"], p["wi"], p["wo"], cfg)
-    y = y.reshape(B, S, d)
+    if mesh is None or mesh.size == 1 or in_rank():
+        y, aux = _moe_tokens(xt, p["router"], p["wi"], p["wo"], cfg)
+        y = y.reshape(B, S, d)
+    else:
+        y, aux = _moe_mesh(p, x, cfg, mesh)
     if cfg.moe.shared_expert_d_ff:
         wi = p["shared_wi"]
         h = (xt @ wi.reshape(d, -1)).unflatten(-1, wi.shape[1:])

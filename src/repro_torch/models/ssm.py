@@ -8,8 +8,8 @@ state.  The reference's dtype flow is kept: the depthwise conv runs in the
 input dtype and its SiLU in float32; dt, A, the log decay and the scan
 inputs are float32; the gated RMSNorm is float32, cast back before the
 output projection.  (``ssd_reference_vec`` and the ``flags`` switches serve
-only the reference's roofline lowering; they wait for the launch step of
-ROADMAP queue 1 item 1, left 4.)
+only the reference's roofline lowering; they wait for the launch step,
+ROADMAP queue 1 item 1, left 5.)
 
 Shapes: x_in [B, S, d_model]; heads H = d_inner / head_dim; state N =
 cfg.ssm.d_state.

@@ -1,1 +1,3 @@
-"""Parallelism helpers of the port (``sharding.padded`` so far)."""
+"""Parallelism of the port: single-controller ``shard_map`` and its
+collectives over a mesh of devices (``spmd``), the logical-axis sharding
+rules (``sharding``) and the GPipe schedule (``pipeline``)."""

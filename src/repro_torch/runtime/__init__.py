@@ -1,8 +1,9 @@
 """Runtime of the port: the continuous-batching serving engine and the
 training driver."""
 from .serve import Request, ServeEngine
-from .train import (SimulatedFailure, StragglerMonitor, Trainer,
+from .train import (RingStep, SimulatedFailure, StragglerMonitor, Trainer,
                     TrainerReport, make_loss_fn, make_train_step)
 
-__all__ = ["Request", "ServeEngine", "SimulatedFailure", "StragglerMonitor",
-           "Trainer", "TrainerReport", "make_loss_fn", "make_train_step"]
+__all__ = ["Request", "RingStep", "ServeEngine", "SimulatedFailure",
+           "StragglerMonitor", "Trainer", "TrainerReport", "make_loss_fn",
+           "make_train_step"]

@@ -1,5 +1,6 @@
-"""Training runtime: the step (value and gradient of the loss, then AdamW),
-checkpoint/restart fault tolerance, straggler monitor.
+"""Training runtime: the step (value and gradient of the loss, then AdamW,
+on one device or with explicit-ring gradient sync over the data axes of a
+mesh), checkpoint/restart fault tolerance, straggler monitor.
 
 The port of ``repro/runtime/train.py``.  Fault model:
   * node failure -> the job restarts from the latest checkpoint; since data
@@ -7,9 +8,14 @@ The port of ``repro/runtime/train.py``.  Fault model:
     batches after a restart.
   * stragglers -> per-step wall-time EMA + z-score detector.
 The model owns its parameters, so a step updates them in place and returns
-the optimizer state and metrics.  Everything runs where the model's
-parameters lie.  The explicit ring and hierarchical gradient syncs under a
-mesh wait for the collectives step of ROADMAP queue 1.
+the optimizer state and metrics.  Without a mesh (or with
+``grad_sync="xla"``, where the reference leaves the sync to GSPMD: the same
+values as one device) everything runs where the model's parameters lie.
+``grad_sync="ring"``/``"hierarchical"`` under a mesh is the reference's
+``manual_step``: one model replica and one optimizer state per data rank,
+each rank's loss and gradients on its shard of the batch, the gradients
+synchronized by the explicit rings (:func:`~repro_torch.collectives.
+scheduler.sync_grads_local`), then AdamW on every rank (:class:`RingStep`).
 """
 from __future__ import annotations
 
@@ -20,12 +26,15 @@ import numpy as np
 import torch
 
 from ..checkpoint.manager import CheckpointManager
+from ..collectives.scheduler import sync_grads_local
 from ..config import ModelConfig, ParallelConfig, TrainConfig
 from ..data.pipeline import DataConfig, SyntheticLM
 from ..launch.steps import cross_entropy
+from ..models.model import replicate
 from ..optim.adamw import OptState, adamw_update, init_opt_state
+from ..parallel.spmd import P, axis_index, pmean, rank_devices, shard_map
 
-__all__ = ["make_loss_fn", "make_train_step", "StragglerMonitor",
+__all__ = ["make_loss_fn", "make_train_step", "RingStep", "StragglerMonitor",
            "TrainerReport", "Trainer", "SimulatedFailure"]
 
 
@@ -50,13 +59,21 @@ def make_train_step(model, cfg: ModelConfig, tcfg: TrainConfig,
     gradient of the loss over the model's parameters, then
     :func:`~repro_torch.optim.adamw.adamw_update` on them in place.
     ``metrics`` holds 0-d tensors "loss", "lr" and "grad_norm" on the
-    model's device.  ``grad_sync`` "xla" (or no mesh) is the only mode: one
-    card needs no gradient sync."""
-    if mesh is not None and par.grad_sync != "xla":
+    model's device.  ``grad_sync="ring"``/``"hierarchical"`` under a mesh
+    whose data axes ("pod", "data") have more than one rank returns a
+    :class:`RingStep`; a mesh whose ``model`` axis is larger than 1 raises
+    ``NotImplementedError`` (tensor parallelism is GSPMD's partitioning of
+    that axis, not ported: ROADMAP queue 1 item 1, left 6)."""
+    if mesh is not None and mesh.shape.get("model", 1) > 1:
         raise NotImplementedError(
-            f"grad_sync={par.grad_sync!r} under a mesh: the ring and "
-            "hierarchical collectives come with the collectives step of "
-            "ROADMAP queue 1")
+            f"a mesh with a model axis of {mesh.shape['model']}: tensor "
+            "parallelism (GSPMD's partitioning of the model axis) is not "
+            "ported (ROADMAP queue 1 item 1, left 6)")
+    if mesh is not None and par.grad_sync != "xla":
+        if par.grad_sync not in ("ring", "hierarchical"):
+            raise ValueError(f"unknown grad_sync {par.grad_sync!r}")
+        if any(mesh.shape.get(a, 1) > 1 for a in ("pod", "data")):
+            return RingStep(model, cfg, tcfg, par, mesh)
     loss_fn = make_loss_fn(model, cfg)
     params = dict(model.named_parameters())
 
@@ -69,6 +86,95 @@ def make_train_step(model, cfg: ModelConfig, tcfg: TrainConfig,
         return opt, metrics
 
     return step
+
+
+def _opt_on(opt: OptState, dev: torch.device) -> OptState:
+    """A copy of ``opt`` on ``dev``."""
+    def cp(tree):
+        return None if tree is None else \
+            {k: v.to(dev, copy=True) for k, v in tree.items()}
+    return OptState(opt.step.to(dev, copy=True), cp(opt.m), cp(opt.v),
+                    cp(opt.master))
+
+
+class RingStep:
+    """The reference's ``manual_step`` under a mesh: ``step(opt, batch) ->
+    (opt, metrics)`` with one model replica (``replicas``) and one optimizer
+    state (``opts``) per data rank, rank 0's being the caller's model and
+    ``opt``.  Under :func:`~repro_torch.parallel.spmd.shard_map` manual over
+    the data axes, each rank takes its shard of the batch (split over the
+    data axes), computes its loss and gradients, runs
+    ``sync_grads_local(grads, data_axes, mode, channels=par.ring_buckets,
+    bidirectional=par.ring_bidirectional)``, ``pmean``s the loss and runs
+    AdamW in place.  Every rank applies the same synced gradients to the
+    same values, so the replicas stay bit-equal.  An ``opt`` other than the
+    one the last step returned (a fresh or restored state of rank 0)
+    first copies rank 0's parameters and ``opt`` onto every other rank."""
+
+    def __init__(self, model, cfg: ModelConfig, tcfg: TrainConfig,
+                 par: ParallelConfig, mesh):
+        self.tcfg, self.par, self.mesh = tcfg, par, mesh
+        self.data_axes = tuple(a for a in ("pod", "data")
+                               if mesh.shape.get(a, 1) > 1)
+        self.mode = par.grad_sync
+        devs = rank_devices(mesh, self.data_axes)
+        self.replicas = [model] + [replicate(model, d) for d in devs[1:]]
+        self.params = [dict(m.named_parameters()) for m in self.replicas]
+        self.loss_fns = [make_loss_fn(m, cfg) for m in self.replicas]
+        self.opts: list[OptState] | None = None
+        spec = P(self.data_axes)
+        self.batch_spec = {"tokens": spec, "labels": spec}
+
+    def _grads(self, batch: dict):
+        """This rank's (index, pmean-ed loss, synced gradients)."""
+        r = axis_index(self.data_axes)
+        params = self.params[r]
+        loss = self.loss_fns[r](batch)
+        grads = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+        grads = sync_grads_local(grads, self.data_axes, mode=self.mode,
+                                 channels=self.par.ring_buckets,
+                                 bidirectional=self.par.ring_bidirectional)
+        return r, pmean(loss.detach(), self.data_axes), grads
+
+    def grads(self, batch: dict) -> tuple[torch.Tensor, list[dict]]:
+        """The first half of a step, nothing updated: (the loss over the
+        global batch, each rank's synced gradients)."""
+        out: list = [None] * len(self.replicas)
+
+        def local(b):
+            r, loss, g = self._grads(b)
+            out[r] = g
+            return loss
+
+        loss = shard_map(local, mesh=self.mesh, in_specs=(self.batch_spec,),
+                         out_specs=P(), axis_names=self.data_axes)(batch)
+        return loss, out
+
+    def _broadcast(self, opt: OptState) -> None:
+        with torch.no_grad():
+            for params in self.params[1:]:
+                for name, p in params.items():
+                    p.copy_(self.params[0][name])
+        self.opts = [opt] + [_opt_on(opt, next(iter(p.values())).device)
+                             for p in self.params[1:]]
+
+    def __call__(self, opt: OptState, batch: dict) -> tuple[OptState, dict]:
+        if self.opts is None or opt is not self.opts[0]:
+            self._broadcast(opt)
+
+        def local(b):
+            r, loss, grads = self._grads(b)
+            self.opts[r], metrics = adamw_update(self.params[r], grads,
+                                                 self.opts[r], self.tcfg)
+            metrics["loss"] = loss
+            return metrics
+
+        metrics = shard_map(
+            local, mesh=self.mesh, in_specs=(self.batch_spec,),
+            out_specs={"loss": P(), "lr": P(), "grad_norm": P()},
+            axis_names=self.data_axes)(batch)
+        return self.opts[0], metrics
 
 
 @dataclass
@@ -111,7 +217,10 @@ class TrainerReport:
 
 class Trainer:
     """End-to-end training driver with checkpoint/restart resilience, on
-    the device of the model's parameters."""
+    the device of the model's parameters.  Under a ``mesh`` with ring or
+    hierarchical ``grad_sync`` the step is a :class:`RingStep`: the trainer
+    draws, checkpoints and restores rank 0's state (the model's), and the
+    step copies it onto every replica whenever it was drawn or restored."""
 
     def __init__(self, model, cfg: ModelConfig, tcfg: TrainConfig,
                  par: ParallelConfig, mesh=None,

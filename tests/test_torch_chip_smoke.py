@@ -219,5 +219,109 @@ def test_new_phases_are_listed_in_order(cs):
     p = list(cs.PHASES)
     assert p.index("mamba") < p.index("moe") < p.index("jamba") < \
         p.index("mla") < p.index("vlm") < p.index("whisper") < \
-        p.index("goldens") and p.index("multipod") < p.index("lanes")
+        p.index("goldens") and p.index("multipod") < p.index("lanes") < \
+        p.index("ring") < p.index("dp") < p.index("ep") < \
+        p.index("gpipe") < p.index("grid512")
     assert all(hasattr(cs.Smoke, name) for name in p)
+
+
+# ----------------------------------- the ring, dp, ep and gpipe phases
+
+@pytest.mark.parametrize("n", [4, 8])
+def test_ring_cases_over_cpu_ranks(cs, n):
+    """The ring phase's cases over the CPU named n times: each within its
+    tolerance of the plain sum, with 2(N-1) ppermutes per ring per
+    channel; the card's run is held bit-equal to these."""
+    cases = cs.ring_cases(torch, ["cpu"] * n, n)
+    assert len(cases) == 30          # 31 on the card, with the 256 MiB case
+    for name, case in cases.items():
+        y, counts, want, plain, _ = case
+        assert counts == want, name
+        assert cs.ring_case_ok(case), name
+        assert plain is None or y.shape == plain.shape, name
+
+
+@pytest.mark.parametrize("fault", ["shifted by two", "last step dropped"])
+@pytest.mark.parametrize("n", [4, 8])
+def test_planted_ring_faults_fail_and_restore(cs, fault, n):
+    import repro_torch.collectives.ring as ring
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.spmd import P, shard_map
+    mesh = make_mesh((n,), ("data",), ["cpu"] * n)
+    x = torch.randn(n, 16, generator=torch.Generator().manual_seed(0))
+    plain = x.sum(0, keepdim=True)
+    saved = ring._perm, ring.ring_reduce_scatter
+    with cs.planted_ring(ring, fault):
+        y = shard_map(lambda a: ring.ring_all_reduce(a, "data"), mesh=mesh,
+                      in_specs=P("data"), out_specs=P())(x)
+    assert (ring._perm, ring.ring_reduce_scatter) == saved
+    assert not torch.allclose(y, plain, rtol=cs.RING_TOL[0],
+                              atol=cs.RING_TOL[1])
+    y = shard_map(lambda a: ring.ring_all_reduce(a, "data"), mesh=mesh,
+                  in_specs=P("data"), out_specs=P())(x)
+    assert torch.allclose(y, plain, rtol=1e-5, atol=1e-5)
+
+
+def test_ep_drop_counter_counts_both_capacities(cs):
+    """Granite's smoke MoE over (data 2, model 4) CPU ranks at capacity
+    0.25: the counter sees drops at the send buffers and at the experts,
+    and equals a count from the routing; nothing at capacity 8."""
+    import dataclasses
+    import repro_torch.models.moe as moe
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    model = build_model(registry.get_config("granite_moe_1b_a400m",
+                                            smoke=True), device="cpu")
+    cfg = model.cfg
+    p = {k: v.detach() for k, v in model.blocks[0].moe.items()}
+    x = torch.randn(2, 64, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1)).to(
+                        torch.bfloat16)
+    mesh = make_mesh((2, 4), ("data", "model"), ["cpu"] * 8)
+    slots = moe.ep_slots
+    for cf, dropping in ((8.0, False), (0.25, True)):
+        c = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cf))
+        with torch.no_grad(), cs.ep_drop_counter(moe) as seen:
+            moe.moe_block(p, x, c, None, mesh)
+        assert moe.ep_slots is slots
+        send = int(torch.stack(seen["send"]).sum())
+        expert = int(torch.stack(seen["expert"]).sum())
+        assert len(seen["send"]) == len(seen["expert"]) == 8
+        assert (send > 0) == dropping and (expert >= 0)
+        if not dropping:
+            assert expert == 0
+
+
+def test_gpipe_stage_block_equals_the_model_block(cs):
+    """danube_block on a stage's slice of stacked_blocks gives the bits of
+    LM._apply_block on that layer (smoke width, CPU)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import build_model
+    model = build_model(registry.get_config("h2o_danube_3_4b", smoke=True),
+                        device="cpu")
+    stages = cs.stacked_blocks(torch, list(model.blocks))
+    x = torch.randn(1, 128, model.cfg.d_model,
+                    generator=torch.Generator().manual_seed(2)).to(
+                        torch.bfloat16)
+    pos = torch.arange(128, dtype=torch.int32).expand(1, 128)
+    with torch.no_grad():
+        for i, bp in enumerate(model.blocks):
+            got = cs.danube_block(model.cfg, {
+                k: {n: t[i] for n, t in v.items()}
+                for k, v in stages.items()}, x, pos)
+            want, _ = model._apply_block(bp, i, x, pos)
+            assert torch.equal(got, want), i
+
+
+def test_flash_calls_by_stream_counts_and_restores(cs, monkeypatch):
+    import repro_torch.kernels.flash_attention.ops as ops
+    fwd, bwd = ops.flash_fwd, ops.flash_bwd
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *a: types.SimpleNamespace(cuda_stream=7))
+    q = torch.randn(1, 128, 2, 16, requires_grad=True)
+    with cs.flash_calls_by_stream(torch, ops) as calls:
+        ops.flash_attention(q, q, q).sum().backward()
+    assert (ops.flash_fwd, ops.flash_bwd) == (fwd, bwd)
+    assert calls == {("fwd", 7): 1, ("bwd", 7): 1}

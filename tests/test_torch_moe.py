@@ -15,8 +15,21 @@
 - gradients of x, router, wi and wo against ``jax.grad`` of
   ``sum(y * cotangent) + aux``, with and without drops;
 - the dense all-experts check of ``tests/test_moe.py``, the top-k order on
-  ties and the bucket ranks.
+  ties and the bucket ranks;
+- the expert-parallel case of ``tests/test_moe.py:71-107``: ``moe_block``
+  under a (data 2, model 4) mesh (the CPU named 8 times; ``all_to_all``
+  over ``model``) against the reference's on 8 virtual devices (a child
+  python, once for the file, as jax fixes its device count at its first
+  import) and against the port's one-device path, at 1e-4; also with
+  drops (capacity 1.0, against the reference's mesh run) and at a decode
+  step (S 1: tokens replicated over ``model``); granite's SMOKE LM built
+  under that mesh on both sides, logits and aux at 1e-4.
 """
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -251,3 +264,149 @@ def test_decode_coupling_config_numbers():
     assert P.capacities(cfg, 8) == (80, 4)
     assert P.capacities(cfg, 1) == (10, 1)
     assert P.capacities(cfg, P.DISPATCH_CHUNK) == (81920, 3200)
+
+
+# ------------------------------------------------ expert-parallel dispatch
+
+EP_CASES = {"cf8": (8.0, (4, 16, 32)), "cf1-drops": (1.0, (4, 16, 32)),
+            "decode": (8.0, (4, 1, 32))}
+EP_SCRIPT = r"""
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import jax, jax.numpy as jnp, numpy as np
+from repro.compat import make_mesh
+from repro.config import ModelConfig, MoEConfig
+from repro.models.moe import moe_block
+from repro.parallel.sharding import make_rules
+
+inp = dict(np.load(sys.argv[1]))
+out = {}
+mesh = make_mesh((2, 4), ("data", "model"))
+with jax.threefry_partitionable(False):
+    for name, cf in %r:
+        cfg = ModelConfig(name="t", family="moe", num_layers=1, d_model=32,
+                          num_heads=4, num_kv_heads=4, d_ff=0,
+                          vocab_size=64,
+                          moe=MoEConfig(num_experts=8, experts_per_token=2,
+                                        d_ff_expert=16, capacity_factor=cf))
+        p = {k: jnp.asarray(inp[k]) for k in ("router", "wi", "wo")}
+        x = jnp.asarray(inp[f"x/{name}"])
+        y1, a1 = moe_block(p, x, cfg)
+        y8, a8 = jax.jit(lambda p, v: moe_block(p, v, cfg, make_rules(),
+                                                mesh))(p, x)
+        out[f"{name}/y1"], out[f"{name}/aux1"] = np.asarray(y1), np.asarray(a1)
+        out[f"{name}/y8"], out[f"{name}/aux8"] = np.asarray(y8), np.asarray(a8)
+    # the whole MoE LM under the mesh (granite's SMOKE config, float32)
+    import dataclasses
+    from repro.configs import registry
+    from repro.models import build_model
+    from repro.models.params import cast_tree
+    lcfg = dataclasses.replace(registry.get_config(
+        "granite_moe_1b_a400m", smoke=True), dtype="float32")
+    lm = build_model(lcfg, mesh=mesh)
+    params = cast_tree(lm.init(jax.random.PRNGKey(0)), jnp.float32)
+    logits, aux = jax.jit(lm.apply)(params, jnp.asarray(inp["tokens"]))
+    out["lm/logits"], out["lm/aux"] = np.asarray(logits), np.asarray(aux)
+    for p, v in jax.tree_util.tree_leaves_with_path(params):
+        out["lm/p" + jax.tree_util.keystr(p)] = np.asarray(v, np.float32)
+np.savez(sys.argv[2], **out)
+print("REFERENCE_DONE")
+""" % ([(k, v[0]) for k, v in EP_CASES.items()],)
+
+
+@pytest.fixture(scope="module")
+def ep_data(tmp_path_factory):
+    d = tmp_path_factory.mktemp("ep")
+    _, pc = _cfgs()
+    inp = dict(_params(pc))
+    for name, (_, shape) in EP_CASES.items():
+        inp[f"x/{name}"] = _x(shape)
+    inp["tokens"] = np.random.default_rng(2).integers(0, 512, (4, 32)).astype(
+        np.int32)
+    np.savez(d / "in.npz", **inp)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(Path(__file__).resolve().parents[1] / "src")
+    env.pop("XLA_FLAGS", None)
+    r = subprocess.run([sys.executable, "-c", EP_SCRIPT, str(d / "in.npz"),
+                        str(d / "out.npz")], env=env, capture_output=True,
+                       text=True, timeout=600)
+    assert r.returncode == 0 and "REFERENCE_DONE" in r.stdout, \
+        r.stdout[-2000:] + r.stderr[-4000:]
+    return inp, dict(np.load(d / "out.npz"))
+
+
+@pytest.mark.parametrize("case", list(EP_CASES))
+def test_expert_parallel_matches_reference(ep_data, case):
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.sharding import make_rules
+    from repro_torch.parallel.spmd import ppermute
+    inp, ref = ep_data
+    cf, _ = EP_CASES[case]
+    _, pc = _cfgs(cf=cf)
+    p = {k: torch.from_numpy(inp[k]) for k in ("router", "wi", "wo")}
+    x = torch.from_numpy(inp[f"x/{case}"])
+    mesh = make_mesh((2, 4), ("data", "model"), ["cpu"] * 8)
+    ppermute.counts.clear()
+    y8, a8 = P.moe_block(p, x, pc, make_rules(), mesh)
+    assert not ppermute.counts          # all_to_all, no ring steps
+    y1, a1 = P.moe_block(p, x, pc)
+    np.testing.assert_allclose(y8.numpy(), ref[f"{case}/y8"], atol=1e-4,
+                               rtol=1e-4)
+    np.testing.assert_allclose(float(a8), ref[f"{case}/aux8"], rtol=1e-5)
+    np.testing.assert_allclose(y1.numpy(), ref[f"{case}/y1"], atol=1e-4,
+                               rtol=1e-4)
+    if cf == 8.0:           # nothing drops: EP equals the one-device path
+        np.testing.assert_allclose(y8.numpy(), y1.numpy(), atol=1e-4,
+                                   rtol=1e-4)
+        np.testing.assert_allclose(ref[f"{case}/y8"], ref[f"{case}/y1"],
+                                   atol=1e-4, rtol=1e-4)
+
+
+def test_expert_parallel_inside_a_rank_runs_locally():
+    """moe_block under a mesh, called inside a shard_map rank (the
+    trainer's data-parallel step), runs the one-device path on the rank's
+    tokens."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.spmd import P as Spec
+    from repro_torch.parallel.spmd import shard_map
+    _, pc = _cfgs()
+    p = {k: torch.from_numpy(v) for k, v in _params(pc).items()}
+    x = torch.from_numpy(_x((4, 16, 32)))
+    mesh = make_mesh((4,), ("data",), ["cpu"] * 4)
+    got = shard_map(lambda v: P.moe_block(p, v, pc, None, mesh)[0],
+                    mesh=mesh, in_specs=Spec("data"),
+                    out_specs=Spec("data"))(x)
+    want = torch.cat([P.moe_block(p, x[i:i + 1], pc)[0] for i in range(4)])
+    assert torch.equal(got, want)
+
+
+def test_expert_parallel_lm_matches_reference(ep_data):
+    """granite's SMOKE LM built under (data 2, model 4) on both sides: the
+    port's forward (its MoE layers expert-parallel over CPU ranks, under
+    no_grad: the collectives carry no gradient) gives the reference's
+    logits and aux loss (float32, 1e-4)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import params_from_reference
+    from repro_torch.models.params import cast_tree
+    inp, ref = ep_data
+    tree: dict = {}
+    for key, v in ref.items():
+        if key.startswith("lm/p["):
+            node = tree
+            path = [p.strip("'") for p in key[5:-1].split("][")]
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = v
+    cfg = dataclasses.replace(registry.get_config("granite_moe_1b_a400m",
+                                                  smoke=True),
+                              dtype="float32")
+    mesh = make_mesh((2, 4), ("data", "model"), ["cpu"] * 8)
+    model = cast_tree(params_from_reference(cfg, tree, "cpu", mesh=mesh),
+                      torch.float32)
+    with torch.no_grad():
+        logits, aux = model.apply(torch.from_numpy(inp["tokens"]))
+    np.testing.assert_allclose(logits.numpy(), ref["lm/logits"], atol=1e-4,
+                               rtol=1e-4)
+    np.testing.assert_allclose(float(aux), ref["lm/aux"], rtol=1e-4)

@@ -200,12 +200,17 @@ def test_train_steps_match_reference(dtype, use_flash, remat):
 
 
 def test_grad_sync_under_a_mesh_is_not_ported():
+    """Ring sync over data axes is ported (tests/test_torch_dp_train.py);
+    a mesh with a model axis (tensor parallelism) still raises."""
     cfg = registry.get_config(ARCH, smoke=True)
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import build_model
     model = build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        make_train_step(model, cfg, TrainConfig(),
-                        ParallelConfig(grad_sync="ring"), mesh=object())
+    mesh = make_mesh((2, 2), ("data", "model"), ["cpu"] * 4)
+    for sync in ("ring", "xla"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+            make_train_step(model, cfg, TrainConfig(),
+                            ParallelConfig(grad_sync=sync), mesh=mesh)
 
 
 # ------------------------------------------ the MoE and hybrid families
