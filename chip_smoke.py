@@ -16,8 +16,10 @@ the MLA, M-RoPE and encoder-decoder families' on minicpm3-4b, qwen2-vl-2b
 and whisper-large-v3 at full width, the simulator's lanes split over
 devices, the explicit ring collectives, ring-synced data-parallel training
 of danube (full width, 2 layers), the MoE's expert-parallel dispatch and
-GPipe over ranks on the card named several times — phase by phase, one
-line per phase, and exits non-zero at the first phase that fails:
+GPipe over ranks on the card named several times, and the launch layer's
+cells against the meta-tensor dry-run's memory and flop prediction —
+phase by phase, one line per phase, and exits non-zero at the first phase
+that fails:
 
 1. build    compile every kernel library from the checkout (one nvcc per
             source, in parallel, sm_90a); print the card's name and power
@@ -221,14 +223,34 @@ line per phase, and exits non-zero at the first phase that fails:
             named 4 times, 4 microbatches of 1 x 4,096: GPipe's 7 ticks,
             each microbatch bit-equal to the 4 blocks applied in turn on
             one device
-27. grid512 the 512-host grid (16 pods; sym off/on x 4 seeds as lanes),
+27. launch  the launch layer (``launch/steps.py``, ``launch/dryrun.py``):
+            the dry-run's records (meta devices, in worker processes) of
+            danube's and mamba2's four cells on both production meshes
+            (GiB a device, TFLOP, the three roofline terms at the card's
+            spec-sheet constants); then cells as build_cell builds them
+            on the card, each beside its dry-run prediction (printed
+            first): danube prefill_32k on one rank of a (data 16, model 1)
+            mesh (2 x 32,768 tokens, 24 layers, bf16 weights drawn on the
+            card from seed 0, plain chunked attention), FlopCounterMode's
+            count equal to the meta count, peak memory within LAUNCH_BAND
+            of argument + output - alias + temp, wall time and TFLOP/s
+            against t_compute; the same model with use_flash (24 flash
+            launches; last-token logits at the prefill phase's model
+            tolerance); danube train_4k at depth 2 on one rank of (16, 1)
+            (16 x 4,096 tokens, accum 2, float32 m/v and master; step 1:
+            finite loss, every parameter moved, peak within the band);
+            mamba2 decode_32k, the whole cell on a (1, 1) mesh of the card
+            (batch 128; logits finite, the cache written in place, peak
+            within the band); two planted faults of the decode prediction
+            (donation ignored, the cache's bytes dropped) must fail the band
+28. grid512 the 512-host grid (16 pods; sym off/on x 4 seeds as lanes),
             1,000 ticks: the tiled tick (blk=2048, tick_window=1) and the
             window kernel (tick_window=20), their launches counted, against
             their plain versions on the card and against eager
-28. control SimController on the card (Table 1, window_ticks=640,
+29. control SimController on the card (Table 1, window_ticks=640,
             tick_window=20): stepping equals one-shot simulate, tau retuned
             mid-run, checkpoint/restore replays bit for bit
-29. timing  each kernel's device time per launch against its plain
+30. timing  each kernel's device time per launch against its plain
             version's and its bound, at the main paths' shapes (the flash
             forward also against one scaled_dot_product_attention call, at
             the prefill's shape with a window mask and at the training
@@ -244,7 +266,7 @@ line per phase, and exits non-zero at the first phase that fails:
             tick and switch pipeline (the first port's interface or the
             shipped one, by each library's ``*_abi`` tag), timed in turns
             beside the shipped ones)
-30. profile main-path ticks/s (Table 1 with 1 lane through ``simulate``,
+31. profile main-path ticks/s (Table 1 with 1 lane through ``simulate``,
             128 hosts x 8 lanes, 512 hosts x 8 lanes) and where a tick's
             time goes: wall and device-busy time, the busiest kernels; one
             profiled 32,768-token prefill: the flash kernel's, the matrix
@@ -269,6 +291,8 @@ The line before the last is the kernel report (JSON); the last line is
         # the MLA, M-RoPE and encoder-decoder families
     python3 chip_smoke.py build ring dp ep gpipe
         # collectives, data-parallel training, EP and GPipe over ranks
+    python3 chip_smoke.py build launch
+        # the cells and the dry-run's prediction
     python3 chip_smoke.py --against DIR build ssd mamba timing
         # DIR: another commit's kernels, unpacked under a git-ignored
         # directory (git archive <commit> src/repro_torch/kernels | tar -x
@@ -284,6 +308,8 @@ import contextlib
 import ctypes
 import dataclasses
 import json
+import math
+import os
 import shutil
 import subprocess
 import sys
@@ -327,8 +353,8 @@ INT_SERIES = ("finish_ticks", "job_finish_ticks", "ts_min_wire",
 PHASES = ("build", "math", "kernel", "window", "tiled", "large", "switch",
           "flash", "flash_bwd", "prefill", "serve", "train", "ssd", "mamba",
           "moe", "jamba", "mla", "vlm", "whisper", "goldens", "multipod",
-          "lanes", "ring", "dp", "ep", "gpipe", "grid512", "control",
-          "timing", "profile")
+          "lanes", "ring", "dp", "ep", "gpipe", "launch", "grid512",
+          "control", "timing", "profile")
 # (F, FW, H, L+1, J, DJ) of the multipod grids the tick and window kernels
 # run at 128 hosts (ids in shared memory) and 512 hosts (ids in global
 # memory); kernel and large check them against the builders'
@@ -502,6 +528,66 @@ DP_LOSS_ABS = 1e-2
 # model 4); the gpipe phase: 4 danube blocks as stages, 4 microbatches
 EP_B, EP_S = 2, 4096
 GPIPE_STAGES, GPIPE_MB = 4, 4
+# the launch phase: the dry-run's records of these architectures' four cells
+# on both production meshes; each card run's peak memory against the
+# dry-run's predicted argument + output - alias + temp, within LAUNCH_BAND
+# (relative); the faults planted in the decode cell's prediction
+LAUNCH_ARCHS = ("h2o_danube_3_4b", "mamba2_130m")
+LAUNCH_BAND = 0.15
+LAUNCH_FAULTS = ("donation ignored", "cache dropped")
+
+
+def memory_band(measured: int, predicted: int,
+                band: float = LAUNCH_BAND) -> tuple[bool, float]:
+    """Whether a measured peak lies within ``band`` (relative) of the
+    dry-run's predicted bytes, and the relative distance."""
+    rel = abs(measured - predicted) / predicted
+    return rel <= band, rel
+
+
+def planted_memory(mem: dict, fault: str, cache_bytes: int) -> int:
+    """The predicted total of a dry-run with a planted fault: the donated
+    cache's aliasing ignored, or its ``cache_bytes`` left out of the
+    arguments and outputs."""
+    m = dict(mem)
+    if fault == "donation ignored":
+        m["alias"] = 0
+    elif fault == "cache dropped":
+        for k in ("argument", "output", "alias"):
+            m[k] -= cache_bytes
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+    return m["argument"] + m["output"] - m["alias"] + m["temp"]
+
+
+def launch_task(task: tuple) -> dict:
+    """One dry-run over meta devices, in a worker process of the launch
+    phase: ``("record", arch, shape, multi_pod)`` is the production
+    record; ``("predict", arch, shape, mesh_shape, depth)`` the meta
+    measurement of the cell on a (data, model) mesh of that shape."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build_cell
+    if task[0] == "record":
+        return dryrun.run_cell(*task[1:])
+    _, arch, shape, mesh_shape, depth = task
+    mesh = make_mesh(mesh_shape, ("data", "model"),
+                     ["meta"] * (mesh_shape[0] * mesh_shape[1]))
+    return dryrun.measure(build_cell(arch, shape, mesh,
+                                     depth_override=depth))
+
+
+def _tree_items(tree, prefix=()):
+    """(path, tensor) of every tensor in nested dicts, lists, tuples and
+    NamedTuples."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tree_items(v, prefix + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _tree_items(v, prefix + (i,))
+    elif tree is not None:
+        yield prefix, tree
 
 
 def say(phase: str, msg: str) -> None:
@@ -4009,7 +4095,242 @@ class Smoke:
                      f"in turn (wall); card {self.card}")
         del stages, got, want
 
-    # --------------------------------------- 27. 512 hosts, 8 lanes, tiled
+    # ------------------------------------- 27. launch: cells and dry-run
+    def launch(self):
+        """The dry-run's records and its predictions held to the card."""
+        import concurrent.futures as cf
+        import multiprocessing
+        torch = self.torch
+        from repro_torch.configs import registry
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True)
+        card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() \
+            else self.card
+        print(card, flush=True)
+        say("launch", f"card {card}; {torch.cuda.get_device_name(0)}, "
+                      f"{torch.cuda.get_device_properties(0).total_memory:,}"
+                      " bytes")
+        # the meta-device work runs in worker processes meanwhile; the
+        # longest first
+        preds = {"prefill": ("predict", "h2o_danube_3_4b", "prefill_32k",
+                             (16, 1), None),
+                 "train": ("predict", "h2o_danube_3_4b", "train_4k",
+                           (16, 1), 2),
+                 "decode": ("predict", "mamba2_130m", "decode_32k", (1, 1),
+                            None)}
+        # mamba2's prefill and train records take longest on meta, then
+        # the predictions the card runs below wait for
+        records = [("record", "mamba2_130m", s, mp)
+                   for s in ("prefill_32k", "train_4k")
+                   for mp in (False, True)] + list(preds.values()) + [
+            ("record", a, s, mp) for a in LAUNCH_ARCHS
+            for s in ("prefill_32k", "train_4k", "decode_32k", "long_500k")
+            for mp in (False, True)
+            if (a, s) not in (("mamba2_130m", "prefill_32k"),
+                              ("mamba2_130m", "train_4k"))]
+        t0 = time.time()
+        workers = max(1, min(8, (os.cpu_count() or 2) - 1))
+        with cf.ProcessPoolExecutor(
+                workers, mp_context=multiprocessing.get_context("spawn"),
+                initializer=os.nice, initargs=(10,)) as pool:
+            futs = {t: pool.submit(launch_task, t) for t in records}
+            self.launch_prefill(futs[preds["prefill"]])
+            self.launch_train(futs[preds["train"]])
+            self.launch_decode(futs[preds["decode"]])
+            for t in records:
+                if t[0] != "record":
+                    continue
+                r = futs[t].result()
+                mem = r["memory"]
+                say("launch", f"dry-run {t[1]}/{t[2]}/"
+                              f"{'multi' if t[3] else 'single'} "
+                              f"{r['mesh']}: "
+                              f"{mem['per_device_total'] / 2**30:.2f} GiB a "
+                              f"device (argument "
+                              f"{mem['argument'] / 2**30:.2f}, temp "
+                              f"{mem['temp'] / 2**30:.2f}; fits: "
+                              f"{mem['fits_h100']}), "
+                              f"{r['flops_per_device'] / 1e12:.3f} TFLOP, "
+                              f"t_compute {1e3 * r['t_compute']:.3f} ms, "
+                              f"t_memory {1e3 * r['t_memory']:.3f} ms, "
+                              f"t_collective "
+                              f"{1e3 * r['t_collective']:.3f} ms "
+                              f"({r['run_s']} s on meta)")
+        n_cells = sum(1 for a, _, skip in registry.all_cells()
+                      if a in LAUNCH_ARCHS and not skip)
+        say("launch", f"{2 * n_cells} dry-run records and 3 predictions in "
+                      f"{time.time() - t0:.1f} s ({workers} workers); "
+                      f"constants: NVIDIA H100 80GB HBM3 spec sheet; card "
+                      f"{card}")
+
+    def launch_run(self, cell, args, count: bool = True):
+        """``cell.fn`` on ``args`` once (under FlopCounterMode with
+        ``count``): (its output, the counted flops or None, the peak bytes
+        allocated over the run above what was allocated before ``args``).
+        """
+        from torch.utils.flop_counter import FlopCounterMode
+        torch = self.torch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with FlopCounterMode(display=False) if count else \
+                contextlib.nullcontext() as fc:
+            out = cell.fn(*args)
+        torch.cuda.synchronize()
+        return out, fc.get_total_flops() if count else None, \
+            torch.cuda.max_memory_allocated() - self.launch_base
+
+    def launch_hold(self, what, pred, flops, peak):
+        """The card's flop count equal to the meta count, its peak within
+        LAUNCH_BAND of the prediction."""
+        mem = pred["memory"]
+        ok, rel = memory_band(peak, mem["per_device_total"])
+        if flops != pred["flops_per_device"] or not ok:
+            fail("launch", f"{what}: {flops:.6g} flops on the card against "
+                           f"{pred['flops_per_device']:.6g} on meta; peak "
+                           f"{peak:,} bytes against "
+                           f"{mem['per_device_total']:,} predicted "
+                           f"({rel:.1%}, band {LAUNCH_BAND:.0%})")
+        say("launch", f"{what}: {flops / 1e12:.3f} TFLOP counted on the "
+                      "card, equal to the meta count; peak "
+                      f"{peak / 2**30:.3f} GiB above the memory before the "
+                      f"args, predicted {mem['per_device_total'] / 2**30:.3f}"
+                      f" (argument {mem['argument'] / 2**30:.3f} + output "
+                      f"{mem['output'] / 2**30:.3f} - alias "
+                      f"{mem['alias'] / 2**30:.3f} + temp "
+                      f"{mem['temp'] / 2**30:.3f}): {rel:.1%} off (band "
+                      f"{LAUNCH_BAND:.0%})")
+        return rel
+
+    def launch_cell(self, arch, shape, mesh_shape, depth, fut):
+        """The cell on a mesh of the card named ``mesh_shape``'s size
+        times, the prediction from ``fut`` (printed), and one rank's share
+        of its args materialized on the card."""
+        torch = self.torch
+        from repro_torch.launch.dryrun import rank_share
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.launch.steps import build_cell, materialize
+        mesh = make_mesh(mesh_shape, ("data", "model"),
+                         [self.dev] * (mesh_shape[0] * mesh_shape[1]))
+        cell = build_cell(arch, shape, mesh, depth_override=depth)
+        torch.cuda.synchronize()
+        self.launch_base = torch.cuda.memory_allocated()
+        t0 = time.time()
+        args = materialize(cell, rank_share(cell), self.dev, seed=0)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        pred = fut.result()
+        mem = pred["memory"]
+        say("launch", f"{arch}/{shape} on one rank of {mesh_shape}"
+                      + (f", depth {depth}" if depth else "")
+                      + f" (args drawn on the card in {secs:.1f} s): "
+                      f"predicted {mem['per_device_total'] / 2**30:.3f} GiB "
+                      f"a device, {pred['flops_per_device'] / 1e12:.3f} "
+                      "TFLOP (meta), before the run")
+        return cell, pred, args
+
+    def launch_prefill(self, fut):
+        from repro_torch.launch.dryrun import PEAK_FLOPS
+        torch, Fa = self.torch, self.Fa
+        cell, pred, args = self.launch_cell("h2o_danube_3_4b", "prefill_32k",
+                                            (16, 1), None, fut)
+        t0 = time.time()
+        plain, flops, peak = self.launch_run(cell, args)
+        secs = time.time() - t0
+        self.launch_hold("danube prefill_32k (plain)", pred, flops, peak)
+        say("launch", f"danube prefill_32k, {tuple(args[1]['tokens'].shape)}"
+                      f" tokens: {secs:.3f} s (wall, under the flop "
+                      f"counter), {flops / secs / 1e12:.1f} TFLOP/s; "
+                      f"t_compute {1e3 * flops / PEAK_FLOPS:.1f} ms at 989 "
+                      f"TFLOP/s ({flops / PEAK_FLOPS / secs:.1%} of it)")
+        cell.model.use_flash = True
+        Fa.flash_fwd.launches = 0
+        try:
+            flash = cell.fn(*args)
+            torch.cuda.synchronize()
+        finally:
+            cell.model.use_flash = False
+        n = Fa.flash_fwd.launches
+        err = (flash.float() - plain.float()).abs().max().item()
+        if n != cell.model.cfg.num_layers or not torch.allclose(
+                flash.float(), plain.float(), atol=MODEL_ATOL,
+                rtol=MODEL_RTOL):
+            fail("launch", f"flash route: {n} launches, last-token logits "
+                           f"max abs err {err} against the plain route")
+        say("launch", f"danube prefill_32k through use_flash: {n} flash "
+                      f"launches, last-token logits max abs err {err:.4g} "
+                      f"against the plain route (atol {MODEL_ATOL}, rtol "
+                      f"{MODEL_RTOL}); card {self.card}")
+        del args, plain, flash
+
+    def launch_train(self, fut):
+        torch = self.torch
+        cell, pred, args = self.launch_cell("h2o_danube_3_4b", "train_4k",
+                                            (16, 1), 2, fut)
+        from repro_torch.launch.steps import make_train_config
+        params, opt, batch = args
+        # the step at the end of the warm-up, where the learning rate peaks
+        # (it is 0 at step 0; a bf16 weight moves when its update passes
+        # half its ulp)
+        opt.step.fill_(make_train_config(cell.arch, cell.shape).warmup_steps)
+        leaves = [t for _, t in _tree_items(params)]
+        before = [t.to("cpu", copy=True) for t in leaves]
+        # the peak is read without the flop counter: under it the backward
+        # (on the autograd engine's device thread) held 5.6 GiB more on an
+        # H100 (chip_memory.py), forward-only cells the same
+        (params, opt, metrics), _, peak = self.launch_run(cell, args,
+                                                          count=False)
+        loss = metrics["loss"].item()
+        moved = sum(not torch.equal(b, t.to("cpu"))
+                    for b, t in zip(before, leaves))
+        if not math.isfinite(loss) or moved != len(leaves):
+            fail("launch", f"train step: loss {loss}, {moved} of "
+                           f"{len(leaves)} parameters moved")
+        _, flops, _ = self.launch_run(cell, args)      # a second step
+        self.launch_hold(f"danube train_4k depth 2, "
+                         f"{tuple(batch['tokens'].shape)} tokens, "
+                         f"accum {cell.accum}", pred, flops, peak)
+        say("launch", f"train step: loss {loss:.4f}, all {moved} parameter "
+                      f"tensors moved, lr {metrics['lr'].item():.3g} (the "
+                      "flops from a second step); card "
+                      f"{self.card}")
+        del args, params, opt, batch, before, leaves
+
+    def launch_decode(self, fut):
+        torch = self.torch
+        cell, pred, args = self.launch_cell("mamba2_130m", "decode_32k",
+                                            (1, 1), None, fut)
+        cache = args[1]
+        ptrs = [t.data_ptr() for _, t in _tree_items(cache)]
+        (logits, out), flops, peak = self.launch_run(cell, args)
+        in_place = out is cache and ptrs == [
+            t.data_ptr() for _, t in _tree_items(out)]
+        written = all(bool(c.state.abs().sum() > 0) for c in out)
+        if not bool(torch.isfinite(logits).all()) or not in_place or \
+                not written:
+            fail("launch", f"decode: logits finite "
+                           f"{bool(torch.isfinite(logits).all())}, cache "
+                           f"in place {in_place}, every state written "
+                           f"{written}")
+        rel = self.launch_hold(f"mamba2 decode_32k, batch "
+                               f"{args[2].shape[0]}", pred, flops, peak)
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for _, t in _tree_items(cache))
+        caught = []
+        for fault in LAUNCH_FAULTS:
+            total = planted_memory(pred["memory"], fault, cache_bytes)
+            ok, frel = memory_band(peak, total)
+            if ok:
+                fail("launch", f"planted fault {fault!r} ({total:,} bytes "
+                               f"predicted) passes the band: {frel:.1%}")
+            caught.append(f"{fault} {frel:.1%} off")
+        say("launch", f"decode: logits {tuple(logits.shape)} finite, the "
+                      f"cache ({cache_bytes / 2**30:.3f} GiB) written in "
+                      f"place; the true prediction {rel:.1%} off, planted "
+                      f"faults fail the band: {'; '.join(caught)}")
+        del args, cache, logits, out
+
+    # --------------------------------------- 28. 512 hosts, 8 lanes, tiled
     def grid512(self):
         torch, T, Tl, Wn, Rf = self.torch, self.T, self.Tl, self.Wn, self.Rf
         from repro_torch.kernels.netsim_tick import ops
@@ -4087,7 +4408,7 @@ class Smoke:
                        + (f", first at tick {first}" if first is not None
                           else "") + f"; throughput max abs diff {err}")
 
-    # ------------------------------------------------------- 28. control
+    # ------------------------------------------------------- 29. control
     def control(self):
         torch, T, Wn = self.torch, self.T, self.Wn
         topo, wl, cfg = table1(T)
@@ -4137,7 +4458,7 @@ class Smoke:
                        f"for bit (alpha max {oa.stats.alpha_max:.0f}, queue "
                        f"max {oa.stats.qmax:.0f} B)")
 
-    # -------------------------------------------------------- 29. timing
+    # -------------------------------------------------------- 30. timing
     def timing(self):
         torch, K, Rf, Wn, Tl = self.torch, self.K, self.Rf, self.Wn, self.Tl
         from repro_torch.core.netsim.stages import stage_starts
@@ -4730,7 +5051,7 @@ class Smoke:
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 library_ms=library_ms))
 
-    # ------------------------------------------------------ 30. profile
+    # ------------------------------------------------------ 31. profile
     def profile(self):
         torch, T = self.torch, self.T
         from repro_torch.core.netsim.simulator import _window_body

@@ -10,8 +10,11 @@ Writes go to step_<n>.tmp then rename (atomic on POSIX).  bf16 leaves are
 stored as their ``uint16`` bits (numpy has no bf16), as the reference does.
 Trees are nested dicts, lists, tuples and NamedTuples of tensors or numpy
 arrays (``None`` leaves are skipped).  ``restore`` fills a tree shaped like
-the one it is given, each leaf on that leaf's device and in its dtype
-(the reference reshards onto a mesh; the port has one device).
+the one it is given, in each leaf's dtype: on the leaf's device, or, for a
+leaf given a sharding (the reference's elastic restore onto a mesh), on
+that sharding's mesh's first device, where the port's single controller
+keeps global values (``shard_map``'s replicated outputs are rank 0's).
+The like tree may be abstract (``ShapeDtypeStruct``s, meta tensors).
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from ..models.params import ShapeDtypeStruct
 
 __all__ = ["CheckpointManager"]
 
@@ -71,6 +76,13 @@ def _from_host(arr: np.ndarray, dtype: str, like):
     want = np.dtype(str(like.dtype).removeprefix("torch."))
     return t.float().numpy().astype(want) if dtype == "bfloat16" \
         else arr.astype(want)
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch or numpy dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return getattr(torch, np.dtype(dtype).name)
 
 
 class CheckpointManager:
@@ -136,13 +148,18 @@ class CheckpointManager:
         steps = self.list_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like_tree, verify=True):
+    def restore(self, step: int, like_tree, shardings=None, verify=True):
         """Restore into the structure of ``like_tree`` (tensors, numpy
-        arrays, or anything with ``shape`` and ``dtype``): each leaf comes
-        back on its like's device and in its dtype.  Returns (tree, the
+        arrays, ``ShapeDtypeStruct``s, or anything with ``shape`` and
+        ``dtype``), each leaf in its like's dtype.  ``shardings``: a
+        matching tree of ``NamedSharding``s (elastic restore onto a mesh):
+        a leaf with one comes back as a tensor on its mesh's first device;
+        a leaf without one on its like's device, which raises
+        ``ValueError`` for a meta tensor or a struct.  Returns (tree, the
         ``extra`` dict saved with it)."""
         d = self.dir / f"step_{step:08d}"
         manifest = json.loads((d / "manifest.json").read_text())
+        sh_flat = dict(_flatten(shardings)) if shardings is not None else {}
         out = {}
         for path, like in _flatten(like_tree):
             name = "__".join(path) or "root"
@@ -155,7 +172,18 @@ class CheckpointManager:
             if tuple(arr.shape) != tuple(like.shape):
                 raise ValueError(f"shape mismatch {name}: "
                                  f"{arr.shape} vs {tuple(like.shape)}")
-            out[path] = _from_host(arr, meta["dtype"], like)
+            sh = sh_flat.get(path)
+            if sh is not None:
+                out[path] = _from_host(arr, meta["dtype"], torch.empty(
+                    (), dtype=_torch_dtype(like.dtype),
+                    device=sh.mesh.devices.flat[0]))
+            elif isinstance(like, ShapeDtypeStruct) or \
+                    getattr(like, "is_meta", False):
+                raise ValueError(f"{name}: an abstract like (a meta tensor "
+                                 "or a struct) needs a sharding to say "
+                                 "where it goes")
+            else:
+                out[path] = _from_host(arr, meta["dtype"], like)
         return _unflatten_like(like_tree, out), manifest["extra"]
 
 

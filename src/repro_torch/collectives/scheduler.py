@@ -15,9 +15,9 @@ keeps the sender side aligned by
 :func:`sync_grads_local` runs INSIDE a
 :func:`~repro_torch.parallel.spmd.shard_map` rank that is manual over the
 data axes (``runtime/train.py``'s ``grad_sync="ring"``): per-rank partial
-gradients exist only there.  Gradients travel in ``RING_SYNC_DTYPE``
-(float32, the reference's ``flags.RING_SYNC_DTYPE`` default; its setter
-comes with the port of the flags).
+gradients exist only there.  Gradients travel in ``flags.RING_SYNC_DTYPE``
+(float32 unless ``flags.set_ring_sync_dtype`` names another), read at each
+call, as the reference's ``scheduler.py:82`` reads it.
 """
 from __future__ import annotations
 
@@ -27,13 +27,11 @@ from dataclasses import dataclass
 import torch
 from torch.utils import _pytree as pytree
 
+from .. import flags
 from ..parallel.spmd import axis_size, psum
 from .ring import hierarchical_all_reduce, ring_all_reduce_nd
 
-__all__ = ["BucketPlan", "plan_buckets", "sync_grads_local",
-           "RING_SYNC_DTYPE"]
-
-RING_SYNC_DTYPE = torch.float32
+__all__ = ["BucketPlan", "plan_buckets", "sync_grads_local"]
 
 
 @dataclass(frozen=True)
@@ -95,9 +93,10 @@ def sync_grads_local(grads, axes: tuple[str, ...], *, mode: str = "ring",
     # Leaf-wise rings chunked along dim 0; buckets still gate issue order.
     plan = plan_buckets([leaf.numel() for leaf in leaves], bucket_bytes)
     out_leaves: list = [None] * len(leaves)
+    wire_dtype = flags.ring_sync_dtype()
     for bucket in plan.bucket_of:
         for i in bucket:
-            g = leaves[i].to(RING_SYNC_DTYPE)
+            g = leaves[i].to(wire_dtype)
             if mode == "hierarchical" and "pod" in axes and len(axes) == 2:
                 inner = axes[1] if axes[0] == "pod" else axes[0]
                 red = hierarchical_all_reduce(

@@ -3,8 +3,10 @@ path, RoPE or M-RoPE, and unmasked cross attention.
 
 The port of ``repro/models/attention.py``.  The prefill softmax attention
 dispatches to the flash kernel when enabled, else to the plain torch
-version; cross attention (``cross=True``: no mask, positions may be
-``None``) never goes to the kernel, as in the reference.  Shapes:
+version (query-chunked above ``CHUNK_ABOVE`` rows, unless
+``flags.ROOFLINE_MODE`` asks for the unchunked one); cross attention
+(``cross=True``: no mask, positions may be ``None``) never goes to the
+kernel, as in the reference.  Shapes:
 activations are [batch, seq, d_model]; q/k/v are [batch, seq, heads,
 head_dim].  Decode KV caches are [batch, kv_heads, max_seq, head_dim] and
 are written in place.  Decode attention stays plain torch, as the
@@ -23,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import flags
 from ..config import ModelConfig
 from ..kernels.flash_attention.ops import flash_attention
 from ..parallel.sharding import padded
@@ -113,7 +116,7 @@ def flash_or_ref(q, k, v, q_pos, k_pos, window: int = 0, cross: bool = False,
                  use_flash: bool = False) -> torch.Tensor:
     if use_flash and not cross:
         return flash_attention(q, k, v, q_pos, k_pos, window=window)
-    if q.shape[1] > CHUNK_ABOVE:
+    if q.shape[1] > CHUNK_ABOVE and not flags.ROOFLINE_MODE:
         return ref_attention_chunked(q, k, v, q_pos, k_pos, window=window,
                                      cross=cross)
     return ref_attention(q, k, v, q_pos, k_pos, window=window, cross=cross)

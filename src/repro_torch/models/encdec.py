@@ -95,6 +95,15 @@ class EncDec(nn.Module):
         prm.init_tree(self, self.param_spec(), generator)
         return self
 
+    def abstract_params(self) -> dict:
+        """The parameter tree as ``ShapeDtypeStruct``s with their shardings
+        under the model's rules and mesh; nothing is allocated."""
+        return prm.abstract_tree(self.param_spec(), self.rules, self.mesh)
+
+    def param_shardings(self) -> dict:
+        """Each parameter's sharding under the model's rules and mesh."""
+        return prm.shardings_tree(self.param_spec(), self.rules, self.mesh)
+
     def _dt(self) -> torch.dtype:
         return getattr(torch, self.cfg.dtype)
 

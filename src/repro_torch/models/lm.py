@@ -139,6 +139,15 @@ class LM(nn.Module):
         prm.init_tree(self, self.param_spec(), generator)
         return self
 
+    def abstract_params(self) -> dict:
+        """The parameter tree as ``ShapeDtypeStruct``s with their shardings
+        under the model's rules and mesh; nothing is allocated."""
+        return prm.abstract_tree(self.param_spec(), self.rules, self.mesh)
+
+    def param_shardings(self) -> dict:
+        """Each parameter's sharding under the model's rules and mesh."""
+        return prm.shardings_tree(self.param_spec(), self.rules, self.mesh)
+
     # ------------------------------------------------------------ forward
     def _ffn(self, bp: Block, x: torch.Tensor):
         """The layer's FFN on ``x`` (after ``ln2``): ``(out, aux)``, aux

@@ -44,7 +44,8 @@ multiply.  ``jax.nn.gelu`` is the tanh approximation.  The auxiliary loss
 through the probabilities only.
 
 Long inputs are dispatched in ``DISPATCH_CHUNK``-token chunks (one chunk
-when the token count is not a multiple); their aux losses are summed.
+when the token count is not a multiple, or all tokens in one under
+``flags.ROOFLINE_MODE``); their aux losses are summed.
 """
 from __future__ import annotations
 
@@ -53,6 +54,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .. import flags
 from ..config import ModelConfig
 from ..parallel.spmd import P, all_to_all, in_rank, pmean, shard_map
 from .params import ParamSpec
@@ -258,7 +260,7 @@ def _moe_chunk_ep(xt, router, wi, wo, cfg: ModelConfig, ep: int):
 def _moe_tokens(xt, router, wi, wo, cfg: ModelConfig, ep: int = 1):
     """Chunked dispatch over the token axis (over ``ep`` ranks)."""
     T, d = xt.shape
-    chunk = min(DISPATCH_CHUNK, T)
+    chunk = T if flags.ROOFLINE_MODE else min(DISPATCH_CHUNK, T)
     if T % chunk:
         chunk = T       # irregular small inputs: a single chunk
     if ep > 1:

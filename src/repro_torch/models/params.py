@@ -3,13 +3,21 @@
 Models declare parameters as `ParamSpec` descriptors (shape + logical axes +
 initializer), as the reference does (``repro/models/params.py``).  The same
 tree sizes a model without allocating it (:func:`count_params`,
-:func:`param_bytes`) and materializes it as ``nn.ParameterDict``s
-(:func:`module_from_spec`, :func:`init_tree`).
+:func:`param_bytes`), materializes it as ``nn.ParameterDict``s
+(:func:`module_from_spec`, :func:`init_tree`), and describes it for the
+dry-run: :func:`abstract_tree` gives a :class:`ShapeDtypeStruct` a leaf
+(shape, dtype and its sharding on a mesh, nothing allocated),
+:func:`shardings_tree` the shardings alone, and :func:`shard_shape` /
+:func:`shard_bytes` what one device holds of a leaf.
 
 The port keeps one tree entry per layer where the reference stacks a
 leading ``[n_groups]`` axis; ``ParamSpec.stack`` records that axis so that
 the fan-in rule, which counts every axis but the last, gives the same
-standard deviation as the reference's stacked leaf.
+standard deviation as the reference's stacked leaf.  The stacked axis is
+the reference's logical axis ``"layers"``, which no rule maps to a mesh
+axis, so a per-layer leaf's sharding is the stacked leaf's without its
+first entry, and the per-layer leaves of a stack hold as many bytes a
+device as the stacked leaf.
 """
 from __future__ import annotations
 
@@ -20,9 +28,12 @@ from typing import Any, Iterator
 import torch
 from torch import nn
 
-__all__ = ["ParamSpec", "tree_leaves_with_path", "count_params",
-           "param_bytes", "cast_tree", "init_leaf", "init_tree", "param_at",
-           "module_from_spec"]
+from ..parallel.sharding import NamedSharding, sharding_for
+
+__all__ = ["ParamSpec", "ShapeDtypeStruct", "tree_leaves_with_path",
+           "count_params", "param_bytes", "cast_tree", "init_leaf",
+           "init_tree", "param_at", "module_from_spec", "abstract_tree",
+           "shardings_tree", "shard_shape", "shard_bytes", "unflatten"]
 
 
 @dataclass(frozen=True)
@@ -40,7 +51,44 @@ class ParamSpec:
                              "differ in rank")
 
 
+@dataclass(frozen=True)
+class ShapeDtypeStruct:
+    """A tensor's description without its values (``jax.ShapeDtypeStruct``):
+    shape, dtype and, when it is placed on a mesh, its sharding."""
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+    sharding: NamedSharding | None = None
+
+
 ParamTree = dict  # nested dict[str, ParamTree | ParamSpec]
+
+
+def _itemsize(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def shard_shape(shape: tuple[int, ...], sharding: NamedSharding | None
+                ) -> tuple[int, ...]:
+    """One device's block of a tensor of ``shape`` under ``sharding``: each
+    dimension over the product of its mesh axes, rounded up (what XLA
+    allocates a device for an evenly tiled sharding); the whole shape
+    without a sharding."""
+    if sharding is None:
+        return tuple(shape)
+    sizes = sharding.mesh.shape
+    out = list(shape)
+    for i, part in enumerate(sharding.spec):
+        if part is None:
+            continue
+        n = math.prod(sizes[a] for a in
+                      ((part,) if isinstance(part, str) else part))
+        out[i] = -(-out[i] // n)
+    return tuple(out)
+
+
+def shard_bytes(x) -> int:
+    """Bytes one device holds of ``x`` (a :class:`ShapeDtypeStruct`)."""
+    return math.prod(shard_shape(x.shape, x.sharding)) * _itemsize(x.dtype)
 
 
 def tree_leaves_with_path(tree: ParamTree, prefix=()
@@ -57,8 +105,35 @@ def count_params(tree: ParamTree) -> int:
 
 
 def param_bytes(tree: ParamTree) -> int:
-    return sum(math.prod(s.shape) * torch.empty((), dtype=s.dtype).itemsize
+    return sum(math.prod(s.shape) * _itemsize(s.dtype)
                for _, s in tree_leaves_with_path(tree))
+
+
+def unflatten(flat: dict) -> dict:
+    """Nested dicts from ``{path tuple: leaf}``."""
+    out: dict = {}
+    for path, v in flat.items():
+        d = out
+        for k in path[:-1]:
+            d = d.setdefault(k, {})
+        d[path[-1]] = v
+    return out
+
+
+def abstract_tree(tree: ParamTree, rules, mesh) -> dict:
+    """The tree's leaves as :class:`ShapeDtypeStruct`s, each with its
+    sharding under ``rules`` on ``mesh`` (none without a mesh)."""
+    return unflatten({
+        path: ShapeDtypeStruct(
+            spec.shape, spec.dtype,
+            None if mesh is None else sharding_for(spec.axes, rules, mesh))
+        for path, spec in tree_leaves_with_path(tree)})
+
+
+def shardings_tree(tree: ParamTree, rules, mesh) -> dict:
+    """Each leaf's sharding under ``rules`` on ``mesh``."""
+    return unflatten({path: sharding_for(spec.axes, rules, mesh)
+                       for path, spec in tree_leaves_with_path(tree)})
 
 
 def init_leaf(out: torch.Tensor, spec: ParamSpec,

@@ -7,9 +7,9 @@ ssd_reference`); decode is the O(1)-per-token recurrence with a conv window
 state.  The reference's dtype flow is kept: the depthwise conv runs in the
 input dtype and its SiLU in float32; dt, A, the log decay and the scan
 inputs are float32; the gated RMSNorm is float32, cast back before the
-output projection.  (``ssd_reference_vec`` and the ``flags`` switches serve
-only the reference's roofline lowering; they wait for the launch step,
-ROADMAP queue 1 item 1, left 5.)
+output projection.  Under ``flags.ROOFLINE_MODE`` the plain path runs
+:func:`ssd_reference_vec`, the scan vectorized over chunks (the dry-run's
+loop-free route; ``flags.SSD_BF16`` keeps its O(Q^2) tensors in bf16).
 
 Shapes: x_in [B, S, d_model]; heads H = d_inner / head_dim; state N =
 cfg.ssm.d_state.
@@ -21,14 +21,15 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from .. import flags
 from ..config import ModelConfig
 from ..kernels.ssd.ops import ssd
-from ..kernels.ssd.ref import ssd_reference
+from ..kernels.ssd.ref import segsum_exp, ssd_reference
 from ..parallel.sharding import padded
 from .params import ParamSpec
 
 __all__ = ["ssm_dims", "ssm_spec", "SSMCache", "ssm_block", "ssm_decode",
-           "init_ssm_cache"]
+           "init_ssm_cache", "ssd_reference_vec"]
 
 
 def ssm_dims(cfg: ModelConfig, tp: int) -> tuple[int, int]:
@@ -105,6 +106,50 @@ def _gated_out(p, y, xh, z, x_in) -> torch.Tensor:
     return y.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
 
 
+def _wide(x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """``x`` rounded to ``dt``, then float32: a product of such values
+    accumulates in float32 (``preferred_element_type=jnp.float32``)."""
+    return x.to(dt).float()
+
+
+def ssd_reference_vec(x, a, Bm, Cm, chunk: int):
+    """The SSD scan vectorized over chunks (the reference's
+    ``ssm.py:127-175``): every chunk's diagonal block and chunk state at
+    once, then the inter-chunk recurrence unrolled.  Shapes and returns as
+    :func:`~repro_torch.kernels.ssd.ref.ssd_reference`.  Memory-heavy: the
+    roofline route, not the production one.  ``flags.SSD_BF16`` keeps the
+    [Q, Q] decay and score tensors and the products' inputs in bf16; the
+    cumulative sums, exponentials and states stay float32."""
+    wdt = torch.bfloat16 if flags.SSD_BF16 else torch.float32
+    B, S, H, P = x.shape
+    N, Q = Bm.shape[-1], chunk
+    if S % Q:
+        raise ValueError(f"ssd_reference_vec: S={S} is not a multiple of "
+                         f"the chunk {Q}")
+    nc = S // Q
+    xc = x.reshape(B, nc, Q, H, P)
+    ac = a.reshape(B, nc, Q, H).float()
+    Bc = Bm.reshape(B, nc, Q, N).to(wdt)
+    Cc = Cm.reshape(B, nc, Q, N).to(wdt)
+    L = segsum_exp(ac.transpose(2, 3)).to(wdt)          # [B, nc, H, Q, Q]
+    G = torch.einsum("bcqn,bckn->bcqk", Cc.float(), Bc.float()).to(wdt)
+    y_diag = torch.einsum("bchqk,bckhp->bcqhp",
+                          _wide(G[:, :, None] * L, wdt), _wide(xc, wdt))
+    cum = ac.cumsum(2)
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum).to(wdt)
+    states = torch.einsum("bcqn,bcqh,bcqhp->bchpn", Bc.float(),
+                          decay_to_end.float(), _wide(xc, wdt))
+    chunk_decay = torch.exp(cum[:, :, -1, :])           # [B, nc, H]
+    cur = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    entering = []
+    for c in range(nc):
+        entering.append(cur)
+        cur = cur * chunk_decay[:, c][..., None, None] + states[:, c]
+    y_off = torch.einsum("bcqn,bchpn,bcqh->bcqhp", Cc.float(),
+                         torch.stack(entering, dim=1), torch.exp(cum))
+    return (y_diag + y_off).reshape(B, S, H, P), cur
+
+
 def ssm_block(p, x_in: torch.Tensor, cfg: ModelConfig,
               use_kernel: bool = False) -> torch.Tensor:
     """Train/prefill SSD mixer. x_in: [B, S, d_model]."""
@@ -132,7 +177,8 @@ def ssm_block(p, x_in: torch.Tensor, cfg: ModelConfig,
             a = F.pad(a, (0, 0, 0, pad))
             Bm = F.pad(Bm, (0, 0, 0, pad))
             Cm = F.pad(Cm, (0, 0, 0, pad))
-        y, _ = ssd_reference(xs, a, Bm, Cm, chunk=s.chunk_size)
+        scan = ssd_reference_vec if flags.ROOFLINE_MODE else ssd_reference
+        y, _ = scan(xs, a, Bm, Cm, chunk=s.chunk_size)
         y = y[:, :S]
     return _gated_out(p, y, xh, z, x_in)
 

@@ -5,7 +5,9 @@ interface it calls another commit's library through (by its ``*_abi()``
 tag; stub libraries, nothing is launched).  For the lanes, moe and jamba
 phases: the dropped-assignment counter against a hand-built routing, and
 the lane-split check, which a planted fault (shares that renumber their
-lanes) must fail.
+lanes) must fail.  For the launch phase: the memory band on numbers fed
+in (the true prediction passes, both planted faults fail), its place in
+``PHASES`` and its dry-run task in this process.
 """
 import importlib.util
 import types
@@ -325,3 +327,52 @@ def test_flash_calls_by_stream_counts_and_restores(cs, monkeypatch):
         ops.flash_attention(q, q, q).sum().backward()
     assert (ops.flash_fwd, ops.flash_bwd) == (fwd, bwd)
     assert calls == {("fwd", 7): 1, ("bwd", 7): 1}
+
+
+# ------------------------------------------------------------ launch
+
+# a mamba2 decode_32k prediction on one card, bytes (the dry-run's record
+# on a (1, 1) mesh: the cache, 2.45 GB, is donated and aliased)
+DECODE_MEM = {"argument": 2_706_890_240, "output": 2_462_384_128,
+              "alias": 2_449_473_536, "temp": 397_410_304}
+DECODE_CACHE = 2_449_473_536
+
+
+def test_launch_is_listed_after_gpipe(cs):
+    p = list(cs.PHASES)
+    assert p.index("gpipe") < p.index("launch") < p.index("grid512")
+    assert cs.LAUNCH_FAULTS == ("donation ignored", "cache dropped")
+
+
+@pytest.mark.parametrize("off", [-0.14, 0.0, 0.1, 0.149])
+def test_memory_band_passes_the_true_prediction(cs, off):
+    total = DECODE_MEM["argument"] + DECODE_MEM["output"] - \
+        DECODE_MEM["alias"] + DECODE_MEM["temp"]
+    ok, rel = cs.memory_band(int(total * (1 + off)), total)
+    assert ok and rel == pytest.approx(abs(off), abs=1e-9)
+
+
+@pytest.mark.parametrize("fault", ["donation ignored", "cache dropped"])
+def test_memory_band_fails_the_planted_faults(cs, fault):
+    true = DECODE_MEM["argument"] + DECODE_MEM["output"] - \
+        DECODE_MEM["alias"] + DECODE_MEM["temp"]
+    wrong = cs.planted_memory(DECODE_MEM, fault, DECODE_CACHE)
+    ok, rel = cs.memory_band(true, wrong)
+    assert not ok and rel > 2 * cs.LAUNCH_BAND
+    with pytest.raises(ValueError):
+        cs.planted_memory(DECODE_MEM, "no such fault", DECODE_CACHE)
+
+
+def test_launch_task_predicts_a_cell_on_meta(cs):
+    """The launch phase's worker task: the meta prediction of mamba2's
+    decode cell on one device, whose donated cache is aliased."""
+    rec = cs.launch_task(("predict", "mamba2_130m", "decode_32k", (1, 1),
+                          1))
+    mem = rec["memory"]
+    assert mem["alias"] > 0 and not mem["temp_at_full_model_width"]
+    assert mem["per_device_total"] == mem["argument"] + mem["output"] - \
+        mem["alias"] + mem["temp"]
+    assert rec["flops_per_device"] > 0
+    items = list(cs._tree_items({"a": [torch.zeros(2), (torch.ones(1),)],
+                                 "b": None}))
+    assert [p for p, _ in items] == [("a", 0), ("a", 1, 0)]

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``repro_torch`` and nothing in
-``chip_smoke.py`` or ``chip_variants.py`` (the kernel variants tool, which
-holds the flash forward's) imports jax, ``ml_dtypes`` or the JAX package
+``chip_smoke.py``, ``chip_variants.py`` (the kernel variants tool, which
+holds the flash forward's) or ``chip_memory.py`` (where a launch cell's
+peak memory goes) imports jax, ``ml_dtypes`` or the JAX package
 ``repro``."""
 import re
 import subprocess
@@ -50,7 +51,8 @@ def test_port_imports_no_jax_and_no_reference():
                 "kernels.ssd.kernel", "kernels.ssd.ops", "kernels.ssd.ref",
                 "models.ssm", "models.mla", "models.encdec", "launch.mesh",
                 "parallel.spmd", "parallel.pipeline", "collectives.ring",
-                "collectives.scheduler", "optim.compress"):
+                "collectives.scheduler", "optim.compress", "launch.dryrun",
+                "flags"):
         assert f"repro_torch.{mod}" in names, names
     assert bad == "[]", f"port pulled in {bad}"
 
@@ -70,3 +72,11 @@ def test_chip_flash_imports_no_jax_and_no_reference():
     assert not hits, hits
     assert any("repro_torch" in line for line in src)
 
+
+
+def test_chip_memory_imports_no_jax_and_no_reference():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|repro|ml_dtypes)(\s|\.|$)")
+    src = (ROOT / "chip_memory.py").read_text().splitlines()
+    hits = [line for line in src if pat.match(line)]
+    assert not hits, hits
+    assert any("repro_torch" in line for line in src)
