@@ -142,11 +142,12 @@ that fails:
             own scan inputs through the kernel against the plain scan, a
             256-token prompt decoded against its prefill, 12 requests
             drained through ServeEngine; the model is freed after
-17. mla     minicpm3-4b at full width (62 layers, d_model 2,560, 40 heads,
-            MLA ranks 768/256, qk 64 + 32, v 64; 4.07 B bf16 parameters
+17. mla     minicpm3-4b at full width cut to 31 of 62 layers (d_model
+            2,560, 40 heads, MLA ranks 768/256, qk 64 + 32, v 64; 2.13 B
+            bf16 parameters
             drawn on the card from seed 0; param_count checked),
             build_model(cfg, use_flash=True): one prefill of 1 x 32,768
-            tokens (62 flash launches counted at D 96: V padded 64 -> 96),
+            tokens (31 flash launches counted at D 96: V padded 64 -> 96),
             the attention of minicpm3's layout (shared rope key, padded V)
             through the kernel against the chunked plain attention on
             N(0,1) inputs at that length, the last-token logits of a 1 x
@@ -223,7 +224,21 @@ that fails:
             named 4 times, 4 microbatches of 1 x 4,096: GPipe's 7 ticks,
             each microbatch bit-equal to the 4 blocks applied in turn on
             one device
-27. launch  the launch layer (``launch/steps.py``, ``launch/dryrun.py``):
+27. tp      tensor parallelism (GSPMD's partitioning of the dense GQA
+            family, ``models/lm.py``) over the card named 8 and 4 times:
+            danube at full width cut to 2 of 24 layers on (data 2, model
+            4), float32, a global batch of 4 x 4,096: one step of
+            make_train_step with grad_sync "xla", then with FSDP, then
+            "ring", each against one device's step on the same padded
+            tree (gradients per leaf, loss, gradient norm, every leaf's
+            update), its collectives by kind, ms, the sync's ms and peak
+            memory; danube's 24 layers prefilling 1 x 32,768 tokens on
+            (data 1, model 4) through the flash forward at a rank's shape
+            (8 q heads, 2 KV heads a rank; launches per rank counted),
+            last-token logits against the one-device flash route at the
+            prefill phase's model tolerance, tokens/s and peak memory; the
+            flash forward and backward kernels timed at a rank's shapes
+28. launch  the launch layer (``launch/steps.py``, ``launch/dryrun.py``):
             the dry-run's records (meta devices, in worker processes) of
             danube's and mamba2's four cells on both production meshes
             (GiB a device, TFLOP, the three roofline terms at the card's
@@ -242,15 +257,20 @@ that fails:
             mamba2 decode_32k, the whole cell on a (1, 1) mesh of the card
             (batch 128; logits finite, the cache written in place, peak
             within the band); two planted faults of the decode prediction
-            (donation ignored, the cache's bytes dropped) must fail the band
-28. grid512 the 512-host grid (16 pods; sym off/on x 4 seeds as lanes),
+            (donation ignored, the cache's bytes dropped) must fail the band;
+            the card's total memory equal to the dry-run's HBM_BYTES; and
+            one partitioned record held to the card: danube train_4k on one
+            rank of (data 16, model 16) at depth 2, run alone
+            (spmd.lone_rank) on real tensors, its flop count equal to the
+            meta count and its peak within TP_LAUNCH_BAND (5 %)
+29. grid512 the 512-host grid (16 pods; sym off/on x 4 seeds as lanes),
             1,000 ticks: the tiled tick (blk=2048, tick_window=1) and the
             window kernel (tick_window=20), their launches counted, against
             their plain versions on the card and against eager
-29. control SimController on the card (Table 1, window_ticks=640,
+30. control SimController on the card (Table 1, window_ticks=640,
             tick_window=20): stepping equals one-shot simulate, tau retuned
             mid-run, checkpoint/restore replays bit for bit
-30. timing  each kernel's device time per launch against its plain
+31. timing  each kernel's device time per launch against its plain
             version's and its bound, at the main paths' shapes (the flash
             forward also against one scaled_dot_product_attention call, at
             the prefill's shape with a window mask and at the training
@@ -266,7 +286,7 @@ that fails:
             tick and switch pipeline (the first port's interface or the
             shipped one, by each library's ``*_abi`` tag), timed in turns
             beside the shipped ones)
-31. profile main-path ticks/s (Table 1 with 1 lane through ``simulate``,
+32. profile main-path ticks/s (Table 1 with 1 lane through ``simulate``,
             128 hosts x 8 lanes, 512 hosts x 8 lanes) and where a tick's
             time goes: wall and device-busy time, the busiest kernels; one
             profiled 32,768-token prefill: the flash kernel's, the matrix
@@ -291,6 +311,8 @@ The line before the last is the kernel report (JSON); the last line is
         # the MLA, M-RoPE and encoder-decoder families
     python3 chip_smoke.py build ring dp ep gpipe
         # collectives, data-parallel training, EP and GPipe over ranks
+    python3 chip_smoke.py build tp launch
+        # tensor parallelism and the partitioned dry-run record
     python3 chip_smoke.py build launch
         # the cells and the dry-run's prediction
     python3 chip_smoke.py --against DIR build ssd mamba timing
@@ -353,7 +375,7 @@ INT_SERIES = ("finish_ticks", "job_finish_ticks", "ts_min_wire",
 PHASES = ("build", "math", "kernel", "window", "tiled", "large", "switch",
           "flash", "flash_bwd", "prefill", "serve", "train", "ssd", "mamba",
           "moe", "jamba", "mla", "vlm", "whisper", "goldens", "multipod",
-          "lanes", "ring", "dp", "ep", "gpipe", "launch", "grid512",
+          "lanes", "ring", "dp", "ep", "gpipe", "tp", "launch", "grid512",
           "control", "timing", "profile")
 # (F, FW, H, L+1, J, DJ) of the multipod grids the tick and window kernels
 # run at 128 hosts (ids in shared memory) and 512 hosts (ids in global
@@ -461,7 +483,11 @@ JAMBA_PERIOD_PARAMS = 12_999_163_392
 DECODE_T = 256
 # The MLA, M-RoPE and encoder-decoder families at full width (bf16 weights
 # drawn on the card from seed 0): the reference's param_count of each
-LEFT3_PARAMS = {"minicpm3_4b": 4_073_875_968, "qwen2_vl_2b": 1_543_656_960,
+# minicpm3-4b cut to 31 of its 62 layers (the whole script's time limit);
+# the other families at full depth
+LEFT3_LAYERS = {"minicpm3_4b": 31}
+LEFT3_PARAMS = {"minicpm3_4b": 2_130_952_704,
+                "qwen2_vl_2b": 1_543_656_960,
                 "whisper_large_v3": 1_537_303_040}
 # their flash forward shapes, held against the plain version in *flash*
 # (S 4,096 for the decoders; whisper's teacher-forced prefill) and timed
@@ -476,7 +502,7 @@ FAMILY_FLASH = {"mla": ("minicpm3", 1, 40, 40, FLASH_S, 96),
 # on an NVIDIA H100 80GB HBM3 at 700 W)
 PLAIN_S = 4096
 # minicpm3's and qwen2-vl's serving cell: 8 requests of 16-48 prompt tokens,
-# 16 new each (a decode call walks 62 layers for minicpm3)
+# 16 new each (a decode call walks 31 layers for minicpm3)
 LEFT3_REQUESTS, LEFT3_NEW = 8, 16
 # the reference's MLA decode-vs-prefill tolerance (tests/test_models.py:
 # 134-150)
@@ -533,6 +559,28 @@ GPIPE_STAGES, GPIPE_MB = 4, 4
 # dry-run's predicted argument + output - alias + temp, within LAUNCH_BAND
 # (relative); the faults planted in the decode cell's prediction
 LAUNCH_ARCHS = ("h2o_danube_3_4b", "mamba2_130m")
+# the partitioned record held to the card: danube train_4k on one rank of
+# (data 16, model 16) at depth 2, its peak within TP_LAUNCH_BAND
+TP_LAUNCH = ("h2o_danube_3_4b", "train_4k", (16, 16), 2)
+TP_LAUNCH_BAND = 0.05
+# the tp phase: danube at full width cut to DP_LAYERS layers on (data 2,
+# model 4), float32, a global batch of TP_B x 4,096, one step of the
+# tensor-parallel make_train_step (xla, fsdp, ring) against one device's
+# on the same padded tree.  On CPU ranks at smoke width the step reads
+# (tests/test_torch_tp.py): losses 1.2e-7 relative, gradient norms
+# equal, gradients per leaf within 1e-4 rtol; the card's float32 matrix
+# products split differently at a rank's width, so gradients are held at
+# a relative L2 distance of TP_GRAD_REL_L2 a leaf, losses and norms at
+# TP_LOSS_RTOL, and each leaf's update (AdamW's first step at the warm-up
+# peak moves an entry by about lr times its gradient's sign, so an entry
+# whose gradient lies within rounding of 0 may move the other way) at a
+# relative L2 distance of TP_UPDATE_REL_L2
+TP_MESH, TP_B = (2, 4), 4
+TP_GRAD_REL_L2 = 1e-4
+TP_LOSS_RTOL = 1e-5
+TP_UPDATE_REL_L2 = 1e-2
+# the tp prefill: danube's 24 layers, 1 x 32,768 tokens on (data 1, model 4)
+TP_PREFILL_MESH = (1, 4)
 LAUNCH_BAND = 0.15
 LAUNCH_FAULTS = ("donation ignored", "cache dropped")
 
@@ -3249,6 +3297,8 @@ class Smoke:
         from repro_torch.configs import registry
         from repro_torch.models import build_model
         cfg = registry.get_config(arch)
+        if arch in LEFT3_LAYERS:
+            cfg = dataclasses.replace(cfg, num_layers=LEFT3_LAYERS[arch])
         t0 = time.time()
         model = build_model(cfg, use_flash=True, seed=0)
         self.torch.cuda.synchronize()
@@ -3384,7 +3434,7 @@ class Smoke:
         self.decode_against_prefill("mla", model, atol=MLA_DECODE_ATOL,
                                     rtol=MLA_DECODE_RTOL, every=True)
         self.family_serve("mla", model, LEFT3_REQUESTS, LEFT3_NEW)
-        del model, run                  # 8.1 GB of weights
+        del model, run                  # 4.3 GB of weights
         torch.cuda.empty_cache()
 
     def grid_positions(self, S):
@@ -4095,7 +4145,315 @@ class Smoke:
                      f"in turn (wall); card {self.card}")
         del stages, got, want
 
-    # ------------------------------------- 27. launch: cells and dry-run
+    # ------------------------------ 27. tensor parallelism over the card
+    def tp(self):
+        """danube's tensor-parallel training step and prefill over the card
+        named 8 and 4 times, each against one device."""
+        self.tp_train()
+        self.tp_prefill()
+        self.tp_kernels()
+
+    def tp_grads(self, model, batch):
+        """One device's float32 loss and gradients (parameter order)."""
+        from repro_torch.runtime import make_loss_fn
+        loss = make_loss_fn(model, model.cfg)(batch)
+        g = self.torch.autograd.grad(loss, list(model.parameters()))
+        return float(loss.detach()), [x.detach() for x in g]
+
+    def tp_train(self):
+        torch, Fa = self.torch, self.Fa
+        from repro_torch.config import LM_SHAPES
+        from repro_torch.configs import registry
+        from repro_torch.data import DataConfig, SyntheticLM
+        from repro_torch.kernels.flash_attention import ops as flash_ops
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.launch.steps import (make_parallel_config,
+                                              make_train_config)
+        from repro_torch.models import build_model
+        from repro_torch.models.model import make_model, replicate
+        from repro_torch.models.params import cast_tree
+        from repro_torch.optim import init_opt_state
+        from repro_torch.parallel import spmd
+        from repro_torch.parallel.sharding import gather_shards, make_rules
+        from repro_torch.runtime import make_train_step
+        arch = "h2o_danube_3_4b"
+        cfg = dataclasses.replace(registry.get_config(arch),
+                                  num_layers=DP_LAYERS, dtype="float32")
+        spec = next(sp for sp in LM_SHAPES if sp.name == "train_4k")
+        tcfg = dataclasses.replace(make_train_config(arch, spec),
+                                   global_batch=TP_B)
+        par = make_parallel_config(arch, "train_4k")
+        n = TP_MESH[0] * TP_MESH[1]
+        mesh = make_mesh(TP_MESH, ("data", "model"), [self.dev] * n)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model = cast_tree(build_model(cfg, par, use_flash=True, seed=0,
+                                      mesh=mesh), torch.float32)
+        one = replicate(model, self.dev, one_device=True)
+        init = [p.detach().clone() for p in model.parameters()]
+        names = [k for k, _ in model.named_parameters()]
+        toks, labs = SyntheticLM(DataConfig(cfg.vocab_size, spec.seq_len,
+                                            TP_B, seed=0)).batch(0)
+        batch = {"tokens": torch.from_numpy(toks).to(self.dev),
+                 "labels": torch.from_numpy(labs).to(self.dev)}
+        say("tp", f"{cfg.name} at full width cut to {DP_LAYERS} of 24 layers"
+                  f" on {dict(mesh.shape)} (the card named {n} times), "
+                  f"float32, {sum(p.numel() for p in init):,} parameters "
+                  f"(heads {model.blocks[0].attn['wq'].shape[1]} padded "
+                  f"for tp {model.tp}, vocabulary {model.vocab_padded}); "
+                  f"remat {par.remat}; SyntheticLM {TP_B} x {spec.seq_len};"
+                  f" against one device's step on the same padded tree")
+
+        def fresh(m):
+            opt = init_opt_state(dict(m.named_parameters()), tcfg)
+            return opt._replace(step=torch.full_like(opt.step,
+                                                     tcfg.warmup_steps))
+
+        loss1, g1 = self.tp_grads(one, batch)
+        _, met1 = make_train_step(one, cfg, tcfg, par)(fresh(one), batch)
+        upd1 = [p.detach() - q for p, q in zip(one.parameters(), init)]
+        del one
+        torch.cuda.empty_cache()
+        rel = lambda a, b: float((a - b).norm() /           # noqa: E731
+                                 b.norm().clamp_min(1e-30))
+        for mode, fsdp in (("xla", False), ("xla", True), ("ring", False)):
+            what = f"grad_sync {mode}" + (", FSDP" if fsdp else "")
+            p_mode = dataclasses.replace(par, grad_sync=mode, fsdp=fsdp)
+            m = model if not fsdp else cast_tree(make_model(
+                cfg, p_mode, True, device=self.dev, mesh=mesh,
+                rules=make_rules(fsdp=True)), torch.float32)
+            with torch.no_grad():
+                for p, q in zip(m.parameters(), init):
+                    p.copy_(q)
+            step = make_train_step(m, cfg, tcfg, p_mode, mesh)
+            loss, grads = step.grads(batch)
+            specs = m.param_specs()
+            worst = max((rel(gather_shards([g[k] for g in grads], specs[k],
+                                           mesh), g1[i]), k)
+                        for i, k in enumerate(names))
+            del grads
+            sync_ms = self.tp_sync_ms(step, batch)
+            opt = fresh(m)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            Fa.flash_fwd.launches = 0                 # main path starts
+            Fa.flash_bwd.launches_dq = Fa.flash_bwd.launches_dkv = 0
+            spmd.TALLY.clear()
+            with flash_calls_by_stream(torch, flash_ops) as calls:
+                t0 = time.time()
+                opt, met = step(opt, batch)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.time() - t0)
+            n_fwd = Fa.flash_fwd.launches             # main path ends
+            n_bwd = (Fa.flash_bwd.launches_dq, Fa.flash_bwd.launches_dkv)
+            kinds = spmd.TALLY.by_kind()
+            peak = torch.cuda.max_memory_allocated()
+            upd = max((rel(p.detach() - q, u), k) for k, p, q, u in zip(
+                names, m.parameters(), init, upd1))
+            L = len(m.blocks)
+            l_rel = abs(float(met["loss"]) / float(met1["loss"]) - 1)
+            n_rel = abs(float(met["grad_norm"]) / float(met1["grad_norm"]) - 1)
+            rank_of = {st.cuda_stream: key[0]
+                       for key, st in mesh.streams.items()}
+            per_rank = collections.Counter()
+            for (kind, sid), c in calls.items():
+                per_rank[(rank_of.get(sid, -1), kind)] += c
+            want = {(r, kind): c for r in range(n)
+                    for kind, c in (("fwd", 2 * L), ("bwd", L))}
+            if worst[0] > TP_GRAD_REL_L2 or l_rel > TP_LOSS_RTOL or \
+                    n_rel > TP_LOSS_RTOL or upd[0] > TP_UPDATE_REL_L2 or \
+                    n_fwd != 2 * L * n or n_bwd != (L * n, L * n) or \
+                    dict(per_rank) != want or len(kinds) < 2:
+                fail("tp", f"{what}: calls per (rank, kind) "
+                           f"{dict(per_rank)}; worst gradient {worst}, losses "
+                           f"{float(met['loss'])} / {float(met1['loss'])}, "
+                           f"norms {float(met['grad_norm'])} / "
+                           f"{float(met1['grad_norm'])}, worst update {upd};"
+                           f" flash launches {n_fwd} forward, {n_bwd} "
+                           f"backward (want {2 * L * n}, {L * n}); "
+                           f"collectives {kinds}")
+            self.launches[("tp", what)] = (n_fwd,) + n_bwd
+            self.rates[("tp", what)] = (ms, sync_ms, peak)
+            say("tp", f"{what}: loss {float(met['loss']):.6f} (one device "
+                      f"{float(met1['loss']):.6f}, {l_rel:.2g} rel), grad "
+                      f"norm {float(met['grad_norm']):.6f} ({n_rel:.2g} "
+                      f"rel), worst gradient {worst[0]:.3g} rel L2 "
+                      f"({worst[1]}; tolerance {TP_GRAD_REL_L2}), worst "
+                      f"update {upd[0]:.3g} ({upd[1]}; tolerance "
+                      f"{TP_UPDATE_REL_L2}); collectives {kinds}; flash "
+                      f"{n_fwd} forward (forward and recompute), {n_bwd[0]} "
+                      f"dq, {n_bwd[1]} dk/dv launches ({2 * L} forward and "
+                      f"{L} backward calls on each rank's stream); "
+                      f"{ms:.1f} ms a step ("
+                      f"{TP_B * spec.seq_len / ms * 1e3:,.0f} tokens/s), "
+                      f"the sync {sync_ms:.1f} ms; peak memory "
+                      f"{peak / 2**30:.2f} GiB; card {self.card}")
+            del step, opt
+            if m is not model:
+                del m
+            torch.cuda.empty_cache()
+        del model, init, g1, upd1
+        torch.cuda.empty_cache()
+
+    def tp_sync_ms(self, step, batch) -> float:
+        """The step's gradient sync (sync_grads_tp over every rank, on the
+        gradients of ``batch``) timed with CUDA events, median of 3."""
+        torch = self.torch
+        from repro_torch.collectives.scheduler import sync_grads_tp
+        from repro_torch.parallel import spmd
+        _, grads = step.grads(batch)
+
+        def local():
+            sync_grads_tp(grads[spmd.rank_index()], step.specs,
+                          step.data_axes, mode=step.par.grad_sync,
+                          mean=False)
+
+        fn = spmd.shard_map(local, mesh=step.mesh, in_specs=(),
+                            out_specs=spmd.P())
+        ms = []
+        with torch.no_grad():
+            for _ in range(3):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                fn()
+                b.record()
+                torch.cuda.synchronize()
+                ms.append(a.elapsed_time(b))
+        return sorted(ms)[1]
+
+    def tp_prefill(self):
+        torch, Fa = self.torch, self.Fa
+        from repro_torch.configs import registry
+        from repro_torch.kernels.flash_attention import ops as flash_ops
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.models import build_model
+        from repro_torch.models.attention import tp_kv_heads
+        cfg = registry.get_config("h2o_danube_3_4b")
+        n = TP_PREFILL_MESH[0] * TP_PREFILL_MESH[1]
+        mesh = make_mesh(TP_PREFILL_MESH, ("data", "model"), [self.dev] * n)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(cfg, use_flash=True, seed=0, mesh=mesh)
+        g = torch.Generator(device=self.dev).manual_seed(0)
+        tokens = torch.randint(0, cfg.vocab_size, (1, PREFILL_S),
+                               generator=g, device=self.dev)
+        with torch.no_grad():
+            model.apply(tokens[:, :1024])     # the ranks' blocks, warm
+            torch.cuda.synchronize()
+            Fa.flash_fwd.launches = 0                 # main path starts
+            with flash_calls_by_stream(torch, flash_ops) as calls:
+                t0 = time.time()
+                logits, _ = model.apply(tokens)
+                torch.cuda.synchronize()
+                secs = time.time() - t0
+            launches = Fa.flash_fwd.launches          # main path ends
+            last = logits[:, -1, :cfg.vocab_size].float()
+            del logits
+            peak = torch.cuda.max_memory_allocated()
+            mesh_, model.mesh = model.mesh, None  # one device, same tree
+            try:
+                ref, _ = model.apply(tokens)
+            finally:
+                model.mesh = mesh_
+            last_ref = ref[:, -1, :cfg.vocab_size].float()
+            del ref
+        err = (last - last_ref).abs().max().item()
+        per = sorted(c for (kind, _), c in calls.items() if kind == "fwd")
+        hl = model.blocks[0].attn["wq"].shape[1] // n
+        nk = tp_kv_heads(hl, hl * n, cfg.num_kv_heads, 0)[1]
+        L = cfg.num_layers
+        if launches != L * n or per != [L] * n or not torch.allclose(
+                last, last_ref, atol=MODEL_ATOL, rtol=MODEL_RTOL):
+            fail("tp", f"prefill: {launches} flash launches (per rank "
+                       f"{per}, want {L} on each of {n}); last-token logits "
+                       f"max abs err {err} against one device")
+        self.launches[("tp", "prefill")] = launches
+        self.rates[("tp", "prefill")] = (PREFILL_S / secs, peak)
+        say("tp", f"prefill {cfg.name} (24 layers) 1 x {PREFILL_S} on "
+                  f"{dict(mesh.shape)}: {launches} flash launches ({per} a "
+                  f"rank, {hl} q heads and {nk} KV heads a rank), "
+                  f"{secs:.3f} s "
+                  f"({PREFILL_S / secs:,.0f} tokens/s), last-token logits "
+                  f"max abs err {err:.4g} against the one-device flash route "
+                  f"(atol {MODEL_ATOL}, rtol {MODEL_RTOL}); peak memory "
+                  f"{peak / 2**30:.2f} GiB (the model, the ranks' blocks "
+                  f"and the assembled logits); card {self.card}")
+        del model, tokens, last, last_ref
+        torch.cuda.empty_cache()
+
+    def tp_kernels(self):
+        """The flash kernels at a tensor-parallel rank's shapes (danube at
+        model 4: 8 q heads, 2 KV heads, D 120, bf16): the forward at the
+        prefill's (S 32,768, window 8,192) beside one call of the chunked
+        plain version and one scaled_dot_product_attention call (window
+        mask), the backward pair at the training rank's (B 2, S 4,096)
+        beside the plain backward and one SDPA backward."""
+        torch, Fa = self.torch, self.Fa
+        from repro_torch.models.attention import flash_or_ref
+        hq, hkv, D, w, item = 8, 2, 120, 8192, 2
+        q, k, v = self.attn_inputs(1, hq, hkv, PREFILL_S, D, "bfloat16")
+        views = [x.transpose(1, 2) for x in (q, k, v)]
+        saved = Fa.flash_fwd.launches
+        k_dev, k_wall = timed(lambda: Fa.flash_fwd(*views, window=w), 10,
+                              torch)
+        Fa.flash_fwd.launches = saved
+        S = PREFILL_S
+        pos = torch.arange(S, device=self.dev)[None]
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        flash_or_ref(q, k, v, pos, pos, window=w)
+        b.record()
+        torch.cuda.synchronize()
+        p_ms = a.elapsed_time(b)
+        lib = self.sdpa_ms(q, k, v, w)
+        pairs = sum(min(i + 1, w) for i in range(S))
+        self.report(f"tp rank S={S}", "flash_fwd", "flash_fwd.cu",
+                    "src/repro/kernels/flash_attention/kernel.py:44",
+                    k_dev, k_wall, p_ms, p_ms,
+                    item * S * D * (2 * hq + 2 * hkv) + 4 * hq * S,
+                    4 * D * pairs * hq, 1, peak=BF16_OPS_PER_S,
+                    library_ms=lib,
+                    note=f"(a model-4 rank: BH={hq}, KV heads {hkv}, D={D}, "
+                         f"window {w}, bf16; plain: one call of the chunked "
+                         "plain version; library: window mask)")
+        del q, k, v, views
+        B, S = TP_B // TP_MESH[0], TRAIN_S
+        q, k, v, o, lse, do = self.bwd_inputs(B, hq, hkv, S, D, "bfloat16",
+                                              w)
+        views = [x.transpose(1, 2) for x in (q, k, v, o, do)]
+        call = Fa.BwdCall(*views[:4], lse, views[4], window=w, causal=True)
+        saved = (Fa.flash_bwd.launches_dq, Fa.flash_bwd.launches_dkv)
+        dq_dev, dq_wall = timed(call.dq, 10, torch)
+        dkv_dev, dkv_wall = timed(call.dkv, 10, torch)
+        Fa.flash_bwd.launches_dq, Fa.flash_bwd.launches_dkv = saved
+        lib = self.sdpa_bwd_ms(q, k, v, do)
+        flat = [x.transpose(1, 2).reshape(-1, S, D).contiguous()
+                for x in (q, k, v, o, do)]
+        p_dev, p_wall = timed(lambda: Fa.attention_bwd_ref(
+            *flat[:4], lse.reshape(-1, S), flat[4], window=w), 1, torch)
+        pairs = B * hq * sum(min(i + 1, w) for i in range(S))
+        stats = 2 * 4 * B * hq * S
+        note = (f"(a model-4 rank: BH={B * hq}, KV heads {hkv}, D={D}, "
+                f"causal, window {w}, bf16; plain: dq, dk and dv in one "
+                "call; library: one SDPA backward)")
+        self.report(f"tp rank B={B} S={S}", "flash_dq", "flash_bwd.cu",
+                    "src/repro/kernels/flash_attention/kernel.py:124",
+                    dq_dev, dq_wall, p_dev, p_wall,
+                    item * B * S * D * (3 * hq + 2 * hkv) + stats,
+                    6 * D * pairs, 1, note=note, peak=BF16_OPS_PER_S,
+                    library_ms=lib)
+        self.report(f"tp rank B={B} S={S}", "flash_dkv", "flash_bwd.cu",
+                    "src/repro/kernels/flash_attention/kernel.py:159",
+                    dkv_dev, dkv_wall, p_dev, p_wall,
+                    item * B * S * D * (2 * hq + 4 * hkv) + stats,
+                    8 * D * pairs, 1, note=note, peak=BF16_OPS_PER_S,
+                    library_ms=lib)
+        del q, k, v, o, lse, do, views, call, flat
+        torch.cuda.empty_cache()
+
+    # ------------------------------------- 28. launch: cells and dry-run
     def launch(self):
         """The dry-run's records and its predictions held to the card."""
         import concurrent.futures as cf
@@ -4108,9 +4466,13 @@ class Smoke:
         card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() \
             else self.card
         print(card, flush=True)
+        from repro_torch.launch.dryrun import HBM_BYTES
+        total = torch.cuda.get_device_properties(0).total_memory
+        if total != HBM_BYTES:
+            fail("launch", f"the card reports {total:,} bytes, the dry-run "
+                           f"judges fits against HBM_BYTES {HBM_BYTES:,}")
         say("launch", f"card {card}; {torch.cuda.get_device_name(0)}, "
-                      f"{torch.cuda.get_device_properties(0).total_memory:,}"
-                      " bytes")
+                      f"{total:,} bytes, equal to the dry-run's HBM_BYTES")
         # the meta-device work runs in worker processes meanwhile; the
         # longest first
         preds = {"prefill": ("predict", "h2o_danube_3_4b", "prefill_32k",
@@ -4118,7 +4480,8 @@ class Smoke:
                  "train": ("predict", "h2o_danube_3_4b", "train_4k",
                            (16, 1), 2),
                  "decode": ("predict", "mamba2_130m", "decode_32k", (1, 1),
-                            None)}
+                            None),
+                 "tp": ("predict",) + TP_LAUNCH}
         # mamba2's prefill and train records take longest on meta, then
         # the predictions the card runs below wait for
         records = [("record", "mamba2_130m", s, mp)
@@ -4138,6 +4501,7 @@ class Smoke:
             self.launch_prefill(futs[preds["prefill"]])
             self.launch_train(futs[preds["train"]])
             self.launch_decode(futs[preds["decode"]])
+            self.launch_partitioned(futs[preds["tp"]])
             for t in records:
                 if t[0] != "record":
                     continue
@@ -4159,38 +4523,42 @@ class Smoke:
                               f"({r['run_s']} s on meta)")
         n_cells = sum(1 for a, _, skip in registry.all_cells()
                       if a in LAUNCH_ARCHS and not skip)
-        say("launch", f"{2 * n_cells} dry-run records and 3 predictions in "
+        say("launch", f"{2 * n_cells} dry-run records and 4 predictions in "
                       f"{time.time() - t0:.1f} s ({workers} workers); "
                       f"constants: NVIDIA H100 80GB HBM3 spec sheet; card "
                       f"{card}")
 
-    def launch_run(self, cell, args, count: bool = True):
+    def launch_run(self, cell, args, count: bool = True, lone=None):
         """``cell.fn`` on ``args`` once (under FlopCounterMode with
-        ``count``): (its output, the counted flops or None, the peak bytes
+        ``count``; as a rank of mesh ``lone`` alone, spmd.lone_rank, when
+        given): (its output, the counted flops or None, the peak bytes
         allocated over the run above what was allocated before ``args``).
         """
         from torch.utils.flop_counter import FlopCounterMode
+        from repro_torch.parallel import spmd
         torch = self.torch
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         with FlopCounterMode(display=False) if count else \
-                contextlib.nullcontext() as fc:
+                contextlib.nullcontext() as fc, \
+                spmd.lone_rank(lone) if lone is not None else \
+                contextlib.nullcontext():
             out = cell.fn(*args)
         torch.cuda.synchronize()
         return out, fc.get_total_flops() if count else None, \
             torch.cuda.max_memory_allocated() - self.launch_base
 
-    def launch_hold(self, what, pred, flops, peak):
+    def launch_hold(self, what, pred, flops, peak, band=LAUNCH_BAND):
         """The card's flop count equal to the meta count, its peak within
-        LAUNCH_BAND of the prediction."""
+        ``band`` of the prediction."""
         mem = pred["memory"]
-        ok, rel = memory_band(peak, mem["per_device_total"])
+        ok, rel = memory_band(peak, mem["per_device_total"], band)
         if flops != pred["flops_per_device"] or not ok:
             fail("launch", f"{what}: {flops:.6g} flops on the card against "
                            f"{pred['flops_per_device']:.6g} on meta; peak "
                            f"{peak:,} bytes against "
                            f"{mem['per_device_total']:,} predicted "
-                           f"({rel:.1%}, band {LAUNCH_BAND:.0%})")
+                           f"({rel:.1%}, band {band:.0%})")
         say("launch", f"{what}: {flops / 1e12:.3f} TFLOP counted on the "
                       "card, equal to the meta count; peak "
                       f"{peak / 2**30:.3f} GiB above the memory before the "
@@ -4199,7 +4567,7 @@ class Smoke:
                       f"{mem['output'] / 2**30:.3f} - alias "
                       f"{mem['alias'] / 2**30:.3f} + temp "
                       f"{mem['temp'] / 2**30:.3f}): {rel:.1%} off (band "
-                      f"{LAUNCH_BAND:.0%})")
+                      f"{band:.0%})")
         return rel
 
     def launch_cell(self, arch, shape, mesh_shape, depth, fut):
@@ -4295,6 +4663,42 @@ class Smoke:
                       "flops from a second step); card "
                       f"{self.card}")
         del args, params, opt, batch, before, leaves
+
+    def launch_partitioned(self, fut):
+        """The partitioned record (TP_LAUNCH): one rank's program alone on
+        the card, on its blocks of the args, against the meta prediction
+        (flops equal, peak within TP_LAUNCH_BAND)."""
+        torch = self.torch
+        from repro_torch.launch.steps import make_train_config
+        arch, shape, mesh_shape, depth = TP_LAUNCH
+        cell, pred, args = self.launch_cell(arch, shape, mesh_shape, depth,
+                                            fut)
+        mesh = cell.model.mesh
+        if not cell.partitioned or \
+                pred["memory"]["temp_at_full_model_width"]:
+            fail("launch", f"{arch}/{shape} on {mesh_shape} is not "
+                           "partitioned")
+        params, opt, batch = args
+        opt.step.fill_(make_train_config(cell.arch, cell.shape).warmup_steps)
+        wq = params["blocks"]["0"]["attn"]["wq"]
+        (params, opt, metrics), _, peak = self.launch_run(
+            cell, args, count=False, lone=mesh)
+        loss = metrics["loss"].item()
+        if not math.isfinite(loss):
+            fail("launch", f"partitioned train step: loss {loss}")
+        _, flops, _ = self.launch_run(cell, args, lone=mesh)
+        rel = self.launch_hold(
+            f"danube train_4k depth {depth}, one rank of {mesh_shape} alone "
+            f"(its blocks: wq {tuple(wq.shape)}, tokens "
+            f"{tuple(batch['tokens'].shape)}, accum {cell.accum})", pred,
+            flops, peak, band=TP_LAUNCH_BAND)
+        self.rates[("tp", "launch")] = (rel, peak, pred)
+        from repro_torch.launch.dryrun import by_axes
+        say("launch", f"partitioned train step: loss {loss:.4f}, lr "
+                      f"{metrics['lr'].item():.3g}; the rank's recorded "
+                      f"collectives {by_axes(pred['recorded'])}; card "
+                      f"{self.card}")
+        del args, params, opt, batch, wq
 
     def launch_decode(self, fut):
         torch = self.torch

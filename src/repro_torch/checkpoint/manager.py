@@ -13,7 +13,12 @@ arrays (``None`` leaves are skipped).  ``restore`` fills a tree shaped like
 the one it is given, in each leaf's dtype: on the leaf's device, or, for a
 leaf given a sharding (the reference's elastic restore onto a mesh), on
 that sharding's mesh's first device, where the port's single controller
-keeps global values (``shard_map``'s replicated outputs are rank 0's).
+keeps global values (``shard_map``'s replicated outputs are rank 0's);
+on a tensor-parallel mesh (a ``model`` axis larger than 1) as a
+:class:`~repro_torch.parallel.sharding.RankShards`, each rank's block on
+its device.  Saves hold global arrays (a partitioned model's blocks are
+gathered into its own parameters after every step), so a restore onto a
+mesh of another (data, model) shape cuts them anew.
 The like tree may be abstract (``ShapeDtypeStruct``s, meta tensors).
 """
 from __future__ import annotations
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 from ..models.params import ShapeDtypeStruct
+from ..parallel.sharding import RankShards, shard_tensor
 
 __all__ = ["CheckpointManager"]
 
@@ -153,8 +159,10 @@ class CheckpointManager:
         arrays, ``ShapeDtypeStruct``s, or anything with ``shape`` and
         ``dtype``), each leaf in its like's dtype.  ``shardings``: a
         matching tree of ``NamedSharding``s (elastic restore onto a mesh):
-        a leaf with one comes back as a tensor on its mesh's first device;
-        a leaf without one on its like's device, which raises
+        a leaf with one comes back as a tensor on its mesh's first device,
+        or, on a mesh whose ``model`` axis is larger than 1, as a
+        ``RankShards`` of every rank's block on its device; a leaf
+        without one on its like's device, which raises
         ``ValueError`` for a meta tensor or a struct.  Returns (tree, the
         ``extra`` dict saved with it)."""
         d = self.dir / f"step_{step:08d}"
@@ -173,7 +181,12 @@ class CheckpointManager:
                 raise ValueError(f"shape mismatch {name}: "
                                  f"{arr.shape} vs {tuple(like.shape)}")
             sh = sh_flat.get(path)
-            if sh is not None:
+            if sh is not None and sh.mesh.shape.get("model", 1) > 1:
+                full = _from_host(arr, meta["dtype"], torch.empty(
+                    (), dtype=_torch_dtype(like.dtype)))
+                out[path] = RankShards(sh, shard_tensor(full, sh.spec,
+                                                        sh.mesh))
+            elif sh is not None:
                 out[path] = _from_host(arr, meta["dtype"], torch.empty(
                     (), dtype=_torch_dtype(like.dtype),
                     device=sh.mesh.devices.flat[0]))

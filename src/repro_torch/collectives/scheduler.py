@@ -18,6 +18,13 @@ data axes (``runtime/train.py``'s ``grad_sync="ring"``): per-rank partial
 gradients exist only there.  Gradients travel in ``flags.RING_SYNC_DTYPE``
 (float32 unless ``flags.set_ring_sync_dtype`` names another), read at each
 call, as the reference's ``scheduler.py:82`` reads it.
+
+:func:`sync_grads_tp` is the gradient sync of a tensor-parallel rank:
+each leaf is the rank's block, summed over ``model`` where the leaf is
+replicated there (norm scales, ``wk``/``wv``: each rank's gradient is
+its own heads' part) and over the data axes it is not sharded on
+(``psum`` for ``grad_sync="xla"``, else the rings of
+:func:`sync_grads_local` over the rank's data group).
 """
 from __future__ import annotations
 
@@ -28,10 +35,12 @@ import torch
 from torch.utils import _pytree as pytree
 
 from .. import flags
+from ..parallel.sharding import spec_axes
 from ..parallel.spmd import axis_size, psum
 from .ring import hierarchical_all_reduce, ring_all_reduce_nd
 
-__all__ = ["BucketPlan", "plan_buckets", "sync_grads_local"]
+__all__ = ["BucketPlan", "plan_buckets", "sync_grads_local",
+           "sync_grads_tp"]
 
 
 @dataclass(frozen=True)
@@ -110,3 +119,38 @@ def sync_grads_local(grads, axes: tuple[str, ...], *, mode: str = "ring",
                 red = _div(red, n_total)
             out_leaves[i] = red.to(leaves[i].dtype)
     return pytree.tree_unflatten(out_leaves, spec)
+
+
+def sync_grads_tp(grads: dict, specs: dict, data_axes: tuple[str, ...], *,
+                  mode: str = "xla", mean: bool = True, channels: int = 4,
+                  bidirectional: bool = False) -> dict:
+    """Inside a rank manual over ``model`` and ``data_axes``: every leaf of
+    ``grads`` (by parameter name; ``specs`` its PartitionSpec) psummed
+    over ``model`` unless it is sharded there, then over the data axes it
+    is not sharded on: a psum in rank order (``mode="xla"``, divided by
+    the group's size with ``mean``) or :func:`sync_grads_local`'s
+    ``"ring"``/``"hierarchical"`` over the rank's data group."""
+    out = {}
+    for name, g in grads.items():
+        if "model" not in spec_axes(specs[name]) and \
+                axis_size("model") > 1:
+            g = psum(g, "model")
+        out[name] = g
+    by_axes: dict = {}
+    for name in out:
+        axes = tuple(a for a in data_axes
+                     if a not in spec_axes(specs[name]) and axis_size(a) > 1)
+        if axes:
+            by_axes.setdefault(axes, []).append(name)
+    for axes, names in by_axes.items():
+        if mode == "xla":
+            n = math.prod(axis_size(a) for a in axes)
+            for name in names:
+                s = psum(out[name], axes)
+                out[name] = _div(s, n) if mean else s
+        else:
+            synced = sync_grads_local({k: out[k] for k in names}, axes,
+                                      mode=mode, channels=channels,
+                                      bidirectional=bidirectional, mean=mean)
+            out.update(synced)
+    return out

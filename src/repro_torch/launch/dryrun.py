@@ -8,15 +8,22 @@ dtypes, no values, no allocation) and counts what it does:
 
 * **Meshes** are the production meshes over meta devices
   (``make_production_mesh(multi_pod=..., devices=["meta"] * n)``).
-* **A rank's share** (:func:`rank_share`): the batch axes of the inputs
-  and the decode cache are split over ``(pod, data)`` as ``_batch_axes``
-  places them.  The ``model`` axis is not partitioned in the program the
-  port runs: GSPMD's partitioning is ROADMAP queue 1 item 1, left 6, not
-  ported.  So on a mesh whose ``model`` axis is larger than 1 the rank's
-  program runs at full model width (the MoE dispatches on one device):
-  ``memory.temp`` is measured at that width, and the record says so
+* **A rank's share** (:func:`rank_share`).  A *partitioned* cell (the
+  dense GQA family's ``train`` and ``prefill`` cells on a ``model`` axis
+  larger than 1, ``Cell.partitioned``) runs one rank's partitioned
+  program: every argument is cut to the rank's block by its sharding (the
+  optimizer state as its parameter is: the ZeRO-1 sharding over ``pod``
+  of the multi-pod mesh is not partitioned, and the record says so), and
+  the run is alone in :func:`~repro_torch.parallel.spmd.lone_rank` mode,
+  whose collectives keep their shapes and are recorded.  Every other cell
+  splits the batch axes of the inputs and the decode cache over ``(pod,
+  data)`` as ``batch_axes`` places them and runs at full model width
+  (GSPMD's partitioning of the other families is ROADMAP queue 1 item 1,
+  left 6; the MoE dispatches on one device): ``memory.temp`` is then
+  measured at that width, the record says so
   (``temp_at_full_model_width``), and ``flops_per_device`` and
-  ``bytes_per_device`` are the counts divided by the ``model`` axis size.
+  ``bytes_per_device`` are the counts divided by the ``model`` axis size;
+  a partitioned record's are the rank's own.
 * ``memory.argument``: the exact per-device shard bytes of ``cell.args``
   under their shardings (each dimension over the product of its mesh axes,
   rounded up).
@@ -33,20 +40,28 @@ dtypes, no values, no allocation) and counts what it does:
   count of the matrix products (forward and backward), every loop trip
   counted.  ``bytes_per_device``: every non-view op's input and output
   bytes (each op read and written once: an eager program without fusion).
-* ``collectives`` and ``wire_bytes_per_device``: from the shardings, by the
-  reference's per-kind ring formulas (``dryrun.py:79-86``): a train cell's
+* ``collectives`` and ``wire_bytes_per_device``: by the reference's
+  per-kind ring formulas (``dryrun.py:79-86``).  A partitioned record's
+  are the collectives its rank's run recorded (``spmd.TALLY``): the
+  tensor-parallel all-gathers, reduce-scatters and all-reduces over
+  ``model`` with their backward transposes, FSDP's parameter all-gathers
+  over ``data`` (again in the recompute) and their gradients'
+  reduce-scatters, the gradient sums and the loss's; ``collectives_by_axes``
+  splits them by axes.  Otherwise from the shardings: a train cell's
   gradient sync over its batch axes in ``flags.RING_SYNC_DTYPE`` (an
   all-reduce, or a reduce-scatter over the axes a leaf is already sharded
   on), and each MoE dispatch's ``all_to_all``s over ``model``
   (``_moe_chunk_ep``: tokens out, their expert ids, results back; in
-  training also in the recompute and the backward).  Collectives that
+  training also in the recompute and the backward); the collectives that
   only GSPMD's tensor parallelism would add are left out and named in
   ``collectives_not_ported``.
 * The roofline terms use the card's spec-sheet numbers (:data:`HARDWARE`):
   ``t_compute`` = flops / 989e12, ``t_memory`` = bytes / 3.35e12,
   ``t_collective`` = wire bytes / 450e9 (NVLink 4's 900 GB/s a GPU, both
   directions, halved: one direction), and ``memory.fits_h100`` holds the
-  total against 80 GiB.
+  total against the card's own memory, :data:`HBM_BYTES` (what
+  ``torch.cuda.get_device_properties(0).total_memory`` reports: 79.18
+  GiB, not the spec sheet's 80).
 
 ``--roofline`` keeps the reference's loop-free record: the cell under
 ``flags.ROOFLINE_MODE`` with ``accum`` 1 at depths of 1 and 2 layer
@@ -83,10 +98,13 @@ from .. import flags
 from ..configs import registry
 from ..models.moe import DISPATCH_CHUNK
 from ..models.params import ShapeDtypeStruct, shard_bytes, shard_shape
+from ..parallel import spmd
+from ..parallel.sharding import batch_axes, local_shape, part_axes
 from .mesh import make_production_mesh
-from .steps import Cell, _batch_axes, build_cell, materialize
+from .steps import Cell, build_cell, materialize
 
 __all__ = ["HARDWARE", "PEAK_FLOPS", "HBM_BW", "LINK_BW", "HBM_BYTES",
+           "HBM_SPEC_BYTES", "HBM_CARD", "fits_h100", "by_axes",
            "DEFAULT_OUT", "rank_share", "measure", "collectives", "run_cell",
            "memory_total", "main"]
 
@@ -99,18 +117,19 @@ PEAK_FLOPS = 989e12          # dense bf16 tensor-core FLOP/s
 HBM_BW = 3.35e12             # bytes/s of HBM3
 LINK_BW = 450e9              # bytes/s one direction: NVLink 4, 900 GB/s a
                              # GPU counting both directions
-HBM_BYTES = 80 * 1024**3
+# the card's own memory, as torch.cuda.get_device_properties(0).total_memory
+# reports it on an NVIDIA H100 80GB HBM3 at a 700 W power limit
+HBM_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
+HBM_BYTES = 85_017_493_504          # 79.18 GiB
+HBM_SPEC_BYTES = 80 * 1024**3       # the spec sheet's "80 GB" (not used)
 ALLOC_BYTES = 512            # the CUDA caching allocator's rounding
 BATCH_AXES = frozenset(("pod", "data"))
 NOT_PORTED = ("tensor-parallel all-reduces and all-gathers over 'model' "
               "(GSPMD, ROADMAP queue 1 item 1, left 6)",
               "FSDP parameter all-gathers over 'data' (GSPMD, left 6)")
-
-
-def _axes(part) -> tuple[str, ...]:
-    if part is None:
-        return ()
-    return (part,) if isinstance(part, str) else tuple(part)
+ZERO1_POD = ("ZeRO-1 of the optimizer state over 'pod' (the partitioned "
+             "program holds it as its parameter: ROADMAP queue 1 item 1, "
+             "left 6)")
 
 
 def _itemsize(dtype) -> int:
@@ -122,19 +141,41 @@ def _structs(tree) -> list[ShapeDtypeStruct]:
             if isinstance(x, ShapeDtypeStruct)]
 
 
+def _block(s: ShapeDtypeStruct, sharding=None) -> ShapeDtypeStruct:
+    """The rank's block of ``s`` under ``sharding`` (default its own)."""
+    sh = sharding or s.sharding
+    if sh is None:
+        return ShapeDtypeStruct(s.shape, s.dtype)
+    return ShapeDtypeStruct(local_shape(s.shape, sh.spec, sh.mesh), s.dtype)
+
+
 def rank_share(cell: Cell) -> tuple:
     """The cell's abstract args as one rank holds them in the program the
-    port runs: in the batch arguments (inputs, labels, decode cache) each
-    dimension sharded over batch axes only ("pod", "data") is divided by
-    their size; every other dimension is whole (the ``model`` axis is not
-    partitioned)."""
+    port runs.  Partitioned cells: every argument's block by its sharding,
+    the optimizer state's by its parameter's.  Others: in the batch
+    arguments (inputs, labels, decode cache) each dimension sharded over
+    batch axes only ("pod", "data") is divided by their size; every other
+    dimension is whole (the ``model`` axis is not partitioned)."""
+    if cell.partitioned:
+        params = cell.args[0]
+        out = [pytree.tree_map(_block, params)]
+        if cell.shape.kind == "train":
+            opt = cell.args[1]
+            like = [pytree.tree_map(lambda s, p: _block(s, p.sharding), t,
+                                    params) if t is not None else None
+                    for t in (opt.m, opt.v, opt.master)]
+            out.append(opt._replace(step=_block(opt.step), m=like[0],
+                                    v=like[1], master=like[2]))
+        out.append(pytree.tree_map(_block, cell.args[-1]))
+        return tuple(out)
+
     def share(s):
         if not isinstance(s, ShapeDtypeStruct) or s.sharding is None:
             return s
         sizes = s.sharding.mesh.shape
         shape = list(s.shape)
         for i, part in enumerate(s.sharding.spec):
-            axes = _axes(part)
+            axes = part_axes(part)
             if axes and set(axes) <= BATCH_AXES:
                 shape[i] //= math.prod(sizes[a] for a in axes)
         return ShapeDtypeStruct(tuple(shape), s.dtype)
@@ -202,21 +243,32 @@ def memory_total(mem: dict) -> int:
 
 def measure(cell: Cell) -> dict:
     """One meta run of a rank's share of ``cell.fn``: flops, bytes
-    accessed and the memory record (see the module docstring)."""
+    accessed, the memory record and, for a partitioned cell, the
+    collectives its rank recorded (see the module docstring)."""
+    mesh = cell.model.mesh
     mesh_tp = cell.model.tp
     share = rank_share(cell)
     args = materialize(cell, share, "meta")
     track = LiveBytes()
     held = sum(track.hold(t) for t in pytree.tree_leaves(args)
                if isinstance(t, torch.Tensor))
+    # what a device holds of the args: a partitioned rank its blocks, any
+    # other the shardings' shards (its share may hold more of them)
+    held_args = share if cell.partitioned else cell.args
     donated = {}
     for i in cell.donate:
-        for s, t in zip(_structs(cell.args[i]), pytree.tree_leaves(args[i])):
+        for s, t in zip(_structs(held_args[i]), pytree.tree_leaves(args[i])):
             donated[t.untyped_storage()._cdata] = shard_bytes(s)
+    rank = spmd.lone_rank(mesh) if cell.partitioned else \
+        _one_rank(cell.model)
     t0 = time.time()
-    with _one_rank(cell.model), FlopCounterMode(display=False) as fc, track:
+    spmd.TALLY.clear()
+    with rank, FlopCounterMode(display=False) as fc, track:
         out = cell.fn(*args)
     secs = time.time() - t0
+    recorded = {k: (c, spmd.TALLY.bytes[k])
+                for k, c in spmd.TALLY.count.items()}
+    spmd.TALLY.clear()
     alias = new = new_held = 0
     seen = set()
     for t in pytree.tree_leaves(out):
@@ -231,15 +283,24 @@ def measure(cell: Cell) -> dict:
         else:
             new += t.numel() * t.element_size()
             new_held += track.sizes.get(key, 0)
-    argument = sum(shard_bytes(s) for s in _structs(cell.args))
+    argument = sum(shard_bytes(s) for s in _structs(held_args))
     mem = {"argument": argument, "output": alias + new, "alias": alias,
            "temp": track.peak - held - new_held}
     mem["per_device_total"] = memory_total(mem)
-    mem["fits_h100"] = bool(mem["per_device_total"] <= HBM_BYTES)
-    mem["temp_at_full_model_width"] = mesh_tp > 1
-    return {"flops_per_device": fc.get_total_flops() / mesh_tp,
-            "bytes_per_device": track.accessed / mesh_tp,
-            "memory": mem, "meta_run_s": secs}
+    mem["fits_h100"] = fits_h100(mem["per_device_total"])
+    mem["temp_at_full_model_width"] = mesh_tp > 1 and not cell.partitioned
+    div = 1 if cell.partitioned else mesh_tp
+    rec = {"flops_per_device": fc.get_total_flops() / div,
+           "bytes_per_device": track.accessed / div,
+           "memory": mem, "meta_run_s": secs}
+    if cell.partitioned:
+        rec["recorded"] = recorded
+    return rec
+
+
+def fits_h100(total: int) -> bool:
+    """Whether ``total`` bytes a device fit the card's own memory."""
+    return bool(total <= HBM_BYTES)
 
 
 def _add(out: dict, kind: str, nbytes: float, n: int, count: int = 1):
@@ -247,31 +308,44 @@ def _add(out: dict, kind: str, nbytes: float, n: int, count: int = 1):
     ``n``, ``count`` times, with the reference's ring wire bytes."""
     if n <= 1:
         return
-    if kind == "all-reduce":
-        wire = 2 * nbytes * (n - 1) / n
-    else:           # reduce-scatter, all-to-all, all-gather
-        wire = nbytes * (n - 1) / n
+    wire = _wire(kind, nbytes, n)
     d = out.setdefault(kind, {"count": 0, "bytes": 0.0, "wire": 0.0})
     d["count"] += count
     d["bytes"] += float(nbytes) * count
     d["wire"] += float(wire) * count
 
 
-def collectives(cell: Cell, mesh) -> dict:
+def _wire(kind: str, nbytes: float, n: int) -> float:
+    if kind == "all-reduce":
+        return 2 * nbytes * (n - 1) / n
+    return nbytes * (n - 1) / n
+
+
+def collectives(cell: Cell, mesh, recorded: dict | None = None) -> dict:
     """The collectives one device takes part in for a step of the cell:
-    ``{kind: {count, bytes, wire}}``."""
+    ``{kind: {count, bytes, wire}}``; for a partitioned cell those its
+    rank ``recorded`` (:func:`measure`'s ``{(kind, axes, n): (count,
+    bytes)}``)."""
+    if cell.partitioned:
+        out: dict = {}
+        for (kind, _, n), (c, b) in sorted(recorded.items()):
+            d = out.setdefault(kind, {"count": 0, "bytes": 0.0, "wire": 0.0})
+            d["count"] += c
+            d["bytes"] += float(b)
+            d["wire"] += float(_wire(kind, b, n))
+        return out
     cfg, spec = cell.model.cfg, cell.shape
     sizes = mesh.shape
     out: dict = {}
     B = spec.global_batch
-    ba = _batch_axes(mesh, B) or ()
+    ba = batch_axes(mesh, B) or ()
     nb = math.prod(sizes[a] for a in ba)
     accum = cell.accum
     if spec.kind == "train":
         isz = _itemsize(flags.ring_sync_dtype())
         for s in _structs(cell.args[0]):
             shard = math.prod(shard_shape(s.shape, s.sharding))
-            on = {a for p in s.sharding.spec for a in _axes(p)}
+            on = {a for p in s.sharding.spec for a in part_axes(p)}
             n_rs = math.prod(sizes[a] for a in ba if a in on)
             n_ar = math.prod(sizes[a] for a in ba if a not in on)
             _add(out, "reduce-scatter", shard * n_rs * isz, n_rs)
@@ -296,6 +370,22 @@ def collectives(cell: Cell, mesh) -> dict:
         _add(out, "all-to-all", ep * c_send * d * act, ep, 2 * calls)
         _add(out, "all-to-all", ep * c_send * 8, ep, calls)   # int64 ids
     return out
+
+
+def by_axes(recorded: dict) -> dict:
+    """``{"<kind> over <axes>": count}`` of a rank's recorded collectives."""
+    out: dict = {}
+    for (kind, axes, _), (c, _) in sorted(recorded.items()):
+        k = f"{kind} over {','.join(axes)}"
+        out[k] = out.get(k, 0) + c
+    return out
+
+
+def _not_ported(cell: Cell, mesh) -> list[str]:
+    if not cell.partitioned:
+        return list(NOT_PORTED)
+    return [ZERO1_POD] if "pod" in mesh.shape and \
+        cell.shape.kind == "train" else []
 
 
 def _terms(flops: float, nbytes: float, wire: float) -> dict:
@@ -335,9 +425,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                                   policy_overrides={"scan_layers": False,
                                                     "accum": 1})
                 ms.append(measure(cell))
-                wires.append(sum(d["wire"] for d in
-                                 collectives(cell, mesh).values()))
-            colls = collectives(cell, mesh)
+                colls = collectives(cell, mesh, ms[-1].get("recorded"))
+                wires.append(sum(d["wire"] for d in colls.values()))
         finally:
             flags.set_roofline(False)
         (f1, f2), (b1, b2) = ([m[k] for m in ms] for k in
@@ -354,7 +443,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         return {**base, "run_s": round(time.time() - t0, 1),
                 "flops_per_device": flops, "bytes_per_device": nbytes,
                 "wire_bytes_per_device": wire, "collectives": colls,
-                "collectives_not_ported": list(NOT_PORTED),
+                "collectives_not_ported": _not_ported(cell, mesh),
                 "extrapolated": {"groups": G, "period": period,
                                  "g1": [f1, b1, wires[0]],
                                  "g2": [f2, b2, wires[1]]},
@@ -363,11 +452,15 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                 **_terms(flops, nbytes, wire), "ok": True}
     cell = build_cell(arch, shape_name, mesh)
     rec = measure(cell)
-    colls = collectives(cell, mesh)
+    recorded = rec.pop("recorded", None)
+    colls = collectives(cell, mesh, recorded)
     wire = sum(d["wire"] for d in colls.values())
+    if recorded is not None:
+        rec["collectives_by_axes"] = by_axes(recorded)
     return {**base, "run_s": round(time.time() - t0, 1), **rec,
+            "partitioned": cell.partitioned,
             "collectives": colls, "wire_bytes_per_device": wire,
-            "collectives_not_ported": list(NOT_PORTED),
+            "collectives_not_ported": _not_ported(cell, mesh),
             "model_params": cell.model_params,
             "active_params": cell.active_params,
             **_terms(rec["flops_per_device"], rec["bytes_per_device"], wire),

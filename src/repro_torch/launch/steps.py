@@ -22,11 +22,18 @@ and the optimizer state in place and ``decode_step`` the cache, so those
 outputs are the donated inputs themselves.  The optimizer's step counter
 is the exception: ``adamw_update`` returns a new one.
 
-``fn`` runs what one device runs when the mesh has a single device.  On a
-larger mesh the port has no partitioner for the ``model`` axis (GSPMD's,
-ROADMAP queue 1 item 1, left 6); the dry-run runs ``fn`` on one rank's
-share of the batch (:func:`~repro_torch.launch.dryrun.rank_share`) at full
-model width.
+``fn`` runs what one device runs when the mesh has a single device.  A
+dense GQA ``train`` or ``prefill`` cell on a mesh whose ``model`` axis is
+larger than 1 is *partitioned* (``Cell.partitioned``): its ``fn`` is one
+rank's program (``models/lm.py``'s tensor-parallel forward, the
+vocabulary-parallel :func:`cross_entropy_tp`, :func:`~repro_torch.
+collectives.scheduler.sync_grads_tp` and AdamW on the rank's blocks),
+run inside a rank that is manual over every mesh axis on the rank's
+blocks of the args (:func:`~repro_torch.launch.dryrun.rank_share`); the
+dry-run runs it alone (``spmd.lone_rank``), and the real ranks' training
+step is ``runtime.make_train_step``'s.  Every other cell on a larger mesh
+runs one rank's share of the batch at full model width (GSPMD's
+partitioning of the other families is ROADMAP queue 1 item 1, left 6).
 """
 from __future__ import annotations
 
@@ -46,15 +53,19 @@ from ..models.encdec import EncDecCache
 from ..models.mla import MLACache
 from ..models.model import make_model
 from ..models.params import (ShapeDtypeStruct, abstract_tree, count_params,
-                             init_leaf, tree_leaves_with_path, unflatten)
+                             init_leaf, slot, tree_leaves_with_path,
+                             unflatten)
 from ..models.ssm import SSMCache
+from ..collectives.scheduler import sync_grads_tp
 from ..optim.adamw import OptState, adamw_update
-from ..parallel.sharding import NamedSharding, make_rules
+from ..parallel import spmd
+from ..parallel.sharding import (NamedSharding, batch_axes, make_rules,
+                                 spec_axes)
 from ..parallel.spmd import PartitionSpec as P
 
 __all__ = ["ARCH_POLICY", "make_parallel_config", "make_train_config",
-           "cross_entropy", "Cell", "active_param_count", "build_cell",
-           "materialize"]
+           "cross_entropy", "cross_entropy_tp", "model_loss", "Cell",
+           "active_param_count", "build_cell", "materialize"]
 
 # ---------------------------------------------------------------------------
 # per-arch parallel/training policy
@@ -113,6 +124,7 @@ class Cell:
     model: Any = None             # the model fn binds its parameters to
     batch_args: tuple[int, ...] = ()   # argnums split over the batch axes
     accum: int = 1                # microbatches a train step
+    partitioned: bool = False     # fn is one rank's tensor-parallel program
 
 
 def _sh(mesh, *parts) -> NamedSharding:
@@ -123,22 +135,11 @@ def _struct(shape, dtype, sharding=None) -> ShapeDtypeStruct:
     return ShapeDtypeStruct(tuple(int(s) for s in shape), dtype, sharding)
 
 
-def _batch_axes(mesh, batch: int):
-    """Largest prefix of (pod, data) that divides batch."""
-    axes = []
-    n = 1
-    for a in ("pod", "data"):
-        if a in mesh.shape and batch % (n * mesh.shape[a]) == 0:
-            axes.append(a)
-            n *= mesh.shape[a]
-    return tuple(axes) if axes else None
-
-
-def _kv_seq_axes(mesh, shape_name: str, batch_axes):
+def _kv_seq_axes(mesh, shape_name: str, ba):
     """Decode KV caches shard their sequence axis over 'model' (+ idle data
     axes for long-context): distributed flash-decode."""
     axes = ["model"]
-    used = set(batch_axes or ())
+    used = set(ba or ())
     if shape_name.startswith("long"):
         for a in ("data", "pod"):
             if a in mesh.shape and a not in used:
@@ -217,15 +218,6 @@ def _flat(tree: dict) -> dict:
     return out
 
 
-def _slots(module, name: str):
-    """The module holding parameter ``name`` ("blocks.0.attn.wq") and the
-    parameter's key in it."""
-    *path, key = name.split(".")
-    for k in path:
-        module = module._modules[k]
-    return module, key
-
-
 @contextlib.contextmanager
 def _bound(model, params: dict, grad: bool = False):
     """Inside the block the model's parameters are ``params``' tensors
@@ -240,7 +232,7 @@ def _bound(model, params: dict, grad: bool = False):
     saved, bound = {}, {}
     try:
         for n in names:
-            mod, key = _slots(model, n)
+            mod, key = slot(model, n)
             saved[n] = mod._parameters[key]
             t = flat[n]
             bound[n] = mod._parameters[key] = \
@@ -248,7 +240,7 @@ def _bound(model, params: dict, grad: bool = False):
         yield bound
     finally:
         for n, p in saved.items():
-            mod, key = _slots(model, n)
+            mod, key = slot(model, n)
             mod._parameters[key] = p
 
 
@@ -273,7 +265,7 @@ def _div(x: torch.Tensor, n: int) -> torch.Tensor:
 def _model_inputs(cfg: ModelConfig, spec: ShapeSpec, mesh, for_train: bool):
     """ShapeDtypeStructs for the forward inputs of this family."""
     B, S = spec.global_batch, spec.seq_len
-    ba = _batch_axes(mesh, B)
+    ba = batch_axes(mesh, B)
     tok_sh = _sh(mesh, ba, None)
     if cfg.family == "encdec":
         # stub audio frontend: encoder frames are precomputed embeddings
@@ -297,7 +289,7 @@ def _labels_spec(cfg: ModelConfig, spec: ShapeSpec, mesh):
     B, S = spec.global_batch, spec.seq_len
     if cfg.family == "encdec":
         S = min(S, 4096)
-    ba = _batch_axes(mesh, B)
+    ba = batch_axes(mesh, B)
     return _struct((B, S), torch.int32, _sh(mesh, ba, None))
 
 
@@ -323,6 +315,56 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         total = total + _token_nll(logits[:, i:i + chunk],
                                    labels[:, i:i + chunk]).sum()
     return _div(total, B * S)
+
+
+def cross_entropy_tp(logits: torch.Tensor, labels: torch.Tensor,
+                     vocab_size: int, chunk: int = 1024) -> torch.Tensor:
+    """:func:`cross_entropy` of a vocabulary-parallel rank: ``logits`` [B,
+    S, V_local] are this rank's columns ``[r * V_local, (r + 1) *
+    V_local)`` (r its index along ``model``); columns past ``vocab_size``
+    (the padding, on the last ranks) are masked out.  Per chunk the row
+    maxima meet in a pmax over ``model`` (no gradient), the exp-sums and
+    the gold logits (only the rank that owns a label has it) in one psum;
+    the same chunking as :func:`cross_entropy`."""
+    B, S, n = logits.shape
+    col0 = spmd.axis_index("model") * n
+    cols = torch.arange(n, device=logits.device) + col0
+    pad = cols >= vocab_size
+
+    def nll(lg, lb):
+        lf = lg.float().masked_fill(pad, float("-inf"))
+        m = spmd.pmax(lf.amax(-1).detach(), "model")
+        e = torch.exp(lf - m[..., None]).sum(-1)
+        ids = lb.long() - col0
+        mine = (ids >= 0) & (ids < n)
+        gold = torch.gather(lf, -1, ids.clamp(0, n - 1)[..., None])[..., 0]
+        gold = torch.where(mine, gold, torch.zeros((), device=gold.device))
+        tot = spmd.psum(torch.stack([e, gold]), "model")
+        return torch.log(tot[0]) + m - tot[1]
+
+    if flags.ROOFLINE_MODE or S % chunk or S <= chunk:
+        return nll(logits, labels).mean()
+    total = torch.zeros((), dtype=torch.float32, device=logits.device)
+    for i in range(0, S, chunk):
+        total = total + nll(logits[:, i:i + chunk],
+                            labels[:, i:i + chunk]).sum()
+    return _div(total, B * S)
+
+
+def model_loss(model, cfg: ModelConfig, logits: torch.Tensor,
+               labels: torch.Tensor) -> torch.Tensor:
+    """The next-token cross entropy over the real vocabulary of the model's
+    logits: :func:`cross_entropy_tp` on a tensor-parallel rank's block,
+    else :func:`cross_entropy` of the logits cut to the vocabulary."""
+    if getattr(model, "in_tp_rank", lambda: False)():
+        return cross_entropy_tp(logits, labels, cfg.vocab_size)
+    return cross_entropy(logits[..., :cfg.vocab_size], labels)
+
+
+def tp_axes_of(specs: dict) -> dict:
+    """Parameter name -> the mesh axes its block is sharded over (what
+    ``adamw_update``'s global norm psums over)."""
+    return {k: tuple(sorted(spec_axes(v))) for k, v in specs.items()}
 
 
 def _recast(tree: dict, dtype: torch.dtype) -> dict:
@@ -366,8 +408,11 @@ def _train_cell(arch, cfg, spec, tcfg, par, model, mesh, rules,
 
     def loss_fn(mb):
         logits, aux = _forward(model, cfg, mb)
-        return cross_entropy(logits[..., :cfg.vocab_size],
-                             mb["labels"]) + aux
+        return model_loss(model, cfg, logits, mb["labels"]) + aux
+
+    partitioned = getattr(model, "partitioned", False)
+    specs = model.param_specs() if partitioned else None
+    data_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
 
     # accumulate in bf16 when the optimizer state is bf16 (>=300B models):
     # an fp32 accumulator for 1T params costs 16 GiB/chip by itself.
@@ -402,10 +447,16 @@ def _train_cell(arch, cfg, spec, tcfg, par, model, mesh, rules,
                 grads = {k: _div(g, accum) for k, g in grads.items()}
             else:
                 loss, grads = grads_of(named, batch)
+            axes_of = None
+            if partitioned:
+                with torch.no_grad():
+                    grads = sync_grads_tp(grads, specs, data_axes)
+                    loss = spmd.pmean(loss, data_axes)
+                axes_of = tp_axes_of(specs)
             flat = OptState(opt.step, _flat(opt.m), _flat(opt.v),
                             None if opt.master is None else
                             _flat(opt.master))
-            new, metrics = adamw_update(named, grads, flat, tcfg)
+            new, metrics = adamw_update(named, grads, flat, tcfg, axes_of)
             del grads
         metrics["loss"] = loss
         return params, opt._replace(step=new.step), metrics
@@ -414,7 +465,8 @@ def _train_cell(arch, cfg, spec, tcfg, par, model, mesh, rules,
     return Cell(arch=arch, shape=spec, fn=train_step,
                 args=(p_abs, opt_abs, batch), donate=(0, 1),
                 model_params=n_params, active_params=n_active,
-                model=model, batch_args=(2,), accum=accum)
+                model=model, batch_args=(2,), accum=accum,
+                partitioned=partitioned)
 
 
 # ------------------------------------------------------------ prefill
@@ -429,12 +481,14 @@ def _prefill_cell(arch, cfg, spec, model, mesh, rules, n_params, n_active
         with torch.no_grad(), _bound(model, params):
             logits, _ = _forward(model, cfg, batch)
             # a copy of the last position, so that the [B, S, V] logits
-            # are freed on return
+            # are freed on return (on a partitioned rank: its block of
+            # the vocabulary; the caller cuts the real vocabulary)
             return logits[:, -1].clone()
 
     return Cell(arch=arch, shape=spec, fn=prefill_step, args=(p_abs, inputs),
                 donate=(), model_params=n_params, active_params=n_active,
-                model=model, batch_args=(1,))
+                model=model, batch_args=(1,),
+                partitioned=getattr(model, "partitioned", False))
 
 
 # ------------------------------------------------------------ decode
@@ -444,7 +498,7 @@ def _abstract_cache(model, cfg, spec, mesh, shape_name, rules):
     """ShapeDtypeStructs for the decode cache with per-shape shardings: the
     reference's per-leaf rules, less its stacked layer axis."""
     B, S = spec.global_batch, spec.seq_len
-    ba = _batch_axes(mesh, B)
+    ba = batch_axes(mesh, B)
     kv_axes = _kv_seq_axes(mesh, shape_name, ba)
 
     def like(t, *parts):
@@ -480,7 +534,7 @@ def _decode_cell(arch, cfg, spec, model, mesh, rules, n_params, n_active
                  ) -> Cell:
     B = spec.global_batch
     p_abs = model.abstract_params()
-    ba = _batch_axes(mesh, B)
+    ba = batch_axes(mesh, B)
     tokens = _struct((B, 1), torch.int32, _sh(mesh, ba, None))
     pos = _struct((B,), torch.int32, _sh(mesh, ba))
     cache = _abstract_cache(model, cfg, spec, mesh, spec.name, rules)

@@ -12,6 +12,13 @@ head_dim].  Decode KV caches are [batch, kv_heads, max_seq, head_dim] and
 are written in place.  Decode attention stays plain torch, as the
 reference computes it outside any Pallas kernel.
 
+Under tensor parallelism a rank holds its block of the q heads (``wq``,
+``wo``) and every KV head (``kv_heads`` is replicated, as the rule says);
+:func:`attention_block_tp` slices ``wk``/``wv`` to the KV heads of the
+rank's q heads (:func:`tp_kv_heads`: head ``j`` uses KV head ``j // g``)
+and returns the rank's partial ``wo`` product, which the caller sums over
+``model``.
+
 M-RoPE prefill takes [B, S, 3] (t, h, w) positions and masks by the t
 column, as the reference does; anything else raises ``ValueError``, where
 the reference takes ``positions[..., 0]`` of [B, S] positions as a [B]
@@ -34,8 +41,8 @@ from .params import ParamSpec
 
 __all__ = ["NEG_INF", "attn_spec", "effective_kv_heads", "ref_attention",
            "ref_attention_chunked", "flash_or_ref", "KVCache", "project_qkv",
-           "mask_positions", "attention_block", "decode_attention",
-           "cached_attention"]
+           "mask_positions", "attention_block", "tp_kv_heads",
+           "attention_block_tp", "decode_attention", "cached_attention"]
 
 NEG_INF = -1e30
 CHUNK = 512             # query rows per step of the chunked plain version
@@ -180,6 +187,36 @@ def attention_block(p, x: torch.Tensor, cfg: ModelConfig,
     o = flash_or_ref(q, k, v, pos1d, pos1d, window=cfg.sliding_window,
                      use_flash=use_flash)
     return _out(o, p["wo"])
+
+
+def tp_kv_heads(n_local: int, n_heads: int, n_kv: int, rank: int
+                ) -> tuple[int, int]:
+    """(first KV head, KV heads) that the q heads ``[rank * n_local,
+    (rank + 1) * n_local)`` of ``n_heads`` use, head ``j`` using KV head
+    ``j // g`` (``g = n_heads // n_kv``): ``n_local / g`` of them when
+    ``g`` divides ``n_local``, one when ``n_local`` divides ``g``;
+    ``ValueError`` otherwise (a rank's heads would straddle KV groups
+    unevenly)."""
+    g = n_heads // n_kv
+    if n_local % g == 0:
+        return rank * n_local // g, n_local // g
+    if g % n_local == 0:
+        return rank * n_local // g, 1
+    raise ValueError(f"{n_local} q heads a rank of {n_heads} in groups of "
+                     f"{g}: neither divides the other")
+
+
+def attention_block_tp(p, x: torch.Tensor, cfg: ModelConfig,
+                       positions: torch.Tensor, use_flash: bool, rank: int,
+                       tp: int) -> torch.Tensor:
+    """One tensor-parallel rank's full self-attention: its q heads, the KV
+    heads they use, and its partial ``wo`` product [B, S, d] (to be summed
+    over the ``tp`` ranks of ``model``)."""
+    n_local, n_kv = p["wq"].shape[1], p["wk"].shape[1]
+    kv0, nk = tp_kv_heads(n_local, n_local * tp, n_kv, rank)
+    local = {"wq": p["wq"], "wk": p["wk"][:, kv0:kv0 + nk],
+             "wv": p["wv"][:, kv0:kv0 + nk], "wo": p["wo"]}
+    return attention_block(local, x, cfg, positions, use_flash)
 
 
 def decode_attention(p, x: torch.Tensor, cfg: ModelConfig, cache: KVCache,

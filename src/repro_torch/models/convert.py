@@ -12,7 +12,9 @@ latent norms too), the MoE router and the SSM's ``dt_bias``, ``A_log``,
 :class:`~repro_torch.models.lm.Block` per layer.
 :func:`params_from_reference` carries the reference's tree in;
 :func:`params_to_reference` gives the port's parameters back in the
-reference's layout (to compare models trained on both sides).
+reference's layout (to compare models trained on both sides);
+:func:`ranks_from_reference` carries it onto the ranks of a
+tensor-parallel mesh, each rank's blocks on its device.
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ from .lm import LM
 from .model import make_model
 from .params import param_at, tree_leaves_with_path
 
-__all__ = ["params_from_reference", "params_to_reference"]
+__all__ = ["params_from_reference", "params_to_reference",
+           "ranks_from_reference"]
 
 
 def _stacked(model, path: tuple) -> tuple[tuple, int] | None:
@@ -76,6 +79,17 @@ def params_from_reference(cfg: ModelConfig, tree: dict, device=None, *,
                              f"{src.shape}, port shape {spec.shape}")
         param_at(model, path).copy_(torch.from_numpy(src).to(spec.dtype))
     return model
+
+
+def ranks_from_reference(cfg: ModelConfig, tree: dict, mesh, **kw
+                         ) -> tuple[LM, list[LM]]:
+    """(the port's model of ``cfg`` on ``mesh``'s first device holding the
+    reference's parameters, padded for the mesh's ``model`` axis; its rank
+    modules, each holding its blocks by the model's shardings on its
+    device): :func:`params_from_reference` then ``LM.tp_ranks``."""
+    model = params_from_reference(cfg, tree, mesh.devices.flat[0], mesh=mesh,
+                                  **kw)
+    return model, model.tp_ranks()
 
 
 @torch.no_grad()

@@ -3,7 +3,11 @@ learned positions.
 
 The port of ``repro/models/layers.py``.  Parameters come as dicts of
 tensors (``nn.ParameterDict``s) with the reference's names and per-layer
-shapes; activations keep the reference's layouts.
+shapes; activations keep the reference's layouts.  Under tensor
+parallelism a rank holds a block of the vocabulary: :func:`apply_embed_tp`
+looks up its own rows only (zeros elsewhere, summed over ``model`` by the
+caller) and :func:`apply_unembed` gives its block of the logits' columns;
+:func:`apply_mlp` on a rank's ``mlp`` block is its partial product.
 """
 from __future__ import annotations
 
@@ -15,7 +19,7 @@ from ..config import ModelConfig
 from .params import ParamSpec
 
 __all__ = ["norm_spec", "apply_norm", "mlp_spec", "apply_mlp", "embed_spec",
-           "apply_embed", "apply_unembed", "rope_freqs", "apply_rope",
+           "apply_embed", "apply_embed_tp", "apply_unembed", "rope_freqs", "apply_rope",
            "apply_mrope", "learned_pos_spec"]
 
 # ---------------------------------------------------------------- norms
@@ -92,6 +96,19 @@ def embed_spec(cfg: ModelConfig, padded_vocab: int) -> dict:
 
 def apply_embed(p, tokens: torch.Tensor) -> torch.Tensor:
     return p["embedding"][tokens]
+
+
+def apply_embed_tp(p, tokens: torch.Tensor, rank: int) -> torch.Tensor:
+    """A vocabulary-parallel rank's share of the lookup: the rows of its
+    block ``[rank * V_local, (rank + 1) * V_local)`` of the embedding,
+    zeros for tokens outside it."""
+    table = p["embedding"]
+    n = table.shape[0]
+    ids = tokens - rank * n
+    ok = (ids >= 0) & (ids < n)
+    rows = table[ids.clamp(0, n - 1)]
+    return torch.where(ok[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                        device=rows.device))
 
 
 def apply_unembed(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -28,6 +28,30 @@ groups.  With ``par.remat`` other than ``"none"`` each block runs under
 the reference's per-group ``jax.checkpoint`` at period 1 and its per
 sub-layer checkpoint under ``remat="full"`` at period > 1.
 
+**Tensor parallelism** (the dense GQA family, :func:`tp_ported`, under a
+mesh whose ``model`` axis is larger than 1): the reference's GSPMD
+partitioning by ``make_rules`` as an explicit per-rank program.
+:meth:`LM.shard` gives one :class:`LM` a rank of the mesh holding its
+blocks of the parameters (``spec_for(ParamSpec.axes, rules, mesh)``:
+``vocab``, ``heads`` and ``mlp`` over ``model``, ``embed`` over ``data``
+under FSDP), :meth:`LM.gather` writes them back.  ``apply`` inside a rank
+that is manual over ``model`` runs :meth:`LM._apply_tp` (Megatron form:
+vocabulary-parallel embedding, column-parallel q/k/v and MLP up, row-
+parallel ``wo`` summed over ``model``, logits ``[B, S, V/tp]``); with
+Megatron-SP (``S`` a multiple of ``tp``, ``S > 1``) the residual a rank
+holds is ``[B, S/tp, d]`` (``seq_sp``): the sequence is all-gathered
+before each block's column-parallel products and the partial products
+reduce-scattered back.  FSDP parameters are gathered over ``data`` with
+:func:`~repro_torch.parallel.spmd.gather_static` where they are used
+(and again in the recompute).  With remat, only the rank-local segments
+between collectives are checkpointed (norm -> projections -> attention ->
+``wo``; norm -> MLP), so no recompute calls a collective; the gathered
+sequence each segment starts from is kept.  ``apply`` outside a rank
+runs the ranks under :func:`~repro_torch.parallel.spmd.shard_map` (its
+rank modules cached until a parameter of the model changes) and returns
+the logits assembled from their vocabulary blocks.  Other families keep
+the one-device program inside a rank.
+
 MLA layers (``cfg.attention == "mla"``) keep their parameters under
 ``attn`` as the reference does and one :class:`~.mla.MLACache` (latent and
 rope key, no window) a layer for decode.  The VLM's stub frontend feeds
@@ -42,17 +66,29 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig, ParallelConfig
-from ..parallel.sharding import constrain, padded
+from ..parallel import spmd
+from ..parallel.sharding import (batch_axes, constrain, gather_shards,
+                                 local_shape, mesh_axis_size, mesh_coords,
+                                 padded, part_axes, shard_of, spec_for)
 from . import params as prm
-from .attention import (KVCache, attention_block, attn_spec, decode_attention,
-                        effective_kv_heads)
-from .layers import (apply_embed, apply_mlp, apply_norm, apply_unembed,
-                     embed_spec, mlp_spec, norm_spec)
+from .attention import (KVCache, attention_block, attention_block_tp,
+                        attn_spec, decode_attention, effective_kv_heads)
+from .layers import (apply_embed, apply_embed_tp, apply_mlp, apply_norm,
+                     apply_unembed, embed_spec, mlp_spec, norm_spec)
 from .mla import MLACache, init_mla_cache, mla_block, mla_decode, mla_spec
 from .moe import moe_block, moe_spec
 from .ssm import SSMCache, init_ssm_cache, ssm_block, ssm_decode, ssm_spec
 
-__all__ = ["LM", "Block"]
+__all__ = ["LM", "Block", "tp_ported", "TP_LEFT"]
+
+TP_LEFT = "ROADMAP queue 1 item 1, left 6"
+
+
+def tp_ported(cfg: ModelConfig) -> bool:
+    """Whether tensor parallelism over ``model`` is ported for ``cfg``'s
+    family: the dense GQA family with RoPE."""
+    return (cfg.family, cfg.attention, cfg.pos_emb) == ("dense", "gqa",
+                                                         "rope")
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -80,14 +116,19 @@ class LM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, par: ParallelConfig | None = None,
                  use_flash: bool = False, use_ssd_kernel: bool = False,
-                 device=None, mesh=None, rules=None):
+                 device=None, mesh=None, rules=None, tp: int | None = None):
         super().__init__()
         self.cfg = cfg
         self.par = par or ParallelConfig()
         self.use_flash = use_flash
         self.use_ssd_kernel = use_ssd_kernel
         self.mesh, self.rules = mesh, rules
-        self.tp = 1 if mesh is None else mesh.shape.get("model", 1)
+        # ``tp`` pads heads and vocabulary; it is the mesh's model axis
+        # unless given (a one-device model of a partitioned one's tree)
+        self.tp = tp if tp is not None else \
+            (1 if mesh is None else mesh.shape.get("model", 1))
+        self._ranks = None          # (parameter versions, rank modules)
+        self._even = None           # every parameter splits evenly
         self.vocab_padded = padded(cfg.vocab_size, self.tp * 128)
         self.period = cfg.attn_every or 1
         if cfg.moe is not None and cfg.moe_every > 1:
@@ -148,6 +189,81 @@ class LM(nn.Module):
         """Each parameter's sharding under the model's rules and mesh."""
         return prm.shardings_tree(self.param_spec(), self.rules, self.mesh)
 
+    # ------------------------------------------------------------ ranks
+    @property
+    def partitioned(self) -> bool:
+        """Whether the model runs tensor-parallel over its mesh's
+        ``model`` axis: a ported family under a ``model`` axis > 1 whose
+        every parameter splits evenly by its sharding (heads and
+        vocabulary are padded to; a ``d_ff`` or, under FSDP, a
+        ``d_model`` that does not divide keeps the one-device program)."""
+        if self.mesh is None or self.rules is None or \
+                self.mesh.shape.get("model", 1) <= 1 or \
+                not tp_ported(self.cfg):
+            return False
+        if self._even is None:
+            try:
+                for path, sp in prm.tree_leaves_with_path(
+                        self.param_spec()):
+                    local_shape(sp.shape, spec_for(sp.axes, self.rules,
+                                                   self.mesh), self.mesh)
+                self._even = True
+            except ValueError:
+                self._even = False
+        return self._even
+
+    def in_tp_rank(self) -> bool:
+        """Whether the caller is a rank of the partitioned program: the
+        model is :attr:`partitioned` and ``model`` is a manual axis."""
+        return self.partitioned and "model" in spmd.manual_axes()
+
+    def param_specs(self) -> dict:
+        """Each parameter's :class:`PartitionSpec` by its name
+        (``"blocks.0.attn.wq"``) under the model's rules and mesh."""
+        return {".".join(path): spec_for(sp.axes, self.rules, self.mesh)
+                for path, sp in prm.tree_leaves_with_path(self.param_spec())}
+
+    def shard(self) -> list["LM"]:
+        """One model a rank of the mesh (rank order: row-major over its
+        axes), each holding copies of its blocks of the parameters on its
+        device: the inverse of :meth:`gather`."""
+        specs, mesh = self.param_specs(), self.mesh
+        ranks = []
+        for c in mesh_coords(mesh):
+            dev = mesh.devices[tuple(c[a] for a in mesh.axis_names)]
+            rank = LM(self.cfg, self.par, self.use_flash,
+                      self.use_ssd_kernel, "meta", mesh, self.rules, self.tp)
+            for name, p in self.named_parameters():
+                mod, key = prm.slot(rank, name)
+                mod._parameters[key] = nn.Parameter(
+                    shard_of(p.detach(), specs[name], mesh, c).to(
+                        dev, copy=True), requires_grad=p.requires_grad)
+            rank.coords = c
+            ranks.append(rank)
+        return ranks
+
+    @torch.no_grad()
+    def gather(self, ranks: list["LM"]) -> None:
+        """Write the ranks' blocks (from :meth:`shard`) into the model's
+        own parameters."""
+        specs = self.param_specs()
+        per = [dict(r.named_parameters()) for r in ranks]
+        for name, p in self.named_parameters():
+            p.copy_(gather_shards([d[name] for d in per], specs[name],
+                                  self.mesh, p.device))
+        self._ranks = (self._versions(), ranks)
+
+    def _versions(self) -> tuple:
+        return tuple((p.data_ptr(), p._version) for p in self.parameters())
+
+    def tp_ranks(self) -> list["LM"]:
+        """The rank modules ``apply`` runs: :meth:`shard` of the model,
+        cached until one of its parameters changes."""
+        key = self._versions()
+        if self._ranks is None or self._ranks[0] != key:
+            self._ranks = (key, self.shard())
+        return self._ranks[1]
+
     # ------------------------------------------------------------ forward
     def _ffn(self, bp: Block, x: torch.Tensor):
         """The layer's FFN on ``x`` (after ``ln2``): ``(out, aux)``, aux
@@ -188,6 +304,11 @@ class LM(nn.Module):
         padded vocab], aux): aux is the MoE layers' load-balancing loss, 0
         without MoE layers.
         """
+        if self.partitioned and embeds is None:
+            if self.in_tp_rank():
+                return self._apply_tp(tokens, positions)
+            if not spmd.in_rank():
+                return self._apply_ranks(tokens, positions)
         cfg = self.cfg
         dt = _dtype(cfg.dtype)
         x = (apply_embed(self.embed, tokens) if embeds is None
@@ -221,6 +342,110 @@ class LM(nn.Module):
         logits = constrain(logits, ("batch", "seq", "act_heads"),
                            self.rules, self.mesh)
         return logits, aux
+
+    def _apply_ranks(self, tokens: torch.Tensor, positions):
+        """The partitioned program over the mesh's ranks: (logits [B, S,
+        padded vocab] assembled from the ranks' vocabulary blocks on the
+        mesh's first device, aux 0)."""
+        B, S = tokens.shape
+        if positions is None:
+            positions = torch.arange(S, dtype=torch.int32,
+                                     device=tokens.device).expand(B, S)
+        ba = batch_axes(self.mesh, B)
+        ranks = self.tp_ranks()
+
+        def local(t, pos):
+            return ranks[spmd.rank_index()].apply(t, pos)
+
+        return spmd.shard_map(
+            local, mesh=self.mesh, in_specs=(spmd.P(ba), spmd.P(ba)),
+            out_specs=(spmd.P(ba, None, "model"), spmd.P()))(tokens,
+                                                              positions)
+
+    def _fsdp_gather(self):
+        """``gather(params)`` for a dict of this rank's parameters: each
+        one sharded over a manual data axis (FSDP's ``embed``) gathered
+        with its group's blocks (:func:`~repro_torch.parallel.spmd.
+        gather_static`), the others as they are."""
+        specs = self.param_specs()
+        sizes = self.mesh.shape
+        manual = spmd.manual_axes()
+        names, where, groups = {}, {}, {}
+        for name, p in self.named_parameters():
+            for d, part in enumerate(specs[name]):
+                axes = tuple(a for a in part_axes(part) if a != "model"
+                             and a in manual and sizes[a] > 1)
+                if axes:
+                    names[id(p)], where[name] = name, (d, axes)
+                    groups.setdefault(axes, {})[name] = p
+        if not where:
+            return lambda pd: pd
+        peers = {axes: spmd.peers(objs, axes)
+                 for axes, objs in sorted(groups.items())}
+
+        def gather(pd) -> dict:
+            out = {}
+            for k, t in pd.items():
+                name = names.get(id(t))
+                if name is None:
+                    out[k] = t
+                    continue
+                d, axes = where[name]
+                pe = peers[axes]
+                out[k] = spmd.gather_static([m[name] for m in pe.items], d,
+                                            t.device, axes, pe.counts)
+            return out
+
+        return gather
+
+    def _apply_tp(self, tokens: torch.Tensor, positions):
+        """One tensor-parallel rank's prefill forward (see the module
+        docstring): (its logits block [B, S, V_padded / tp], aux 0)."""
+        cfg, mesh, rules = self.cfg, self.mesh, self.rules
+        tp, r = spmd.axis_size("model"), spmd.axis_index("model")
+        B, S = tokens.shape
+        dt = _dtype(cfg.dtype)
+        if positions is None:
+            positions = torch.arange(S, dtype=torch.int32,
+                                     device=tokens.device).expand(B, S)
+        bg = B * mesh_axis_size(mesh, tuple(
+            a for a in rules["batch"] or () if a in spmd.manual_axes()))
+        sp = S % tp == 0 and S > 1
+        remat = self.par.remat != "none" and torch.is_grad_enabled()
+        gather = self._fsdp_gather()
+
+        def reduce(part):
+            return spmd.psum_scatter(part, "model", 1) if sp else \
+                spmd.psum(part, "model")
+
+        def sub(segment, x):
+            """x + the sum over ``model`` of ``segment`` on the (gathered)
+            residual; only the rank-local segment is recomputed."""
+            h = spmd.all_gather(x, "model", 1) if sp else x
+            part = checkpoint(segment, h, use_reentrant=False) if remat \
+                else segment(h)
+            return x + reduce(part)
+
+        x = reduce(apply_embed_tp(gather(self.embed), tokens, r).to(dt))
+        seq = ("batch", "seq_sp" if sp else "seq", "act_embed")
+        x = constrain(x, seq, rules, mesh, (bg, S, cfg.d_model))
+        for i, bp in enumerate(self.blocks):
+            x = sub(lambda h, bp=bp: attention_block_tp(
+                gather(bp.attn), apply_norm(bp.ln1, h, cfg), cfg, positions,
+                self.use_flash, r, tp), x)
+            if "mlp" in bp._modules:
+                x = sub(lambda h, bp=bp: apply_mlp(
+                    gather(bp.mlp), apply_norm(bp.ln2, h, cfg), cfg), x)
+            if (i + 1) % self.period == 0:
+                x = constrain(x, seq, rules, mesh, (bg, S, cfg.d_model))
+        if sp:
+            x = spmd.all_gather(x, "model", 1)
+        x = apply_norm(self.final_norm, x, cfg)
+        logits = apply_unembed(gather(self.embed), x, cfg)
+        logits = constrain(logits, ("batch", "seq", "act_heads"), rules,
+                           mesh, (bg, S, self.vocab_padded))
+        return logits, torch.zeros((), dtype=torch.float32,
+                                   device=x.device)
 
     # ------------------------------------------------------------ decode
     def kv_cache_len(self, max_seq: int) -> int:

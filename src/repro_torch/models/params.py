@@ -33,7 +33,7 @@ from ..parallel.sharding import NamedSharding, sharding_for
 __all__ = ["ParamSpec", "ShapeDtypeStruct", "tree_leaves_with_path",
            "count_params", "param_bytes", "cast_tree", "init_leaf",
            "init_tree", "param_at", "module_from_spec", "abstract_tree",
-           "shardings_tree", "shard_shape", "shard_bytes", "unflatten"]
+           "shardings_tree", "shard_shape", "shard_bytes", "unflatten", "slot"]
 
 
 @dataclass(frozen=True)
@@ -159,7 +159,9 @@ def init_leaf(out: torch.Tensor, spec: ParamSpec,
         std = spec.scale
     else:
         raise ValueError(f"unknown initializer {spec.init!r}")
-    x = torch.empty(spec.shape, dtype=torch.float32, device=out.device)
+    # ``out`` may be a rank's block of the leaf: the draw takes its shape,
+    # the standard deviation the whole leaf's fan-in
+    x = torch.empty(out.shape, dtype=torch.float32, device=out.device)
     nn.init.trunc_normal_(x, 0.0, 1.0, -3.0, 3.0, generator=generator)
     out.copy_(x * std)
 
@@ -189,6 +191,15 @@ def param_at(module: nn.Module, path: tuple) -> torch.Tensor:
         else:
             module = getattr(module, k)
     return module
+
+
+def slot(module: nn.Module, name: str) -> tuple[nn.Module, str]:
+    """The module holding parameter ``name`` (``"blocks.0.attn.wq"``) and
+    the parameter's key in it (to swap the tensor in its slot)."""
+    *path, key = name.split(".")
+    for k in path:
+        module = module._modules[k]
+    return module, key
 
 
 @torch.no_grad()

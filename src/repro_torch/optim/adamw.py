@@ -12,6 +12,12 @@ the optimizer state would not fit on the card.  Divisions go by tensors on
 the parameters' device, never by a Python scalar (torch's CUDA kernel
 multiplies by the scalar's reciprocal instead).  It stays plain torch: the
 reference computes it outside any kernel of its own.
+
+On a rank of a partitioned program each leaf is the rank's block:
+``axes_of`` names, per leaf, the mesh axes it is sharded over, and
+:func:`global_norm` psums each such leaf's squared sum over them (a leaf
+replicated there counts once), so the clipping scale, and with it every
+block's update, is one device's.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import TrainConfig
+from ..parallel import spmd
 
 __all__ = ["OptState", "cosine_lr", "init_opt_state", "global_norm",
            "adamw_update"]
@@ -69,22 +76,33 @@ def init_opt_state(params: dict, cfg: TrainConfig) -> OptState:
         master=master)
 
 
-def global_norm(tree: dict) -> torch.Tensor:
-    total = None
-    for x in tree.values():
+def global_norm(tree: dict, axes_of: dict | None = None) -> torch.Tensor:
+    """The L2 norm of every leaf together.  ``axes_of`` (inside a rank):
+    leaf name -> the mesh axes the leaf is sharded over; the squared sums
+    of the leaves sharded over the same axes are added, then psummed over
+    those axes."""
+    groups: dict = {}
+    for name, x in tree.items():
+        axes = tuple(sorted((axes_of or {}).get(name, ())))
         sq = torch.sum(torch.square(x.float()))
+        groups[axes] = sq if axes not in groups else groups[axes] + sq
+    total = None
+    for axes in sorted(groups):
+        sq = spmd.psum(groups[axes], axes) if axes else groups[axes]
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 
 @torch.no_grad()
 def adamw_update(params: dict, grads: dict, state: OptState,
-                 cfg: TrainConfig) -> tuple[OptState, dict]:
+                 cfg: TrainConfig, axes_of: dict | None = None
+                 ) -> tuple[OptState, dict]:
     """One AdamW step.  ``params`` (the model's parameters), ``state.m``,
     ``state.v`` and ``state.master`` are updated in place; returns (the
-    state with its step incremented, metrics {"lr", "grad_norm"})."""
+    state with its step incremented, metrics {"lr", "grad_norm"}).
+    ``axes_of``: as in :func:`global_norm`, on a rank's blocks."""
     lr = cosine_lr(cfg)(state.step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, axes_of)
     one = _f32(1.0, gnorm)
     scale = torch.minimum(one, _f32(cfg.grad_clip, gnorm) / torch.maximum(
         gnorm, _f32(1e-9, gnorm))) if cfg.grad_clip else one

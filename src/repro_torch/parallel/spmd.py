@@ -35,7 +35,38 @@ Collectives take Python ints for rank indices (:func:`axis_index`), so the
 per-rank code keeps the reference's index arithmetic as plain integers.
 :func:`ppermute` counts its calls per axis in ``ppermute.counts`` (once
 per collective, not per rank): the counterpart of the reference test's
-count of ``collective-permute`` ops in the compiled program.
+count of ``collective-permute`` ops in the compiled program.  Every
+collective is also counted in :data:`TALLY` by kind, axes, group size and
+operand bytes (what the dry-run turns into wire bytes).
+
+**Gradients: one graph, one backward.**  The copy that carries a value
+across ranks is an ordinary differentiable copy, so :func:`psum`,
+:func:`all_gather` and :func:`psum_scatter` (and the other collectives)
+are autograd ops over copies of the other ranks' tensors, and the ranks'
+forwards form *one* autograd graph.  The controller, after
+:func:`shard_map` returns, runs one backward from a single global value
+(rank 0's copy of the loss, which depends on every rank through the
+loss's psums); autograd then does the transposes through the copies
+(all-reduce <-> identity, all-gather <-> reduce-scatter), and no
+collective runs in a backward.  None may: the backward of CUDA tensors
+runs on the device's single autograd thread, where no rank is set, and a
+barrier there would wait for ranks that cannot run, so a collective
+called inside a backward raises ``RuntimeError``.  In the forward, a
+collective whose result takes gradients also counts its transpose in
+:data:`TALLY` (the backward's collective in a partitioned program).
+
+Parameters do not change within a step, so a rank may read another rank's
+parameter shard without meeting it: :func:`peers` exchanges references to
+them once (a barrier in the forward), and :func:`gather_static` (FSDP's
+parameter all-gather) concatenates copies of them with no barrier, also
+in a remat recompute inside the backward.
+
+**Lone-rank mode** (:func:`lone_rank`): one rank of a mesh runs alone, in
+the caller's thread (the dry-run's partitioned program on meta tensors, or
+one rank's program on the card).  Every collective then returns a tensor
+of the right shape as if every rank held this rank's value (psum: a copy
+of its input; all_gather: the input repeated; psum_scatter: this rank's
+slice; ppermute: the input) and is counted in :data:`TALLY`.
 """
 from __future__ import annotations
 
@@ -50,8 +81,10 @@ from dataclasses import dataclass
 import torch
 
 __all__ = ["PartitionSpec", "P", "shard_map", "rank_devices", "axis_index",
-           "axis_size", "manual_axes", "in_rank", "ppermute", "psum",
-           "pmean", "all_to_all", "BARRIER_TIMEOUT"]
+           "axis_size", "manual_axes", "in_rank", "rank_index", "ppermute",
+           "psum", "pmean", "pmax", "all_gather", "psum_scatter",
+           "all_to_all", "peers", "gather_static", "lone_rank", "Tally",
+           "TALLY", "BARRIER_TIMEOUT"]
 
 BARRIER_TIMEOUT = 600.0     # seconds a rank waits for the others
 
@@ -79,15 +112,54 @@ class _Rank:
     stream: torch.cuda.Stream | None
 
 
+class Tally:
+    """Collectives by (kind, axes, group size): ``count`` and operand
+    ``bytes`` (an all-gather's gathered result, a reduce-scatter's whole
+    input), each collective once (rank 0 counts in a real group).  Kinds
+    are the reference's HLO names: ``all-reduce``, ``all-gather``,
+    ``reduce-scatter``, ``all-to-all``, ``collective-permute``."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.count: Counter = Counter()
+        self.bytes: Counter = Counter()
+
+    def clear(self) -> None:
+        with self.lock:
+            self.count.clear()
+            self.bytes.clear()
+
+    def add(self, kind: str, axes: tuple, n: int, nbytes: int) -> None:
+        with self.lock:
+            self.count[(kind, axes, n)] += 1
+            self.bytes[(kind, axes, n)] += int(nbytes)
+
+    def by_kind(self) -> dict[str, int]:
+        out: Counter = Counter()
+        for (kind, _, _), c in self.count.items():
+            out[kind] += c
+        return dict(out)
+
+
+TALLY = Tally()
+# the transpose a collective's backward performs
+_TRANSPOSE = {"all-reduce": "all-reduce", "all-gather": "reduce-scatter",
+              "reduce-scatter": "all-gather", "all-to-all": "all-to-all",
+              "collective-permute": "collective-permute"}
+
+
 class _Group:
     """The ranks of one ``shard_map`` call: a barrier and two rounds of
     slots (a rank writes round k's slot only after every rank passed
-    round k-1's barrier, so one barrier a collective suffices)."""
+    round k-1's barrier, so one barrier a collective suffices).  A lone
+    group (:func:`lone_rank`) has one thread and no barrier."""
 
-    def __init__(self, axes: tuple[str, ...], sizes: dict[str, int]):
-        self.axes, self.sizes = axes, sizes
+    def __init__(self, axes: tuple[str, ...], sizes: dict[str, int],
+                 lone: bool = False):
+        self.axes, self.sizes, self.lone = axes, sizes, lone
         self.n = math.prod(sizes[a] for a in axes)
-        self.barrier = threading.Barrier(self.n, timeout=BARRIER_TIMEOUT)
+        self.barrier = threading.Barrier(1 if lone else self.n,
+                                         timeout=BARRIER_TIMEOUT)
         self.slots = [[None] * self.n, [None] * self.n]
         self.rounds = [0] * self.n
         self.lock = threading.Lock()
@@ -131,6 +203,11 @@ def in_rank() -> bool:
     return getattr(_tls, "rank", None) is not None
 
 
+def rank_index() -> int:
+    """This rank's row-major index over the manual axes."""
+    return _ctx("rank_index").rank
+
+
 def manual_axes() -> set[str]:
     """Mesh axes that are manual in the current rank (empty outside)."""
     ctx = getattr(_tls, "rank", None)
@@ -165,14 +242,39 @@ def _members(ctx: _Rank, axes: tuple[str, ...]) -> list[int]:
     return out
 
 
+def _in_backward() -> bool:
+    return torch._C._current_graph_task_id() != -1
+
+
+def _collective(what: str) -> _Rank:
+    """The calling rank, refusing a collective inside a backward (see the
+    module docstring)."""
+    ctx = _ctx(what)
+    if _in_backward():
+        raise RuntimeError(
+            f"{what} inside an autograd backward: a collective's transpose "
+            "is taken through the forward's copies (spmd module docstring)")
+    return ctx
+
+
+def _count(ctx: _Rank, kind: str, axes: tuple, nbytes: int,
+           out=None) -> None:
+    """Count a collective (rank 0 of a real group; a lone rank always) and,
+    when ``out`` takes gradients, its transpose in the backward."""
+    n = math.prod(ctx.group.sizes[a] for a in axes)
+    if n <= 1 or (ctx.rank != 0 and not ctx.group.lone):
+        return
+    TALLY.add(kind, axes, n, nbytes)
+    if isinstance(out, torch.Tensor) and out.requires_grad:
+        TALLY.add(_TRANSPOSE[kind], axes, n, nbytes)
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
 def _post(x: torch.Tensor):
-    """``x`` with an event recorded after the work that produces it.  A
-    copy between ranks carries no gradient, so a tensor that autograd
-    tracks is refused."""
-    if x.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "collectives of the port carry no gradient: detach, or run "
-            "under torch.no_grad()")
+    """``x`` with an event recorded after the work that produces it."""
     if not x.is_cuda:
         return x, None
     ev = torch.cuda.Event()
@@ -181,34 +283,44 @@ def _post(x: torch.Tensor):
 
 
 def _fetch(item, dev: torch.device) -> torch.Tensor:
-    """A copy of a posted tensor on ``dev``, on its current stream."""
+    """A copy of a posted tensor on ``dev``, on its current stream: an
+    autograd op, whose backward carries the gradient back to the sender's
+    tensor."""
     x, ev = item
     if ev is not None:
         if dev.type == "cuda":
             torch.cuda.current_stream(dev).wait_event(ev)
         else:
             ev.synchronize()
-    y = torch.empty_like(x, device=dev)
-    y.copy_(x, non_blocking=dev.type == "cuda")
+    y = x.to(dev, copy=True, non_blocking=dev.type == "cuda")
     if x.is_cuda and dev.type == "cuda":
         x.record_stream(torch.cuda.current_stream(dev))
     return y
+
+
+def _slots(ctx: _Rank, x: torch.Tensor) -> list:
+    """Every rank's posted ``x``; a lone rank stands for each of them."""
+    if ctx.group.lone:
+        return [(x, None)] * ctx.group.n
+    return ctx.group.exchange(ctx, _post(x))
 
 
 def ppermute(x: torch.Tensor, axis, perm) -> torch.Tensor:
     """``jax.lax.ppermute``: ``perm`` lists (source, destination) pairs of
     indices along ``axis``; a rank that no pair names as destination gets
     zeros."""
-    ctx = _ctx("ppermute")
+    ctx = _collective("ppermute")
     axes = _axes(axis)
-    if ctx.rank == 0:
+    if ctx.rank == 0 or ctx.group.lone:
         ppermute.counts[axis] += 1
-    slots = ctx.group.exchange(ctx, _post(x))
+    slots = _slots(ctx, x)
     me = axis_index(axes)
     src = [s for s, d in perm if d == me]
-    if not src:
-        return torch.zeros_like(x)
-    return _fetch(slots[_members(ctx, axes)[src[0]]], ctx.device)
+    out = torch.zeros_like(x) if not src else (
+        x.clone() if ctx.group.lone else
+        _fetch(slots[_members(ctx, axes)[src[0]]], ctx.device))
+    _count(ctx, "collective-permute", axes, _nbytes(x), out)
+    return out
 
 
 ppermute.counts = Counter()
@@ -217,15 +329,25 @@ ppermute.counts = Counter()
 def psum(x, axis):
     """Sum over the ranks of ``axis`` (a name or a tuple), added in rank
     order on every rank.  A Python number gives number x group size."""
-    ctx = _ctx("psum")
+    ctx = _collective("psum")
     axes = _axes(axis)
     if not isinstance(x, torch.Tensor):
         return x * axis_size(axes)
-    slots = ctx.group.exchange(ctx, _post(x))
+    acc = _fold(ctx, x, axes, torch.add)
+    _count(ctx, "all-reduce", axes, _nbytes(x), acc)
+    return acc
+
+
+def _fold(ctx: _Rank, x: torch.Tensor, axes: tuple, op) -> torch.Tensor:
+    """``op`` over the group's values along ``axes`` in rank order (a lone
+    rank: a copy of its own)."""
+    if ctx.group.lone:
+        return x.clone()
+    slots = _slots(ctx, x)
     acc = None
     for r in _members(ctx, axes):
         y = x if r == ctx.rank else _fetch(slots[r], ctx.device)
-        acc = y if acc is None else acc + y
+        acc = y if acc is None else op(acc, y)
     return acc
 
 
@@ -240,31 +362,157 @@ def pmean(x, axis):
     return s / torch.full((), n, dtype=s.dtype, device=s.device)
 
 
+@torch.no_grad()
+def pmax(x: torch.Tensor, axis) -> torch.Tensor:
+    """The elementwise maximum over the ranks of ``axis`` (no gradient)."""
+    ctx = _collective("pmax")
+    axes = _axes(axis)
+    acc = _fold(ctx, x, axes, torch.maximum)
+    _count(ctx, "all-reduce", axes, _nbytes(x))
+    return acc
+
+
+def all_gather(x: torch.Tensor, axis, dim: int = 0) -> torch.Tensor:
+    """The ranks' blocks of ``axis`` concatenated along ``dim`` in rank
+    order (``jax.lax.all_gather(..., tiled=True)``)."""
+    ctx = _collective("all_gather")
+    axes = _axes(axis)
+    if ctx.group.lone:
+        out = torch.cat([x] * axis_size(axes), dim=dim)
+    else:
+        slots = _slots(ctx, x)
+        out = torch.cat([x if r == ctx.rank else _fetch(slots[r], ctx.device)
+                         for r in _members(ctx, axes)], dim=dim)
+    _count(ctx, "all-gather", axes, _nbytes(out), out)
+    return out
+
+
+def psum_scatter(x: torch.Tensor, axis, dim: int = 0) -> torch.Tensor:
+    """Block i (along ``dim``, of ``axis``'s size) of the sum over the ranks
+    of ``axis`` on the rank of index i, added in rank order
+    (``jax.lax.psum_scatter(..., tiled=True)``)."""
+    ctx = _collective("psum_scatter")
+    axes = _axes(axis)
+    n = axis_size(axes)
+    if x.shape[dim] % n:
+        raise ValueError(f"psum_scatter: dimension {dim} of size "
+                         f"{x.shape[dim]} over {n} ranks")
+    c = x.shape[dim] // n
+    me = axis_index(axes)
+    if ctx.group.lone:
+        acc = x.narrow(dim, me * c, c).clone()
+    else:
+        slots = _slots(ctx, x)
+        acc = None
+        for r in _members(ctx, axes):
+            if r == ctx.rank:
+                y = x.narrow(dim, me * c, c)
+            else:
+                y, ev = slots[r]
+                y = _fetch((y.narrow(dim, me * c, c), ev), ctx.device)
+            acc = y if acc is None else acc + y
+        acc = acc.contiguous()
+    _count(ctx, "reduce-scatter", axes, _nbytes(x), acc)
+    return acc
+
+
 def all_to_all(x: torch.Tensor, axis, split_axis: int, concat_axis: int,
                tiled: bool = False) -> torch.Tensor:
     """``jax.lax.all_to_all``: chunk j of ``split_axis`` goes to rank j of
     ``axis``; the chunks received from ranks 0..n-1 are stacked at
     ``concat_axis`` (``tiled=False``: ``split_axis`` has size n and is
     removed) or concatenated along it (``tiled=True``)."""
-    ctx = _ctx("all_to_all")
+    ctx = _collective("all_to_all")
     axes = _axes(axis)
     n = axis_size(axes)
     if x.shape[split_axis] % n or (not tiled and x.shape[split_axis] != n):
         raise ValueError(f"all_to_all: split axis of size "
                          f"{x.shape[split_axis]} over {n} ranks")
-    slots = ctx.group.exchange(ctx, _post(x))
+    slots = _slots(ctx, x)
     me, c = axis_index(axes), x.shape[split_axis] // n
     parts = []
-    for r in _members(ctx, axes):
+    for r in [ctx.rank] * n if ctx.group.lone else _members(ctx, axes):
         y, ev = (x, None) if r == ctx.rank else slots[r]
         piece = y.narrow(split_axis, me * c, c)
         parts.append(piece.clone() if r == ctx.rank
                      else _fetch((piece, ev), ctx.device))
     if tiled:
-        return torch.cat(parts, dim=concat_axis)
-    return torch.stack([p.squeeze(split_axis) for p in parts],
-                       dim=concat_axis)
+        out = torch.cat(parts, dim=concat_axis)
+    else:
+        out = torch.stack([p.squeeze(split_axis) for p in parts],
+                          dim=concat_axis)
+    _count(ctx, "all-to-all", axes, _nbytes(x), out)
+    return out
 
+
+# ---------------------------------------------- parameters of other ranks
+
+@dataclass
+class Peers:
+    """What the ranks of one group along ``axes`` posted to :func:`peers`,
+    in their index order; ``counts`` says whether gathers of them are
+    counted in :data:`TALLY` (rank 0, or a lone rank)."""
+    items: list
+    axes: tuple[str, ...]
+    counts: bool
+
+
+def peers(obj, axis) -> Peers:
+    """Exchange ``obj`` (references to parameters) with the ranks of this
+    rank's group along ``axis``: a barrier in the forward, nothing copied.
+    A lone rank stands for every member."""
+    ctx = _collective("peers")
+    axes = _axes(axis)
+    if ctx.group.lone:
+        return Peers([obj] * axis_size(axes), axes, True)
+    slots = ctx.group.exchange(ctx, obj)
+    return Peers([slots[r] for r in _members(ctx, axes)], axes,
+                 ctx.rank == 0)
+
+
+def gather_static(shards: list, dim: int, dev: torch.device,
+                  axes: tuple = (), counts: bool = False) -> torch.Tensor:
+    """FSDP's parameter all-gather: ``shards`` (one group's blocks of a
+    parameter in index order, from :func:`peers`) copied onto ``dev`` and
+    concatenated along ``dim``.  No barrier: parameters are stable within a
+    step, so this also runs in a remat recompute inside the backward.
+    With ``counts`` it is counted in :data:`TALLY` as an all-gather over
+    ``axes`` (and, when the result takes gradients outside a backward,
+    the reduce-scatter of its backward)."""
+    out = torch.cat([s if s.device == dev else
+                     s.to(dev, copy=True, non_blocking=dev.type == "cuda")
+                     for s in shards], dim=dim)
+    if counts and len(shards) > 1:
+        n = len(shards)
+        TALLY.add("all-gather", tuple(axes), n, _nbytes(out))
+        if out.requires_grad and not _in_backward():
+            TALLY.add("reduce-scatter", tuple(axes), n, _nbytes(out))
+    return out
+
+
+@contextlib.contextmanager
+def lone_rank(mesh, coords: dict | None = None, axis_names=None):
+    """Run the block as the rank at ``coords`` (default every coordinate 0)
+    of ``mesh``'s manual axes (``axis_names``, default all), alone in the
+    caller's thread: collectives return tensors of the right shape and
+    are counted in :data:`TALLY` (see the module docstring)."""
+    if in_rank():
+        raise RuntimeError("lone_rank inside a shard_map rank")
+    manual = tuple(a for a in mesh.axis_names
+                   if axis_names is None or a in set(axis_names))
+    group = _Group(manual, mesh.shape, lone=True)
+    c = {a: 0 for a in manual}
+    c.update(coords or {})
+    _tls.rank = _Rank(group, group.index(c, manual), c,
+                      mesh.devices[tuple(c.get(a, 0)
+                                         for a in mesh.axis_names)], None)
+    try:
+        yield group
+    finally:
+        _tls.rank = None
+
+
+# ------------------------------------------------------------- shard_map
 
 # ------------------------------------------------------------- shard_map
 

@@ -16,6 +16,11 @@ values as one device) everything runs where the model's parameters lie.
 each rank's loss and gradients on its shard of the batch, the gradients
 synchronized by the explicit rings (:func:`~repro_torch.collectives.
 scheduler.sync_grads_local`), then AdamW on every rank (:class:`RingStep`).
+A mesh whose ``model`` axis is larger than 1 gives the tensor-parallel
+step (:class:`TPStep`, the dense GQA family; every other family raises
+``NotImplementedError``): each rank of the whole mesh holds its blocks of
+the parameters and optimizer state, and the ranks' forwards form one
+autograd graph with one backward (``parallel/spmd.py``).
 """
 from __future__ import annotations
 
@@ -26,16 +31,19 @@ import numpy as np
 import torch
 
 from ..checkpoint.manager import CheckpointManager
-from ..collectives.scheduler import sync_grads_local
+from ..collectives.scheduler import sync_grads_local, sync_grads_tp
 from ..config import ModelConfig, ParallelConfig, TrainConfig
 from ..data.pipeline import DataConfig, SyntheticLM
-from ..launch.steps import cross_entropy
-from ..models.model import replicate
+from ..launch.steps import model_loss, tp_axes_of
+from ..models.model import check_tp, replicate
 from ..optim.adamw import OptState, adamw_update, init_opt_state
+from ..parallel import spmd
+from ..parallel.sharding import gather_shards, shard_tensor
 from ..parallel.spmd import P, axis_index, pmean, rank_devices, shard_map
 
-__all__ = ["make_loss_fn", "make_train_step", "RingStep", "StragglerMonitor",
-           "TrainerReport", "Trainer", "SimulatedFailure"]
+__all__ = ["make_loss_fn", "make_train_step", "RingStep", "TPStep",
+           "StragglerMonitor", "TrainerReport", "Trainer",
+           "SimulatedFailure"]
 
 
 def _device(model) -> torch.device:
@@ -48,8 +56,7 @@ def make_loss_fn(model, cfg: ModelConfig):
     auxiliary loss."""
     def loss_fn(batch):
         logits, aux = model.apply(batch["tokens"])
-        return cross_entropy(logits[..., :cfg.vocab_size],
-                             batch["labels"]) + aux
+        return model_loss(model, cfg, logits, batch["labels"]) + aux
     return loss_fn
 
 
@@ -61,14 +68,11 @@ def make_train_step(model, cfg: ModelConfig, tcfg: TrainConfig,
     ``metrics`` holds 0-d tensors "loss", "lr" and "grad_norm" on the
     model's device.  ``grad_sync="ring"``/``"hierarchical"`` under a mesh
     whose data axes ("pod", "data") have more than one rank returns a
-    :class:`RingStep`; a mesh whose ``model`` axis is larger than 1 raises
-    ``NotImplementedError`` (tensor parallelism is GSPMD's partitioning of
-    that axis, not ported: ROADMAP queue 1 item 1, left 6)."""
+    :class:`RingStep`; a mesh whose ``model`` axis is larger than 1 a
+    :class:`TPStep` for the dense GQA family and ``NotImplementedError``
+    for every other (ROADMAP queue 1 item 1, left 6)."""
     if mesh is not None and mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"a mesh with a model axis of {mesh.shape['model']}: tensor "
-            "parallelism (GSPMD's partitioning of the model axis) is not "
-            "ported (ROADMAP queue 1 item 1, left 6)")
+        return TPStep(model, cfg, tcfg, par, mesh)
     if mesh is not None and par.grad_sync != "xla":
         if par.grad_sync not in ("ring", "hierarchical"):
             raise ValueError(f"unknown grad_sync {par.grad_sync!r}")
@@ -175,6 +179,136 @@ class RingStep:
             out_specs={"loss": P(), "lr": P(), "grad_norm": P()},
             axis_names=self.data_axes)(batch)
         return self.opts[0], metrics
+
+
+class TPStep:
+    """The tensor-parallel training step over every axis of ``mesh``:
+    ``step(opt, batch) -> (opt, metrics)`` with the model's and ``opt``'s
+    semantics of the one-device step (both updated in place).
+
+    The ranks are ``model.tp_ranks()`` (each holding its blocks of the
+    parameters) with ``opts``, their blocks of the optimizer state, taken
+    from the ``opt`` it is handed whenever that is not the one the last
+    step returned or the model's parameters changed since.  A step: under :func:`~repro_torch.parallel.spmd.
+    shard_map` manual over every axis each rank runs its forward on its
+    data group's share of the batch (split over the data axes) and its
+    loss, ``pmean``-ed over the data axes (every rank then holds the
+    global loss); one backward from rank 0's copy gives every rank's
+    gradients; :func:`~repro_torch.collectives.scheduler.sync_grads_tp`
+    sums the replicated leaves over ``model`` and the data axes
+    (``grad_sync``: ``"xla"`` a psum, ``"ring"``/``"hierarchical"`` the
+    rings over the rank's data group); AdamW updates each rank's blocks
+    with the global gradient norm.  Then the blocks are written back into
+    the model and ``opt`` (:meth:`~repro_torch.models.lm.LM.gather`);
+    :meth:`grads` is the first half alone."""
+
+    def __init__(self, model, cfg: ModelConfig, tcfg: TrainConfig,
+                 par: ParallelConfig, mesh):
+        if par.grad_sync not in ("xla", "ring", "hierarchical"):
+            raise ValueError(f"unknown grad_sync {par.grad_sync!r}")
+        check_tp(cfg, mesh, model)
+        self.model, self.cfg, self.tcfg, self.par = model, cfg, tcfg, par
+        self.mesh = model.mesh
+        self.data_axes = tuple(a for a in ("pod", "data")
+                               if mesh.shape.get(a, 1) > 1)
+        self.specs = model.param_specs()
+        self.axes_of = tp_axes_of(self.specs)
+        spec = P(self.data_axes or None)
+        self.batch_spec = {"tokens": spec, "labels": spec}
+        self.ranks: list | None = None
+        self.opts: list[OptState] | None = None
+        self._opt = None
+
+    def _scatter(self, opt: OptState) -> None:
+        """The ranks and their blocks of ``opt``."""
+        self.ranks = self.model.tp_ranks()
+        mesh, names = self.mesh, list(self.specs)
+
+        def blocks(tree):
+            if tree is None:
+                return [None] * len(self.ranks)
+            per = {k: shard_tensor(tree[k], self.specs[k], mesh)
+                   for k in names}
+            return [{k: per[k][r] for k in names}
+                    for r in range(len(self.ranks))]
+
+        devs = [next(r.parameters()).device for r in self.ranks]
+        self.opts = [OptState(opt.step.to(d, copy=True), m, v, w)
+                     for d, m, v, w in zip(devs, blocks(opt.m),
+                                           blocks(opt.v),
+                                           blocks(opt.master))]
+
+    def _join(self) -> None:
+        """The caller's stream waits for the ranks' (a backward ran on
+        them)."""
+        for (_, dev), s in self.mesh.streams.items():
+            torch.cuda.current_stream(dev).wait_stream(s)
+
+    def grads(self, batch: dict) -> tuple[torch.Tensor, list[dict]]:
+        """The first half of a step, nothing updated: (the loss over the
+        global batch, each rank's synced gradients by parameter name)."""
+        ranks = self.ranks if self.ranks is not None else \
+            self.model.tp_ranks()
+        holder: list = [None] * len(ranks)
+
+        def forward(b):
+            r = spmd.rank_index()
+            loss = make_loss_fn(ranks[r], self.cfg)(b)
+            if self.data_axes:
+                loss = pmean(loss, self.data_axes)
+            holder[r] = loss
+            return loss.detach()
+
+        loss = shard_map(forward, mesh=self.mesh,
+                         in_specs=(self.batch_spec,), out_specs=P())(batch)
+        params = [dict(m.named_parameters()) for m in ranks]
+        flat = [p for d in params for p in d.values()]
+        gs = iter(torch.autograd.grad(holder[0], flat))
+        holder.clear()
+        self._join()
+        grads = [{k: next(gs) for k in d} for d in params]
+
+        def sync():
+            r = spmd.rank_index()
+            grads[r] = sync_grads_tp(
+                grads[r], self.specs, self.data_axes, mode=self.par.grad_sync,
+                mean=False, channels=self.par.ring_buckets,
+                bidirectional=self.par.ring_bidirectional)
+
+        with torch.no_grad():
+            shard_map(sync, mesh=self.mesh, in_specs=(), out_specs=P())()
+        return loss, grads
+
+    def __call__(self, opt: OptState, batch: dict) -> tuple[OptState, dict]:
+        if self.opts is None or opt is not self._opt or \
+                self.model.tp_ranks() is not self.ranks:
+            self._scatter(opt)
+        loss, grads = self.grads(batch)
+
+        def update():
+            r = spmd.rank_index()
+            self.opts[r], metrics = adamw_update(
+                dict(self.ranks[r].named_parameters()), grads[r],
+                self.opts[r], self.tcfg, self.axes_of)
+            return metrics
+
+        metrics = shard_map(update, mesh=self.mesh, in_specs=(),
+                            out_specs={"lr": P(), "grad_norm": P()})()
+        metrics["loss"] = loss
+        del grads
+        self.model.gather(self.ranks)
+        with torch.no_grad():
+            for tree, key in ((opt.m, "m"), (opt.v, "v"),
+                              (opt.master, "master")):
+                if tree is None:
+                    continue
+                for k, t in tree.items():
+                    t.copy_(gather_shards([getattr(o, key)[k]
+                                           for o in self.opts],
+                                          self.specs[k], self.mesh, t.device))
+        self._opt = opt._replace(step=self.opts[0].step.to(opt.step.device,
+                                                             copy=True))
+        return self._opt, metrics
 
 
 @dataclass

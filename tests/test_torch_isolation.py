@@ -35,12 +35,12 @@ def test_port_imports_no_jax_and_no_reference():
                        "JAX_PLATFORMS": "cpu"}, timeout=300)
     assert proc.returncode == 0, proc.stderr
     names, bad = proc.stdout.strip().split("\n")
-    assert len(names.split()) >= 75, names
+    assert len(names.split()) >= 76, names
     for mod in ("core.netsim.control", "kernels.netsim_tick.window",
                 "kernels.netsim_tick.ops", "kernels.netsim_tick.ref",
                 "kernels.netsim_tick.tiled", "kernels._build",
                 "kernels.switch_pipeline.kernel",
-                "kernels.switch_pipeline.ref", "config", "configs.registry",
+                "kernels.switch_pipeline.ref", "kernels.switch_pipeline.ops", "config", "configs.registry",
                 "configs.h2o_danube_3_4b", "parallel.sharding",
                 "models.params", "models.layers", "models.attention",
                 "models.lm", "models.model", "models.convert",

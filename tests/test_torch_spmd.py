@@ -14,8 +14,10 @@ numpy from a seed.
   bit for bit.
 - Splits and assembly by ``P()``, ``P("data")``, ``P(("pod", "data"))``
   and a spec naming two dimensions.
-- A rank that raises makes ``shard_map`` raise its error within seconds;
-  so does a collective on a tensor that autograd tracks.
+- A rank that raises makes ``shard_map`` raise its error within seconds.
+  A collective on a tensor that autograd tracks carries its gradient
+  (one backward from rank 0's copy of a psum gives every rank's block its
+  transpose), and a collective called inside a backward raises.
 - Meshes: CPU names, repeats, the CUDA default raising without cards.
 """
 import os
@@ -244,11 +246,29 @@ def test_a_rank_that_raises_stops_every_rank():
 
 
 def test_collectives_refuse_autograd_and_calls_outside_a_rank():
-    w = torch.ones(8, 2, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="no gradient"):
-        shard_map(lambda a: spmd.psum(a * 2, "data"),
-                  mesh=M.make_mesh((8,), ("data",), ["cpu"] * 8),
-                  in_specs=P("data"), out_specs=P())(w)
+    """Autograd through a collective is the forward's copies (one graph,
+    one backward); inside a backward, or outside a rank, a collective
+    raises."""
+    mesh = M.make_mesh((8,), ("data",), ["cpu"] * 8)
+    w = torch.arange(16, dtype=torch.float32).reshape(8, 2).requires_grad_()
+    total = shard_map(lambda a: spmd.psum(a * 2, "data") ** 2, mesh=mesh,
+                      in_specs=P("data"), out_specs=P())(w)
+    total.sum().backward()
+    want = 2 * 2 * (2 * w.detach().sum(0, keepdim=True))
+    assert torch.equal(w.grad, want.expand(8, 2))
+
+    class Bad(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            return spmd.psum(g, "data")
+
+    with pytest.raises(RuntimeError, match="inside an autograd backward"):
+        with spmd.lone_rank(mesh):
+            Bad.apply(torch.ones(2, requires_grad=True)).sum().backward()
     with pytest.raises(RuntimeError, match="outside a shard_map rank"):
         spmd.psum(torch.ones(2), "data")
     assert not spmd.in_rank() and spmd.manual_axes() == set()
