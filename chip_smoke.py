@@ -225,7 +225,8 @@ that fails:
             each microbatch bit-equal to the 4 blocks applied in turn on
             one device
 27. tp      tensor parallelism (GSPMD's partitioning of the dense GQA
-            family, ``models/lm.py``) over the card named 8 and 4 times:
+            and MoE families, ``models/lm.py``) over the card named 8 and
+            4 times:
             danube at full width cut to 2 of 24 layers on (data 2, model
             4), float32, a global batch of 4 x 4,096: one step of
             make_train_step with grad_sync "xla", then with FSDP, then
@@ -236,8 +237,20 @@ that fails:
             (data 1, model 4) through the flash forward at a rank's shape
             (8 q heads, 2 KV heads a rank; launches per rank counted),
             last-token logits against the one-device flash route at the
-            prefill phase's model tolerance, tokens/s and peak memory; the
-            flash forward and backward kernels timed at a rank's shapes
+            prefill phase's model tolerance, tokens/s and peak memory;
+            granite-moe-1b-a400m likewise: 2 of 24 layers in float32 on
+            (data 2, model 4), 4 x 4,096, capacity factor 2.0 (nothing
+            drops, counted), grad_sync "xla" and "ring" against one
+            device's step (its aux the ranks' mean), collectives by kind
+            equal to the CPU ranks' derivation (all-to-all included); its
+            24 layers prefilling 1 x 32,768 on (data 1, model 4) at its
+            capacity 1.25 against one device, each layer's drops on both
+            sides; its layer-0 moe_block inside the ranks against the EP
+            path outside a rank (capacity 1.25, and 1.0 where rows drop:
+            bit-equal, the same drops); the flash forward and backward
+            kernels
+            timed at a rank's shapes (danube's and granite's), the D-64
+            backward at granite's held to the plain backward
 28. launch  the launch layer (``launch/steps.py``, ``launch/dryrun.py``):
             the dry-run's records (meta devices, in worker processes) of
             danube's and mamba2's four cells on both production meshes
@@ -262,7 +275,8 @@ that fails:
             one partitioned record held to the card: danube train_4k on one
             rank of (data 16, model 16) at depth 2, run alone
             (spmd.lone_rank) on real tensors, its flop count equal to the
-            meta count and its peak within TP_LAUNCH_BAND (5 %)
+            meta count and its peak within TP_LAUNCH_BAND (5 %); granite
+            train_4k likewise (its all_to_alls keep their shapes alone)
 29. grid512 the 512-host grid (16 pods; sym off/on x 4 seeds as lanes),
             1,000 ticks: the tiled tick (blk=2048, tick_window=1) and the
             window kernel (tick_window=20), their launches counted, against
@@ -581,6 +595,20 @@ TP_LOSS_RTOL = 1e-5
 TP_UPDATE_REL_L2 = 1e-2
 # the tp prefill: danube's 24 layers, 1 x 32,768 tokens on (data 1, model 4)
 TP_PREFILL_MESH = (1, 4)
+# the tp phase's MoE family: granite at full width, its step cut to
+# DP_LAYERS layers in float32 on TP_MESH at a global batch of TP_B x 4,096
+# and capacity factor TP_MOE_CF, where no assignment drops on either side
+# (one device: C_loc = T k cf^2 / E >= T, the most an expert can get; a
+# model-4 rank: C_loc = 4 T, each of the 4 ranks sending an expert at most
+# its T tokens; the send buffers' 2 T k / 4 rows a destination hold twice
+# the mean, and their drops are counted); one device's aux taken as the
+# mesh program defines it (the mean of the ranks' auxes, mesh_aux).  Its
+# 24-layer prefill of 1 x 32,768 tokens on TP_PREFILL_MESH and one
+# full-width MoE layer inside the ranks run at granite's own capacity 1.25.
+TP_MOE = "granite_moe_1b_a400m"
+TP_MOE_CF = 2.0
+# the partitioned MoE record held to the card
+TP_LAUNCH_MOE = (TP_MOE, "train_4k", (16, 16), 2)
 LAUNCH_BAND = 0.15
 LAUNCH_FAULTS = ("donation ignored", "cache dropped")
 
@@ -1042,6 +1070,59 @@ def ep_drop_counter(moe):
         yield seen
     finally:
         moe.ep_slots = slots
+
+
+@contextlib.contextmanager
+def mesh_aux(torch, lm, moe, dp: int, tp: int):
+    """Within: a one-device model's MoE layers (``lm`` is
+    repro_torch.models.lm, ``moe`` repro_torch.models.moe) return the aux
+    loss of the reference's mesh program on a (dp, tp) mesh, the mean of
+    each rank's aux on its own tokens (the batch split over dp, the
+    sequence over tp under Megatron-SP, else a data group's every token on
+    each of its tp ranks); their outputs are the one-device path's."""
+    real = lm.moe_block
+
+    def grouped(p, x, cfg, rules=None, mesh=None):
+        y, _ = real(p, x, cfg)
+        d = x.shape[-1]
+        sp = x.shape[1] % tp == 0 and x.shape[1] > 1
+        auxs = [moe._route(xs.reshape(-1, d), p["router"], cfg)[2]
+                for xb in x.chunk(dp, 0)
+                for xs in (xb.chunk(tp, 1) if sp else [xb] * tp)]
+        return y, torch.stack(auxs).sum() / len(auxs)
+
+    lm.moe_block = grouped
+    try:
+        yield
+    finally:
+        lm.moe_block = real
+
+
+def tp_moe_counts(layers: int, chunks: int, ce_chunks: int, leaves: int,
+                  sync: str) -> dict:
+    """The collectives by kind of one TPStep of a MoE model without FSDP
+    on (data 2, model 4) (tests/test_torch_tp_moe.py holds the CPU ranks'
+    run to the same derivation): the sequence all-gathered before each
+    layer's attention and after the last, the embedding's and each
+    ``wo``'s partial product reduce-scattered, each with its transpose;
+    per MoE layer and dispatch chunk the router gathered whole (its
+    transpose a reduce-scatter) and again in the recompute, two token
+    all_to_alls with their transposes and one of expert ids; the aux's
+    pmean over (data, model) a layer and the loss's over data, each with
+    its transpose; the loss's pmax and psum a cross-entropy chunk (the
+    psum's transpose too); the 4L + 1 leaves replicated over model summed
+    over it and the norm's psum; the ``leaves`` summed over data (xla), or
+    ring-synced over its 2 ranks (two collective-permutes a leaf)."""
+    L, c = layers, chunks
+    out = {"all-gather": 2 * L + 2 + 2 * L * c,
+           "reduce-scatter": 2 * L + 2 + L * c,
+           "all-to-all": 5 * L * c,
+           "all-reduce": 3 * ce_chunks + 4 * L + 2 + 2 + 2 * L}
+    if sync == "xla":
+        out["all-reduce"] += leaves
+    else:
+        out["collective-permute"] = 2 * leaves
+    return out
 
 
 def danube_block(cfg, p: dict, x, positions, use_flash: bool = True):
@@ -4147,11 +4228,17 @@ class Smoke:
 
     # ------------------------------ 27. tensor parallelism over the card
     def tp(self):
-        """danube's tensor-parallel training step and prefill over the card
-        named 8 and 4 times, each against one device."""
+        """danube's and granite's tensor-parallel training steps and
+        prefills over the card named 8 and 4 times, each against one
+        device; one MoE layer inside the ranks against the EP path; the
+        flash kernels at the ranks' shapes."""
         self.tp_train()
         self.tp_prefill()
+        self.tp_moe_train()
+        self.tp_moe_prefill()
+        self.tp_moe_layer()
         self.tp_kernels()
+        self.tp_moe_kernels()
 
     def tp_grads(self, model, batch):
         """One device's float32 loss and gradients (parameter order)."""
@@ -4382,6 +4469,307 @@ class Smoke:
         del model, tokens, last, last_ref
         torch.cuda.empty_cache()
 
+    def tp_moe_train(self):
+        """granite at full width cut to DP_LAYERS layers, float32, on
+        TP_MESH at TP_MOE_CF: one step of the tensor-parallel
+        make_train_step with grad_sync "xla", then "ring", each against
+        one device's step on the same tree (its aux the mesh program's)."""
+        torch, Fa = self.torch, self.Fa
+        import repro_torch.models.lm as lm_mod
+        import repro_torch.models.moe as moe
+        from repro_torch.config import LM_SHAPES
+        from repro_torch.configs import registry
+        from repro_torch.data import DataConfig, SyntheticLM
+        from repro_torch.kernels.flash_attention import ops as flash_ops
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.launch.steps import (make_parallel_config,
+                                              make_train_config)
+        from repro_torch.models import build_model
+        from repro_torch.models.model import replicate
+        from repro_torch.models.params import cast_tree
+        from repro_torch.optim import init_opt_state
+        from repro_torch.parallel import spmd
+        from repro_torch.parallel.sharding import gather_shards
+        from repro_torch.runtime import make_train_step
+        base = registry.get_config(TP_MOE)
+        cfg = dataclasses.replace(
+            base, num_layers=DP_LAYERS, dtype="float32",
+            moe=dataclasses.replace(base.moe, capacity_factor=TP_MOE_CF))
+        spec = next(sp for sp in LM_SHAPES if sp.name == "train_4k")
+        tcfg = dataclasses.replace(make_train_config(TP_MOE, spec),
+                                   global_batch=TP_B)
+        par = make_parallel_config(TP_MOE, "train_4k")
+        dp, tp = TP_MESH
+        n = dp * tp
+        mesh = make_mesh(TP_MESH, ("data", "model"), [self.dev] * n)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model = cast_tree(build_model(cfg, par, use_flash=True, seed=0,
+                                      mesh=mesh), torch.float32)
+        one = replicate(model, self.dev, one_device=True)
+        init = [p.detach().clone() for p in model.parameters()]
+        names = [k for k, _ in model.named_parameters()]
+        toks, labs = SyntheticLM(DataConfig(cfg.vocab_size, spec.seq_len,
+                                            TP_B, seed=0)).batch(0)
+        batch = {"tokens": torch.from_numpy(toks).to(self.dev),
+                 "labels": torch.from_numpy(labs).to(self.dev)}
+        T = TP_B // dp * spec.seq_len // tp
+        chunks = T // min(moe.DISPATCH_CHUNK, T)
+        wi = model.blocks[0].moe["wi"]
+        say("tp", f"{cfg.name} at full width cut to {DP_LAYERS} of "
+                  f"{base.num_layers} layers on {dict(mesh.shape)} (the card "
+                  f"named {n} times), float32, "
+                  f"{sum(p.numel() for p in init):,} parameters "
+                  f"({cfg.moe.num_experts} experts, {wi.shape[0] // tp} a "
+                  f"rank; heads {cfg.num_heads}/{cfg.num_kv_heads} of "
+                  f"{cfg.resolved_head_dim}, vocabulary {model.vocab_padded})"
+                  f"; capacity factor {TP_MOE_CF}; remat {par.remat}; "
+                  f"SyntheticLM {TP_B} x {spec.seq_len} ({T} tokens a rank, "
+                  f"{chunks} dispatch chunk(s)); against one device's step "
+                  f"on the same tree, its aux the ranks' mean")
+
+        def fresh(m):
+            opt = init_opt_state(dict(m.named_parameters()), tcfg)
+            return opt._replace(step=torch.full_like(opt.step,
+                                                     tcfg.warmup_steps))
+
+        with mesh_aux(torch, lm_mod, moe, dp, tp), \
+                moe_drop_counter(moe) as d1:
+            loss1, g1 = self.tp_grads(one, batch)
+            _, met1 = make_train_step(one, cfg, tcfg, par)(fresh(one), batch)
+        lost1 = int(torch.stack(d1).sum()) if d1 else 0
+        upd1 = [p.detach() - q for p, q in zip(one.parameters(), init)]
+        del one
+        torch.cuda.empty_cache()
+        rel = lambda a, b: float((a - b).norm() /           # noqa: E731
+                                 b.norm().clamp_min(1e-30))
+        for mode in ("xla", "ring"):
+            what = f"{cfg.name} grad_sync {mode}"
+            p_mode = dataclasses.replace(par, grad_sync=mode)
+            with torch.no_grad():
+                for p, q in zip(model.parameters(), init):
+                    p.copy_(q)
+            step = make_train_step(model, cfg, tcfg, p_mode, mesh)
+            with ep_drop_counter(moe) as dm:
+                loss, grads = step.grads(batch)
+            lost = int(torch.stack(dm["send"] + dm["expert"]).sum())
+            specs = model.param_specs()
+            worst = max((rel(gather_shards([g[k] for g in grads], specs[k],
+                                           mesh), g1[i]), k)
+                        for i, k in enumerate(names))
+            del grads
+            sync_ms = self.tp_sync_ms(step, batch)
+            opt = fresh(model)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            Fa.flash_fwd.launches = 0                 # main path starts
+            Fa.flash_bwd.launches_dq = Fa.flash_bwd.launches_dkv = 0
+            spmd.TALLY.clear()
+            with flash_calls_by_stream(torch, flash_ops) as calls:
+                t0 = time.time()
+                opt, met = step(opt, batch)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.time() - t0)
+            n_fwd = Fa.flash_fwd.launches             # main path ends
+            n_bwd = (Fa.flash_bwd.launches_dq, Fa.flash_bwd.launches_dkv)
+            kinds = spmd.TALLY.by_kind()
+            peak = torch.cuda.max_memory_allocated()
+            upd = max((rel(p.detach() - q, u), k) for k, p, q, u in zip(
+                names, model.parameters(), init, upd1))
+            L = len(model.blocks)
+            want_kinds = tp_moe_counts(L, chunks, spec.seq_len // 1024,
+                                       len(names), mode)
+            l_rel = abs(float(met["loss"]) / float(met1["loss"]) - 1)
+            n_rel = abs(float(met["grad_norm"]) / float(met1["grad_norm"]) - 1)
+            rank_of = {st.cuda_stream: key[0]
+                       for key, st in mesh.streams.items()}
+            per_rank = collections.Counter()
+            for (kind, sid), c in calls.items():
+                per_rank[(rank_of.get(sid, -1), kind)] += c
+            want = {(r, kind): c for r in range(n)
+                    for kind, c in (("fwd", 2 * L), ("bwd", L))}
+            if worst[0] > TP_GRAD_REL_L2 or l_rel > TP_LOSS_RTOL or \
+                    n_rel > TP_LOSS_RTOL or upd[0] > TP_UPDATE_REL_L2 or \
+                    n_fwd != 2 * L * n or n_bwd != (L * n, L * n) or \
+                    dict(per_rank) != want or kinds != want_kinds or \
+                    lost or lost1:
+                fail("tp", f"{what}: calls per (rank, kind) "
+                           f"{dict(per_rank)}; worst gradient {worst}, losses "
+                           f"{float(met['loss'])} / {float(met1['loss'])}, "
+                           f"norms {float(met['grad_norm'])} / "
+                           f"{float(met1['grad_norm'])}, worst update {upd};"
+                           f" flash launches {n_fwd} forward, {n_bwd} "
+                           f"backward (want {2 * L * n}, {L * n}); "
+                           f"collectives {kinds} (want {want_kinds}); "
+                           f"assignments dropped {lost} over the ranks, "
+                           f"{lost1} on one device")
+            self.launches[("tp", what)] = (n_fwd,) + n_bwd
+            self.rates[("tp", what)] = (ms, sync_ms, peak)
+            say("tp", f"{what}: loss {float(met['loss']):.6f} (one device "
+                      f"{float(met1['loss']):.6f}, {l_rel:.2g} rel), grad "
+                      f"norm {float(met['grad_norm']):.6f} ({n_rel:.2g} "
+                      f"rel), worst gradient {worst[0]:.3g} rel L2 "
+                      f"({worst[1]}; tolerance {TP_GRAD_REL_L2}), worst "
+                      f"update {upd[0]:.3g} ({upd[1]}; tolerance "
+                      f"{TP_UPDATE_REL_L2}); no assignment dropped; "
+                      f"collectives {kinds}, the CPU ranks' derivation "
+                      f"(tp_moe_counts); flash {n_fwd} forward, {n_bwd[0]} "
+                      f"dq, {n_bwd[1]} dk/dv launches (the float32 D-64 "
+                      f"kernels; {2 * L} forward and {L} backward calls on "
+                      f"each rank's stream); {ms:.1f} ms a step ("
+                      f"{TP_B * spec.seq_len / ms * 1e3:,.0f} tokens/s), the "
+                      f"sync {sync_ms:.1f} ms; peak memory "
+                      f"{peak / 2**30:.2f} GiB; card {self.card}")
+            del step, opt
+            torch.cuda.empty_cache()
+        del model, init, g1, upd1
+        torch.cuda.empty_cache()
+
+    def tp_moe_prefill(self):
+        """granite's 24 layers at full width prefilling 1 x PREFILL_S
+        tokens on TP_PREFILL_MESH through the flash forward at a rank's
+        heads, against the one-device flash route on the same tree; each
+        layer's dropped assignments on both sides."""
+        torch, Fa = self.torch, self.Fa
+        import repro_torch.models.moe as moe
+        from repro_torch.configs import registry
+        from repro_torch.kernels.flash_attention import ops as flash_ops
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.models import build_model
+        from repro_torch.models.attention import tp_kv_heads
+        cfg = registry.get_config(TP_MOE)
+        n = TP_PREFILL_MESH[0] * TP_PREFILL_MESH[1]
+        mesh = make_mesh(TP_PREFILL_MESH, ("data", "model"), [self.dev] * n)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(cfg, use_flash=True, seed=0, mesh=mesh)
+        g = torch.Generator(device=self.dev).manual_seed(0)
+        tokens = torch.randint(0, cfg.vocab_size, (1, PREFILL_S),
+                               generator=g, device=self.dev)
+        L = cfg.num_layers
+        with torch.no_grad():
+            model.apply(tokens[:, :1024])     # the ranks' blocks, warm
+            torch.cuda.synchronize()
+            Fa.flash_fwd.launches = 0                 # main path starts
+            with flash_calls_by_stream(torch, flash_ops) as calls, \
+                    ep_drop_counter(moe) as dm:
+                t0 = time.time()
+                logits, aux = model.apply(tokens)
+                torch.cuda.synchronize()
+                secs = time.time() - t0
+            launches = Fa.flash_fwd.launches          # main path ends
+            last = logits[:, -1, :cfg.vocab_size].float()
+            del logits
+            peak = torch.cuda.max_memory_allocated()
+            mesh_, model.mesh = model.mesh, None  # one device, same tree
+            try:
+                with moe_drop_counter(moe) as d1:
+                    ref, aux1 = model.apply(tokens)
+            finally:
+                model.mesh = mesh_
+            last_ref = ref[:, -1, :cfg.vocab_size].float()
+            del ref
+        hl = model.blocks[0].attn["wq"].shape[1] // n
+        nk = tp_kv_heads(hl, hl * n, cfg.num_kv_heads, 0)[1]
+        sent = per_layer(torch, dm["send"], L)
+        kept = per_layer(torch, dm["expert"], L)
+        mesh_drops = [a + b for a, b in zip(sent, kept)]
+        one_drops = per_layer(torch, d1, L)
+        err = (last - last_ref).abs().max().item()
+        per = sorted(c for (kind, _), c in calls.items() if kind == "fwd")
+        if launches != L * n or per != [L] * n or not torch.allclose(
+                last, last_ref, atol=MODEL_ATOL, rtol=MODEL_RTOL) or \
+                not math.isfinite(float(aux)):
+            fail("tp", f"{cfg.name} prefill: {launches} flash launches (per "
+                       f"rank {per}, want {L} on each of {n}); last-token "
+                       f"logits max abs err {err} against one device; aux "
+                       f"{float(aux)}")
+        self.launches[("tp", "granite prefill")] = launches
+        self.rates[("tp", "granite prefill")] = (PREFILL_S / secs, peak)
+        n_assign = PREFILL_S * cfg.moe.experts_per_token
+        say("tp", f"prefill {cfg.name} ({L} layers) 1 x {PREFILL_S} on "
+                  f"{dict(mesh.shape)}: {launches} flash launches ({per} a "
+                  f"rank, {hl} q heads and {nk} KV heads a rank), "
+                  f"{secs:.3f} s ({PREFILL_S / secs:,.0f} tokens/s), "
+                  f"last-token logits max abs err {err:.4g} against the "
+                  f"one-device flash route (atol {MODEL_ATOL}, rtol "
+                  f"{MODEL_RTOL}); aux {float(aux):.6g} (ranks' mean) vs "
+                  f"{float(aux1):.6g} (one device); of {n_assign:,} "
+                  f"assignments a layer, dropped over the ranks (send + "
+                  f"experts) {mesh_drops}, on one device {one_drops} "
+                  f"(capacity {cfg.moe.capacity_factor}); peak memory "
+                  f"{peak / 2**30:.2f} GiB; card {self.card}")
+        del model, tokens, last, last_ref
+        torch.cuda.empty_cache()
+
+    def tp_moe_layer(self):
+        """granite's layer-0 moe_block at full width on 1 x PREFILL_S
+        N(0,1) bf16 tokens over TP_PREFILL_MESH: inside the ranks of a
+        shard_map (the tensor-parallel rank's path, moe_rank: router
+        whole, E / 4 experts a rank, the rank's sequence shard) against
+        the EP path outside a rank (_moe_mesh), at granite's capacity
+        factor and at 1.0, where rows drop: bit-equal, the same drops."""
+        torch = self.torch
+        import repro_torch.models.moe as moe
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.parallel import spmd
+        from repro_torch.parallel.sharding import make_rules
+        model = self.granite_model()
+        p = {k: v.detach() for k, v in model.blocks[0].moe.items()}
+        g = torch.Generator(device=self.dev).manual_seed(6)
+        x = torch.randn(1, PREFILL_S, model.cfg.d_model, generator=g,
+                        device=self.dev).to(torch.bfloat16)
+        n = TP_PREFILL_MESH[0] * TP_PREFILL_MESH[1]
+        mesh = make_mesh(TP_PREFILL_MESH, ("data", "model"), [self.dev] * n)
+        rules = make_rules()
+        for cf in (model.cfg.moe.capacity_factor, 1.0):
+            cfg = dataclasses.replace(model.cfg, moe=dataclasses.replace(
+                model.cfg.moe, capacity_factor=cf))
+            inside = spmd.shard_map(
+                lambda pl, xl: moe.moe_block(pl, xl, cfg, rules, mesh),
+                mesh=mesh, in_specs=({"router": spmd.P(),
+                                      "wi": spmd.P("model"),
+                                      "wo": spmd.P("model")},
+                                     spmd.P(None, "model")),
+                out_specs=(spmd.P(None, "model"), spmd.P()))
+            with torch.no_grad():
+                with ep_drop_counter(moe) as d_out:
+                    want, a_want = moe.moe_block(p, x, cfg, rules, mesh)
+                with ep_drop_counter(moe) as d_in:
+                    torch.cuda.synchronize()
+                    t0 = time.time()
+                    got, a_got = inside(p, x)
+                    torch.cuda.synchronize()
+                    secs = time.time() - t0
+            drops = [{k: int(torch.stack(v).sum()) for k, v in d.items()}
+                     for d in (d_in, d_out)]
+            rel = float((got.float() - want.float()).norm() /
+                        want.float().norm())
+            bits = int((got.view(torch.int16) !=
+                        want.view(torch.int16)).sum())
+            if rel > 2.0 ** -8 or drops[0] != drops[1] or \
+                    not torch.isfinite(got).all() or \
+                    (cf == 1.0 and not sum(drops[0].values())) or \
+                    abs(float(a_got) - float(a_want)) > \
+                    1e-6 * abs(float(a_want)):
+                fail("tp", f"{cfg.name} layer 0 inside the ranks at "
+                           f"capacity {cf}: rel L2 {rel} against the EP "
+                           f"path, drops {drops}, aux {float(a_got)} / "
+                           f"{float(a_want)}")
+            say("tp", f"{cfg.name} layer 0 moe_block inside the ranks of "
+                      f"{dict(mesh.shape)} (router whole, "
+                      f"{cfg.moe.num_experts // n} experts a rank) on 1 x "
+                      f"{PREFILL_S} N(0,1) bf16 tokens, capacity {cf}: "
+                      f"{bits} of {got.numel()} elements' bits differ from "
+                      f"the EP path outside a rank (rel L2 {rel:.3g}; "
+                      f"tolerance 2^-8), aux {float(a_got):.6g} / "
+                      f"{float(a_want):.6g}; of "
+                      f"{PREFILL_S * cfg.moe.experts_per_token:,} "
+                      f"assignments dropped (send, experts) {drops[0]} on "
+                      f"both; {1e3 * secs:.1f} ms (wall); card {self.card}")
+            del got, want
+        del x
+
     def tp_kernels(self):
         """The flash kernels at a tensor-parallel rank's shapes (danube at
         model 4: 8 q heads, 2 KV heads, D 120, bf16): the forward at the
@@ -4453,6 +4841,113 @@ class Smoke:
         del q, k, v, o, lse, do, views, call, flat
         torch.cuda.empty_cache()
 
+    def tp_moe_kernels(self):
+        """The flash kernels at granite's model-4 rank shapes (4 q heads, 2
+        KV heads, D 64, causal, no window): the backward pair (the D-64
+        instantiations; the MoE step runs the float32 ones) held to the
+        plain backward in bf16 and float32 at the step's rank shape (B 2,
+        S 4,096) as *flash_bwd* holds it, two launches bit-equal; then the
+        forward at the prefill's rank shape (S 32,768) and the backward
+        pair at the step's, bf16, timed beside the plain version and one
+        SDPA call."""
+        torch, Fa = self.torch, self.Fa
+        from repro_torch.models.attention import flash_or_ref
+        hq, hkv, D, item = 4, 2, 64, 2
+        B, S = TP_B // TP_MESH[0], TRAIN_S
+        saved = (Fa.flash_fwd.launches, Fa.flash_bwd.launches_dq,
+                 Fa.flash_bwd.launches_dkv)
+        msgs = []
+        for dtype in FLASH_TOL:
+            q, k, v, o, lse, do = self.bwd_inputs(B, hq, hkv, S, D, dtype, 0)
+            flat = [x.transpose(1, 2).reshape(-1, S, D).contiguous()
+                    for x in (q, k, v, o, do)]
+            want = Fa.attention_bwd_ref(*flat[:4], lse.reshape(-1, S),
+                                        flat[4], window=0)
+            views = [x.transpose(1, 2) for x in (q, k, v, o, do)]
+            got = Fa.flash_bwd(*views[:4], lse, views[4], window=0)
+            again = Fa.flash_bwd(*views[:4], lse, views[4], window=0)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail("tp", f"flash backward at granite's rank shape, {dtype}"
+                           ": two launches give different bits")
+            ok, (eq, ekv), msg = self.bwd_close(
+                [x.reshape(-1, S, D) for x in got], want, dtype)
+            self.max_err["flash_dq"] = max(self.max_err["flash_dq"], eq)
+            self.max_err["flash_dkv"] = max(self.max_err["flash_dkv"], ekv)
+            if not ok:
+                fail("tp", f"flash backward at granite's rank shape (B {B}, "
+                           f"heads {hq}/{hkv}, S {S}, D {D}), {dtype}: {msg}"
+                           " against the plain backward")
+            msgs.append(f"{dtype} {msg}")
+            del q, k, v, o, lse, do, flat, want, views, got, again
+        Fa.flash_fwd.launches, Fa.flash_bwd.launches_dq, \
+            Fa.flash_bwd.launches_dkv = saved
+        say("tp", f"flash backward (D-64 kernels) at granite's model-4 rank "
+                  f"shape (B {B}, heads {hq}/{hkv}, S {S}, D {D}, causal) "
+                  f"against the plain backward: max abs err "
+                  f"{'; '.join(msgs)} (row tolerance {ROW_TOL}, float32 "
+                  f"also allclose {REF_GRAD_TOL}); two launches bit-equal; "
+                  f"card {self.card}")
+        Sp = PREFILL_S
+        q, k, v = self.attn_inputs(1, hq, hkv, Sp, D, "bfloat16")
+        views = [x.transpose(1, 2) for x in (q, k, v)]
+        k_dev, k_wall = timed(lambda: Fa.flash_fwd(*views), 10, torch)
+        Fa.flash_fwd.launches = saved[0]
+        pos = torch.arange(Sp, device=self.dev)[None]
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        flash_or_ref(q, k, v, pos, pos)
+        b.record()
+        torch.cuda.synchronize()
+        p_ms = a.elapsed_time(b)
+        lib = self.sdpa_ms(q, k, v, 0)
+        self.report(f"tp rank granite S={Sp}", "flash_fwd", "flash_fwd.cu",
+                    "src/repro/kernels/flash_attention/kernel.py:44",
+                    k_dev, k_wall, p_ms, p_ms,
+                    item * Sp * D * (2 * hq + 2 * hkv) + 4 * hq * Sp,
+                    4 * D * (Sp * (Sp + 1) // 2) * hq, 1,
+                    peak=BF16_OPS_PER_S, library_ms=lib,
+                    note=f"(granite's model-4 rank: BH={hq}, KV heads {hkv}, "
+                         f"D={D}, causal, no window, bf16; plain: one call "
+                         "of the chunked plain version; library: "
+                         "is_causal=True)")
+        del q, k, v, views
+        q, k, v, o, lse, do = self.bwd_inputs(B, hq, hkv, S, D, "bfloat16",
+                                              0)
+        views = [x.transpose(1, 2) for x in (q, k, v, o, do)]
+        call = Fa.BwdCall(*views[:4], lse, views[4], window=0, causal=True)
+        dq_dev, dq_wall = timed(call.dq, 10, torch)
+        dkv_dev, dkv_wall = timed(call.dkv, 10, torch)
+        Fa.flash_fwd.launches, Fa.flash_bwd.launches_dq, \
+            Fa.flash_bwd.launches_dkv = saved
+        lib = self.sdpa_bwd_ms(q, k, v, do)
+        flat = [x.transpose(1, 2).reshape(-1, S, D).contiguous()
+                for x in (q, k, v, o, do)]
+        p_dev, p_wall = timed(lambda: Fa.attention_bwd_ref(
+            *flat[:4], lse.reshape(-1, S), flat[4], window=0), 1, torch)
+        pairs = B * hq * S * (S + 1) // 2
+        stats = 2 * 4 * B * hq * S
+        note = (f"(granite's model-4 rank: BH={B * hq}, KV heads {hkv}, "
+                f"D={D}, causal, bf16; plain: dq, dk and dv in one call; "
+                "library: one SDPA backward)")
+        self.report(f"tp rank granite B={B} S={S}", "flash_dq",
+                    "flash_bwd.cu",
+                    "src/repro/kernels/flash_attention/kernel.py:124",
+                    dq_dev, dq_wall, p_dev, p_wall,
+                    item * B * S * D * (3 * hq + 2 * hkv) + stats,
+                    6 * D * pairs, 1, note=note, peak=BF16_OPS_PER_S,
+                    library_ms=lib)
+        self.report(f"tp rank granite B={B} S={S}", "flash_dkv",
+                    "flash_bwd.cu",
+                    "src/repro/kernels/flash_attention/kernel.py:159",
+                    dkv_dev, dkv_wall, p_dev, p_wall,
+                    item * B * S * D * (2 * hq + 4 * hkv) + stats,
+                    8 * D * pairs, 1, note=note, peak=BF16_OPS_PER_S,
+                    library_ms=lib)
+        del q, k, v, o, lse, do, views, call, flat
+        torch.cuda.empty_cache()
+
     # ------------------------------------- 28. launch: cells and dry-run
     def launch(self):
         """The dry-run's records and its predictions held to the card."""
@@ -4481,7 +4976,8 @@ class Smoke:
                            (16, 1), 2),
                  "decode": ("predict", "mamba2_130m", "decode_32k", (1, 1),
                             None),
-                 "tp": ("predict",) + TP_LAUNCH}
+                 "tp": ("predict",) + TP_LAUNCH,
+                 "tp_moe": ("predict",) + TP_LAUNCH_MOE}
         # mamba2's prefill and train records take longest on meta, then
         # the predictions the card runs below wait for
         records = [("record", "mamba2_130m", s, mp)
@@ -4501,7 +4997,8 @@ class Smoke:
             self.launch_prefill(futs[preds["prefill"]])
             self.launch_train(futs[preds["train"]])
             self.launch_decode(futs[preds["decode"]])
-            self.launch_partitioned(futs[preds["tp"]])
+            self.launch_partitioned(futs[preds["tp"]], TP_LAUNCH)
+            self.launch_partitioned(futs[preds["tp_moe"]], TP_LAUNCH_MOE)
             for t in records:
                 if t[0] != "record":
                     continue
@@ -4523,7 +5020,8 @@ class Smoke:
                               f"({r['run_s']} s on meta)")
         n_cells = sum(1 for a, _, skip in registry.all_cells()
                       if a in LAUNCH_ARCHS and not skip)
-        say("launch", f"{2 * n_cells} dry-run records and 4 predictions in "
+        say("launch", f"{2 * n_cells} dry-run records and {len(preds)} "
+                      f"predictions in "
                       f"{time.time() - t0:.1f} s ({workers} workers); "
                       f"constants: NVIDIA H100 80GB HBM3 spec sheet; card "
                       f"{card}")
@@ -4664,13 +5162,14 @@ class Smoke:
                       f"{self.card}")
         del args, params, opt, batch, before, leaves
 
-    def launch_partitioned(self, fut):
-        """The partitioned record (TP_LAUNCH): one rank's program alone on
-        the card, on its blocks of the args, against the meta prediction
-        (flops equal, peak within TP_LAUNCH_BAND)."""
+    def launch_partitioned(self, fut, which):
+        """A partitioned record (``which``: TP_LAUNCH, TP_LAUNCH_MOE): one
+        rank's program alone on the card, on its blocks of the args,
+        against the meta prediction (flops equal, peak within
+        TP_LAUNCH_BAND)."""
         torch = self.torch
         from repro_torch.launch.steps import make_train_config
-        arch, shape, mesh_shape, depth = TP_LAUNCH
+        arch, shape, mesh_shape, depth = which
         cell, pred, args = self.launch_cell(arch, shape, mesh_shape, depth,
                                             fut)
         mesh = cell.model.mesh
@@ -4688,11 +5187,11 @@ class Smoke:
             fail("launch", f"partitioned train step: loss {loss}")
         _, flops, _ = self.launch_run(cell, args, lone=mesh)
         rel = self.launch_hold(
-            f"danube train_4k depth {depth}, one rank of {mesh_shape} alone "
+            f"{arch} {shape} depth {depth}, one rank of {mesh_shape} alone "
             f"(its blocks: wq {tuple(wq.shape)}, tokens "
             f"{tuple(batch['tokens'].shape)}, accum {cell.accum})", pred,
             flops, peak, band=TP_LAUNCH_BAND)
-        self.rates[("tp", "launch")] = (rel, peak, pred)
+        self.rates[("tp", "launch", arch)] = (rel, peak, pred)
         from repro_torch.launch.dryrun import by_axes
         say("launch", f"partitioned train step: loss {loss:.4f}, lr "
                       f"{metrics['lr'].item():.3g}; the rank's recorded "

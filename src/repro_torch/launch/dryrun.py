@@ -9,8 +9,9 @@ dtypes, no values, no allocation) and counts what it does:
 * **Meshes** are the production meshes over meta devices
   (``make_production_mesh(multi_pod=..., devices=["meta"] * n)``).
 * **A rank's share** (:func:`rank_share`).  A *partitioned* cell (the
-  dense GQA family's ``train`` and ``prefill`` cells on a ``model`` axis
-  larger than 1, ``Cell.partitioned``) runs one rank's partitioned
+  dense GQA and MoE families' ``train`` and ``prefill`` cells on a
+  ``model`` axis larger than 1, ``Cell.partitioned``) runs one rank's
+  partitioned
   program: every argument is cut to the rank's block by its sharding (the
   optimizer state as its parameter is: the ZeRO-1 sharding over ``pod``
   of the multi-pod mesh is not partitioned, and the record says so), and
@@ -18,8 +19,9 @@ dtypes, no values, no allocation) and counts what it does:
   whose collectives keep their shapes and are recorded.  Every other cell
   splits the batch axes of the inputs and the decode cache over ``(pod,
   data)`` as ``batch_axes`` places them and runs at full model width
-  (GSPMD's partitioning of the other families is ROADMAP queue 1 item 1,
-  left 6; the MoE dispatches on one device): ``memory.temp`` is then
+  (GSPMD's partitioning of decode and of the other families is ROADMAP
+  queue 1 item 1, left 6; such a run's MoE layers dispatch on one
+  device): ``memory.temp`` is then
   measured at that width, the record says so
   (``temp_at_full_model_width``), and ``flops_per_device`` and
   ``bytes_per_device`` are the counts divided by the ``model`` axis size;
@@ -46,12 +48,15 @@ dtypes, no values, no allocation) and counts what it does:
   tensor-parallel all-gathers, reduce-scatters and all-reduces over
   ``model`` with their backward transposes, FSDP's parameter all-gathers
   over ``data`` (again in the recompute) and their gradients'
-  reduce-scatters, the gradient sums and the loss's; ``collectives_by_axes``
-  splits them by axes.  Otherwise from the shardings: a train cell's
+  reduce-scatters, the MoE's ``all_to_all``s over ``model`` (tokens out,
+  their expert ids, results back; the two token exchanges' transposes in
+  the backward; none in the recompute, which is rank-local) and its
+  router's all-gathers, the gradient sums and the loss's and aux loss's;
+  ``collectives_by_axes`` splits them by axes.  Otherwise from the shardings: a train cell's
   gradient sync over its batch axes in ``flags.RING_SYNC_DTYPE`` (an
   all-reduce, or a reduce-scatter over the axes a leaf is already sharded
   on), and each MoE dispatch's ``all_to_all``s over ``model``
-  (``_moe_chunk_ep``: tokens out, their expert ids, results back; in
+  (``moe_rank``: tokens out, their expert ids, results back; in
   training also in the recompute and the backward); the collectives that
   only GSPMD's tensor parallelism would add are left out and named in
   ``collectives_not_ported``.
@@ -125,7 +130,9 @@ HBM_SPEC_BYTES = 80 * 1024**3       # the spec sheet's "80 GB" (not used)
 ALLOC_BYTES = 512            # the CUDA caching allocator's rounding
 BATCH_AXES = frozenset(("pod", "data"))
 NOT_PORTED = ("tensor-parallel all-reduces and all-gathers over 'model' "
-              "(GSPMD, ROADMAP queue 1 item 1, left 6)",
+              "(GSPMD's partitioning of decode cells and of the SSM, "
+              "hybrid, MLA, VLM and encoder-decoder families: ROADMAP "
+              "queue 1 item 1, left 6)",
               "FSDP parameter all-gathers over 'data' (GSPMD, left 6)")
 ZERO1_POD = ("ZeRO-1 of the optimizer state over 'pod' (the partitioned "
              "program holds it as its parameter: ROADMAP queue 1 item 1, "

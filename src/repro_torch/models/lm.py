@@ -28,29 +28,39 @@ groups.  With ``par.remat`` other than ``"none"`` each block runs under
 the reference's per-group ``jax.checkpoint`` at period 1 and its per
 sub-layer checkpoint under ``remat="full"`` at period > 1.
 
-**Tensor parallelism** (the dense GQA family, :func:`tp_ported`, under a
-mesh whose ``model`` axis is larger than 1): the reference's GSPMD
+**Tensor parallelism** (the dense GQA and MoE families, :func:`tp_ported`,
+under a mesh whose ``model`` axis is larger than 1): the reference's GSPMD
 partitioning by ``make_rules`` as an explicit per-rank program.
 :meth:`LM.shard` gives one :class:`LM` a rank of the mesh holding its
 blocks of the parameters (``spec_for(ParamSpec.axes, rules, mesh)``:
-``vocab``, ``heads`` and ``mlp`` over ``model``, ``embed`` over ``data``
-under FSDP), :meth:`LM.gather` writes them back.  ``apply`` inside a rank
-that is manual over ``model`` runs :meth:`LM._apply_tp` (Megatron form:
+``vocab``, ``heads``, ``mlp`` and ``experts`` over ``model``, ``embed``
+and ``expert_mlp`` over ``data`` under FSDP), :meth:`LM.gather` writes
+them back.  ``apply`` inside a rank that is manual over ``model`` runs
+:meth:`LM._apply_tp` (Megatron form:
 vocabulary-parallel embedding, column-parallel q/k/v and MLP up, row-
 parallel ``wo`` summed over ``model``, logits ``[B, S, V/tp]``); with
 Megatron-SP (``S`` a multiple of ``tp``, ``S > 1``) the residual a rank
 holds is ``[B, S/tp, d]`` (``seq_sp``): the sequence is all-gathered
 before each block's column-parallel products and the partial products
-reduce-scattered back.  FSDP parameters are gathered over ``data`` with
-:func:`~repro_torch.parallel.spmd.gather_static` where they are used
-(and again in the recompute).  With remat, only the rank-local segments
-between collectives are checkpointed (norm -> projections -> attention ->
-``wo``; norm -> MLP), so no recompute calls a collective; the gathered
-sequence each segment starts from is kept.  ``apply`` outside a rank
-runs the ranks under :func:`~repro_torch.parallel.spmd.shard_map` (its
-rank modules cached until a parameter of the model changes) and returns
-the logits assembled from their vocabulary blocks.  Other families keep
-the one-device program inside a rank.
+reduce-scattered back.  A MoE layer is ``x + moe(ln2(x))`` on the rank's
+own residual, the tokens the reference's ``shard_map`` gives the rank (a
+sequence shard under Megatron-SP, else all of the rank's batch): the
+reference's expert-parallel body (:func:`~.moe.moe_rank`) routes them with
+the router gathered whole and exchanges them with ``all_to_all`` over the
+rank's ``model`` group, which holds ``E / tp`` experts a rank; its aux
+loss is ``pmean``-ed over every manual axis and summed over layers as
+:meth:`LM.apply` sums them.  FSDP parameters are gathered over ``data``
+with :func:`~repro_torch.parallel.spmd.gather_static` where they are
+used (and again in the recompute).  With remat, only the rank-local
+segments between collectives are checkpointed (norm -> projections ->
+attention -> ``wo``; norm -> MLP; norm -> router -> buckets, the experts,
+the combine), so no recompute calls a collective; the gathered sequence
+each segment starts from is kept.  ``apply`` outside a rank runs the
+ranks under :func:`~repro_torch.parallel.spmd.shard_map` (its rank
+modules cached until a parameter of the model changes) and returns the
+logits assembled from their vocabulary blocks and the ranks' aux loss.
+Other families raise under a ``model`` axis larger than 1
+(``models/model.py``).
 
 MLA layers (``cfg.attention == "mla"``) keep their parameters under
 ``attn`` as the reference does and one :class:`~.mla.MLACache` (latent and
@@ -76,7 +86,7 @@ from .attention import (KVCache, attention_block, attention_block_tp,
 from .layers import (apply_embed, apply_embed_tp, apply_mlp, apply_norm,
                      apply_unembed, embed_spec, mlp_spec, norm_spec)
 from .mla import MLACache, init_mla_cache, mla_block, mla_decode, mla_spec
-from .moe import moe_block, moe_spec
+from .moe import moe_block, moe_rank, moe_spec, shared_expert
 from .ssm import SSMCache, init_ssm_cache, ssm_block, ssm_decode, ssm_spec
 
 __all__ = ["LM", "Block", "tp_ported", "TP_LEFT"]
@@ -86,9 +96,9 @@ TP_LEFT = "ROADMAP queue 1 item 1, left 6"
 
 def tp_ported(cfg: ModelConfig) -> bool:
     """Whether tensor parallelism over ``model`` is ported for ``cfg``'s
-    family: the dense GQA family with RoPE."""
-    return (cfg.family, cfg.attention, cfg.pos_emb) == ("dense", "gqa",
-                                                         "rope")
+    family: the dense GQA and the MoE families with GQA and RoPE."""
+    return (cfg.family, cfg.attention, cfg.pos_emb) in (
+        ("dense", "gqa", "rope"), ("moe", "gqa", "rope"))
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -346,7 +356,7 @@ class LM(nn.Module):
     def _apply_ranks(self, tokens: torch.Tensor, positions):
         """The partitioned program over the mesh's ranks: (logits [B, S,
         padded vocab] assembled from the ranks' vocabulary blocks on the
-        mesh's first device, aux 0)."""
+        mesh's first device, the ranks' aux loss)."""
         B, S = tokens.shape
         if positions is None:
             positions = torch.arange(S, dtype=torch.int32,
@@ -363,21 +373,29 @@ class LM(nn.Module):
                                                               positions)
 
     def _fsdp_gather(self):
-        """``gather(params)`` for a dict of this rank's parameters: each
-        one sharded over a manual data axis (FSDP's ``embed``) gathered
-        with its group's blocks (:func:`~repro_torch.parallel.spmd.
-        gather_static`), the others as they are."""
+        """``gather(params)`` for a dict of this rank's parameters: each one
+        sharded over a manual data axis (FSDP's ``embed`` and
+        ``expert_mlp``) gathered with its group's blocks, and a MoE router
+        whole, over ``model`` too (the reference's ``shard_map`` takes it
+        replicated), with :func:`~repro_torch.parallel.spmd.
+        gather_static`; the others as they are."""
         specs = self.param_specs()
         sizes = self.mesh.shape
         manual = spmd.manual_axes()
         names, where, groups = {}, {}, {}
         for name, p in self.named_parameters():
+            whole = name.endswith(".moe.router")
+            dims, axes = [], []
             for d, part in enumerate(specs[name]):
-                axes = tuple(a for a in part_axes(part) if a != "model"
-                             and a in manual and sizes[a] > 1)
-                if axes:
-                    names[id(p)], where[name] = name, (d, axes)
-                    groups.setdefault(axes, {})[name] = p
+                for a in part_axes(part):
+                    if (a != "model" or whole) and a in manual and \
+                            sizes[a] > 1:
+                        dims.append(d)
+                        axes.append(a)
+            if axes:
+                axes = tuple(axes)
+                names[id(p)], where[name] = name, (tuple(dims), axes)
+                groups.setdefault(axes, {})[name] = p
         if not where:
             return lambda pd: pd
         peers = {axes: spmd.peers(objs, axes)
@@ -390,17 +408,19 @@ class LM(nn.Module):
                 if name is None:
                     out[k] = t
                     continue
-                d, axes = where[name]
+                dims, axes = where[name]
                 pe = peers[axes]
-                out[k] = spmd.gather_static([m[name] for m in pe.items], d,
-                                            t.device, axes, pe.counts)
+                out[k] = spmd.gather_static(
+                    [m[name] for m in pe.items], dims, t.device, axes,
+                    pe.counts, tuple(sizes[a] for a in axes))
             return out
 
         return gather
 
     def _apply_tp(self, tokens: torch.Tensor, positions):
         """One tensor-parallel rank's prefill forward (see the module
-        docstring): (its logits block [B, S, V_padded / tp], aux 0)."""
+        docstring): (its logits block [B, S, V_padded / tp], the MoE
+        layers' aux loss, the same on every rank)."""
         cfg, mesh, rules = self.cfg, self.mesh, self.rules
         tp, r = spmd.axis_size("model"), spmd.axis_index("model")
         B, S = tokens.shape
@@ -418,17 +438,22 @@ class LM(nn.Module):
             return spmd.psum_scatter(part, "model", 1) if sp else \
                 spmd.psum(part, "model")
 
-        def sub(segment, x):
-            """x + the sum over ``model`` of ``segment`` on the (gathered)
+        def across(segment, x):
+            """The sum over ``model`` of ``segment`` on the (gathered)
             residual; only the rank-local segment is recomputed."""
             h = spmd.all_gather(x, "model", 1) if sp else x
             part = checkpoint(segment, h, use_reentrant=False) if remat \
                 else segment(h)
-            return x + reduce(part)
+            return reduce(part)
+
+        def sub(segment, x):
+            return x + across(segment, x)
 
         x = reduce(apply_embed_tp(gather(self.embed), tokens, r).to(dt))
         seq = ("batch", "seq_sp" if sp else "seq", "act_embed")
         x = constrain(x, seq, rules, mesh, (bg, S, cfg.d_model))
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = group = zero
         for i, bp in enumerate(self.blocks):
             x = sub(lambda h, bp=bp: attention_block_tp(
                 gather(bp.attn), apply_norm(bp.ln1, h, cfg), cfg, positions,
@@ -436,7 +461,11 @@ class LM(nn.Module):
             if "mlp" in bp._modules:
                 x = sub(lambda h, bp=bp: apply_mlp(
                     gather(bp.mlp), apply_norm(bp.ln2, h, cfg), cfg), x)
+            elif "moe" in bp._modules:
+                y, a = self._moe_tp(bp, x, gather, across, remat)
+                x, group = x + y, group + a
             if (i + 1) % self.period == 0:
+                aux, group = aux + group, zero
                 x = constrain(x, seq, rules, mesh, (bg, S, cfg.d_model))
         if sp:
             x = spmd.all_gather(x, "model", 1)
@@ -444,8 +473,31 @@ class LM(nn.Module):
         logits = apply_unembed(gather(self.embed), x, cfg)
         logits = constrain(logits, ("batch", "seq", "act_heads"), rules,
                            mesh, (bg, S, self.vocab_padded))
-        return logits, torch.zeros((), dtype=torch.float32,
-                                   device=x.device)
+        return logits, aux
+
+    def _moe_tp(self, bp: Block, x: torch.Tensor, gather, across,
+                remat: bool):
+        """A MoE layer's FFN on the rank's residual ``x`` (the
+        reference's ``shard_map`` tokens: a sequence shard under
+        Megatron-SP, else every token of the rank's batch): (y, aux).  The
+        routed experts dispatch over the rank's ``model`` group
+        (:func:`~.moe.moe_rank`, router gathered whole, experts over
+        ``data`` under FSDP, inside its remat segments); a shared expert is
+        column-parallel over ``model`` as the MLP is (``across``)."""
+        cfg, moe = self.cfg, bp.moe
+
+        def norm(h):
+            return apply_norm(bp.ln2, h, cfg)
+
+        y, aux = moe_rank(lambda k: gather({k: moe[k]})[k], x, cfg, norm,
+                          remat)
+        if cfg.moe.shared_expert_d_ff:
+            def shared(h):
+                g = gather({k: moe[k] for k in ("shared_wi", "shared_wo")})
+                return shared_expert(g["shared_wi"], g["shared_wo"],
+                                     norm(h), cfg)
+            y = y + across(shared, x)
+        return y, aux
 
     # ------------------------------------------------------------ decode
     def kv_cache_len(self, max_seq: int) -> int:

@@ -2,9 +2,10 @@
 with the reference's mesh-aware sharding rules.
 
 Under a mesh whose ``model`` axis is larger than 1, :func:`build_model`
-builds the dense GQA family (:func:`~.lm.tp_ported`), which runs
+builds the dense GQA and MoE families (:func:`~.lm.tp_ported`), which run
 tensor-parallel (``models/lm.py``), and raises ``NotImplementedError``
-for every other family (:func:`check_tp`); :func:`make_model` builds any
+for every other family (SSM, hybrid, MLA, VLM, encoder-decoder:
+:func:`check_tp`); :func:`make_model` builds any
 family on any mesh (the dry-run sizes every cell from it)."""
 from __future__ import annotations
 
@@ -55,7 +56,7 @@ def check_tp(cfg: ModelConfig, mesh, model=None) -> None:
     if tp > 1 and not tp_ported(cfg):
         raise NotImplementedError(
             f"{cfg.name}: tensor parallelism over a model axis of {tp} is "
-            f"ported for the dense GQA family only, not for family "
+            f"ported for the dense GQA and MoE families only, not for family "
             f"{cfg.family!r} (attention {cfg.attention!r}, positions "
             f"{cfg.pos_emb!r}): {TP_LEFT}")
     if tp > 1 and model is not None and (

@@ -12,10 +12,14 @@ routes its own tokens, buckets them by destination rank into ``[ep,
 C_send, d]`` send buffers, exchanges them with ``all_to_all`` over
 ``model``, runs its ``E / ep`` experts, returns the rows with a second
 ``all_to_all`` and combines them at the source; the aux loss is
-``pmean``-ed over the mesh.  The collectives carry no gradient, so this
-path is forward only (the port's trainer refuses a ``model`` axis larger
-than 1).  Inside a rank of the trainer's data-parallel ``shard_map`` the
-rank's tokens take the one-device path.
+``pmean``-ed over the mesh.  A rank of a partitioned model (the
+tensor-parallel program of ``models/lm.py``, manual over ``model``) runs
+that body, :func:`moe_rank`, on its own tokens: the ``all_to_all``s are
+differentiable copies (``parallel/spmd.py``), so the trainer's one
+backward runs through them, and under remat only the rank-local segments
+between the exchanges are recomputed.  Inside a rank of the trainer's
+data-parallel ``shard_map`` (whole experts) the rank's tokens take the
+one-device path.
 
 Which assignments a full capacity drops depends on their order, so the
 port keeps the reference's exactly:
@@ -56,11 +60,14 @@ import torch.nn.functional as F
 
 from .. import flags
 from ..config import ModelConfig
-from ..parallel.spmd import P, all_to_all, in_rank, pmean, shard_map
+from torch.utils.checkpoint import checkpoint
+
+from ..parallel.spmd import (P, all_to_all, axis_size, in_rank, manual_axes,
+                             pmean, shard_map)
 from .params import ParamSpec
 
-__all__ = ["DISPATCH_CHUNK", "moe_spec", "moe_block", "top_k", "capacities",
-           "ep_slots"]
+__all__ = ["DISPATCH_CHUNK", "moe_spec", "moe_block", "moe_rank", "top_k",
+           "capacities", "ep_slots"]
 
 DISPATCH_CHUNK = 8192   # tokens per dispatch round (bounds buffer memory)
 
@@ -210,14 +217,14 @@ def ep_slots(bucket: torch.Tensor, n_buckets: int, cap: int,
     return keep, torch.where(keep, bucket * cap + rank, n_buckets * cap)
 
 
-def _moe_chunk_ep(xt, router, wi, wo, cfg: ModelConfig, ep: int):
-    """One dispatch chunk on one rank of the expert-parallel ``model``
-    axis (the reference's ``has_a2a`` path): ``wi``/``wo`` are this rank's
-    ``E / ep`` experts.  xt: [T, d].  Returns (y [T, d], aux)."""
+def _ep_send(xt, router, cfg: ModelConfig, ep: int):
+    """Route a chunk of ``T`` tokens and bucket its ``T * k`` rows by the
+    expert-parallel rank that holds their expert: ``(send_x [ep, C_send,
+    d], send_e [ep, C_send] (the expert's index on that rank, -1 for an
+    empty row), keep, slot, gates [T, k], aux)``, ``C_send`` from ``T``."""
     m = cfg.moe
     T, d = xt.shape
-    k, E = m.experts_per_token, m.num_experts
-    e_loc = E // ep
+    k, e_loc = m.experts_per_token, m.num_experts // ep
     gate_vals, expert_idx, aux = _route(xt, router, cfg)
     flat_e = expert_idx.reshape(-1)
     src_tok = torch.arange(T, device=xt.device).repeat_interleave(k)
@@ -229,8 +236,17 @@ def _moe_chunk_ep(xt, router, wi, wo, cfg: ModelConfig, ep: int):
     send_e = torch.full((n_send + 1,), -1, dtype=flat_e.dtype,
                         device=xt.device)
     send_e[sslot] = flat_e % e_loc
-    rx = all_to_all(send_x[:-1].view(ep, c_send, d), "model", 0, 0)
-    re = all_to_all(send_e[:-1].view(ep, c_send), "model", 0, 0)
+    return (send_x[:-1].view(ep, c_send, d), send_e[:-1].view(ep, c_send),
+            keep, sslot, gate_vals, aux)
+
+
+def _ep_experts(rx, re, wi, wo, cfg: ModelConfig, ep: int):
+    """The rank's ``E / ep`` experts (``wi``/``wo``) on the rows it
+    received, ``rx`` [ep, C_send, d] with expert ids ``re``: the results
+    in the same places (zeros where a row was empty or dropped)."""
+    m = cfg.moe
+    _, c_send, d = rx.shape
+    e_loc, n_send = m.num_experts // ep, ep * c_send
     rx, re = rx.reshape(n_send, d), re.reshape(n_send)
     # C_send already carries the capacity slack; the local buffer only
     # needs mild imbalance headroom across the rank's experts.  Empty rows
@@ -240,39 +256,100 @@ def _moe_chunk_ep(xt, router, wi, wo, cfg: ModelConfig, ep: int):
     ekeep, eslot = ep_slots(torch.where(re >= 0, re, e_loc), e_loc + 1,
                             c_loc, re >= 0)
     n_exp = e_loc * c_loc
-    buf = xt.new_zeros(((e_loc + 1) * c_loc + 1, d))
+    buf = rx.new_zeros(((e_loc + 1) * c_loc + 1, d))
     buf[eslot] = rx
     out = _expert_ffn(wi, wo, buf[:n_exp].view(e_loc, c_loc, d),
                       cfg.activation)
     back = torch.where(ekeep[:, None], out.reshape(n_exp, d)[
         eslot.clamp_max(n_exp - 1)], 0)
-    back = all_to_all(back.view(ep, c_send, d), "model", 0, 0)
+    return back.view(ep, c_send, d)
+
+
+def _ep_combine(back, keep, sslot, gate_vals):
+    """Each token's k returned rows ``back`` [ep, C_send, d] weighted by
+    its gates and added in gate order: y [T, d]."""
+    ep, c_send, d = back.shape
+    n_send = ep * c_send
+    T, k = gate_vals.shape
     gathered = torch.where(keep[:, None], back.reshape(n_send, d)[
         sslot.clamp_max(n_send - 1)], 0)
-    w = gate_vals.reshape(-1, 1).to(xt.dtype)
+    w = gate_vals.reshape(-1, 1).to(back.dtype)
     rows = (gathered * w).view(T, k, d)
     y = rows[:, 0]
     for j in range(1, k):            # XLA's scatter-add order, rounded
         y = y + rows[:, j]
-    return y, aux
+    return y
 
 
-def _moe_tokens(xt, router, wi, wo, cfg: ModelConfig, ep: int = 1):
-    """Chunked dispatch over the token axis (over ``ep`` ranks)."""
-    T, d = xt.shape
+def _chunk(T: int) -> int:
+    """Tokens a dispatch round: ``DISPATCH_CHUNK`` (all ``T`` under
+    ``flags.ROOFLINE_MODE``, or when it does not divide ``T``)."""
     chunk = T if flags.ROOFLINE_MODE else min(DISPATCH_CHUNK, T)
-    if T % chunk:
-        chunk = T       # irregular small inputs: a single chunk
-    if ep > 1:
-        ys, auxs = zip(*(_moe_chunk_ep(xt[i:i + chunk], router, wi, wo, cfg,
-                                       ep) for i in range(0, T, chunk)))
-    elif chunk == T:
+    return T if T % chunk else chunk
+
+
+def moe_rank(param, x: torch.Tensor, cfg: ModelConfig, norm=None,
+             remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``shard_map`` body (``moe.py:179-183``) on one rank
+    of a partitioned model, inside a rank manual over ``model``: the
+    routed experts' output for the rank's tokens ``x`` [B, S, d] and the
+    aux loss ``pmean``-ed over every manual axis.  ``param(name)`` gives
+    the rank's ``router`` whole and its ``E / ep`` experts ``wi``/``wo``
+    (ep the ``model`` axis's size); ``norm`` (``ln2``) is applied to ``x``
+    first.  Each chunk of ``DISPATCH_CHUNK`` tokens is routed and bucketed
+    (``C_send`` from the chunk's own tokens), exchanged with
+    ``all_to_all`` over ``model``, run through the rank's experts,
+    returned and combined.  With ``remat`` (and gradients on) the three
+    rank-local segments around the exchanges (norm -> router -> buckets;
+    the experts; the combine) run under ``torch.utils.checkpoint``, and
+    ``param`` is called inside them, so no recompute calls a collective
+    and FSDP's gathers run again there."""
+    B, S, d = x.shape
+    ep = axis_size("model")
+    manual = tuple(a for a in ("pod", "data", "model")
+                   if a in manual_axes())
+    remat = remat and torch.is_grad_enabled()
+
+    if not remat:       # one gather a layer; remat gathers a segment
+        held = {k: param(k) for k in ("router", "wi", "wo")}
+        param = held.__getitem__
+
+    def run(f, *args):
+        return checkpoint(f, *args, use_reentrant=False) if remat \
+            else f(*args)
+
+    def send(xc):
+        h = xc if norm is None else norm(xc)
+        return _ep_send(h, param("router"), cfg, ep)
+
+    def experts(rx, re):
+        return _ep_experts(rx, re, param("wi"), param("wo"), cfg, ep)
+
+    xt = x.reshape(-1, d)
+    T = xt.shape[0]
+    chunk = _chunk(T)
+    ys, auxs = [], []
+    for i in range(0, T, chunk):
+        send_x, send_e, keep, sslot, gates, aux = run(send,
+                                                      xt[i:i + chunk])
+        back = run(experts, all_to_all(send_x, "model", 0, 0),
+                   all_to_all(send_e, "model", 0, 0))
+        ys.append(run(_ep_combine, all_to_all(back, "model", 0, 0), keep,
+                      sslot, gates))
+        auxs.append(aux)
+    y = ys[0] if len(ys) == 1 else torch.cat(ys)
+    aux = auxs[0] if len(auxs) == 1 else torch.stack(auxs).sum()
+    return y.reshape(B, S, d), pmean(aux, manual)
+
+
+def _moe_tokens(xt, router, wi, wo, cfg: ModelConfig):
+    """Chunked one-device dispatch over the token axis."""
+    T, d = xt.shape
+    chunk = _chunk(T)
+    if chunk == T:
         return _moe_chunk(xt, router, wi, wo, cfg)
-    else:
-        ys, auxs = zip(*(_moe_chunk(xt[i:i + chunk], router, wi, wo, cfg)
-                         for i in range(0, T, chunk)))
-    if len(ys) == 1:
-        return ys[0], auxs[0]
+    ys, auxs = zip(*(_moe_chunk(xt[i:i + chunk], router, wi, wo, cfg)
+                     for i in range(0, T, chunk)))
     return torch.cat(ys), torch.stack(auxs).sum()
 
 
@@ -294,9 +371,12 @@ def _moe_mesh(p, x: torch.Tensor, cfg: ModelConfig, mesh):
     seq_ax = "model" if S % max(ep, 1) == 0 and S >= ep else None
 
     def local(xl, router, wi_loc, wo_loc):
+        if ep > 1:
+            p_loc = {"router": router, "wi": wi_loc, "wo": wo_loc}
+            return moe_rank(p_loc.__getitem__, xl, cfg)
         bl, sl = xl.shape[0], xl.shape[1]
         y, aux = _moe_tokens(xl.reshape(bl * sl, d), router, wi_loc, wo_loc,
-                             cfg, ep)
+                             cfg)
         return y.reshape(bl, sl, d), pmean(aux, manual)
 
     fn = shard_map(local, mesh=mesh,
@@ -310,21 +390,48 @@ def moe_block(p, x: torch.Tensor, cfg: ModelConfig, rules=None, mesh=None
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, d].  Returns (y [B, S, d], aux loss).  ``mesh`` (the
     reference's argument, as ``rules``, which the dispatch does not read)
-    runs the expert-parallel path; a mesh of one device, or a call inside
-    a ``shard_map`` rank, the one-device path."""
+    runs the expert-parallel path; a mesh of one device the one-device
+    path.  Inside a ``shard_map`` rank: a rank of a partitioned model
+    (manual over a ``model`` axis larger than 1, ``p`` holding the router
+    whole and the rank's ``E / ep`` experts) runs the reference's
+    ``shard_map`` body (:func:`moe_rank`) on its tokens ``x``; any other
+    rank (whole experts: a model that is not partitioned) the one-device
+    path.  A partitioned rank's shared expert is column-parallel over
+    ``model``; ``LM._apply_tp`` adds it, and this function refuses it."""
     B, S, d = x.shape
     xt = x.reshape(-1, d)
+    if _partitioned_rank(p, cfg):
+        if cfg.moe.shared_expert_d_ff:
+            raise ValueError("a partitioned rank's shared expert is "
+                             "column-parallel: LM._apply_tp adds it")
+        return moe_rank(p.__getitem__, x, cfg)
     if mesh is None or mesh.size == 1 or in_rank():
         y, aux = _moe_tokens(xt, p["router"], p["wi"], p["wo"], cfg)
         y = y.reshape(B, S, d)
     else:
         y, aux = _moe_mesh(p, x, cfg, mesh)
     if cfg.moe.shared_expert_d_ff:
-        wi = p["shared_wi"]
-        h = (xt @ wi.reshape(d, -1)).unflatten(-1, wi.shape[1:])
-        if cfg.activation == "swiglu":
-            a = F.silu(h[..., 0, :].float()).to(x.dtype) * h[..., 1, :]
-        else:
-            a = F.gelu(h[..., 0, :], approximate="tanh")
-        y = y + (a @ p["shared_wo"]).reshape(B, S, d)
+        y = y + shared_expert(p["shared_wi"], p["shared_wo"], xt,
+                              cfg).reshape(B, S, d)
     return y, aux
+
+
+def _partitioned_rank(p, cfg: ModelConfig) -> bool:
+    """Whether the caller is a rank manual over a ``model`` axis larger
+    than 1 that holds a block of the experts."""
+    return "model" in manual_axes() and axis_size("model") > 1 and \
+        p["wi"].shape[0] < cfg.moe.num_experts
+
+
+def shared_expert(wi, wo, xt: torch.Tensor, cfg: ModelConfig
+                  ) -> torch.Tensor:
+    """The shared expert on ``xt`` [T, d] (or a rank's column block of it:
+    ``wi`` [d, n_in, f_loc], ``wo`` [f_loc, d] give the rank's partial
+    product)."""
+    d = xt.shape[-1]
+    h = (xt @ wi.reshape(d, -1)).unflatten(-1, wi.shape[1:])
+    if cfg.activation == "swiglu":
+        a = F.silu(h[..., 0, :].float()).to(xt.dtype) * h[..., 1, :]
+    else:
+        a = F.gelu(h[..., 0, :], approximate="tanh")
+    return a @ wo

@@ -470,24 +470,40 @@ def peers(obj, axis) -> Peers:
                  ctx.rank == 0)
 
 
-def gather_static(shards: list, dim: int, dev: torch.device,
-                  axes: tuple = (), counts: bool = False) -> torch.Tensor:
+def gather_static(shards: list, dim, dev: torch.device, axes: tuple = (),
+                  counts: bool = False, sizes: tuple = ()) -> torch.Tensor:
     """FSDP's parameter all-gather: ``shards`` (one group's blocks of a
     parameter in index order, from :func:`peers`) copied onto ``dev`` and
-    concatenated along ``dim``.  No barrier: parameters are stable within a
-    step, so this also runs in a remat recompute inside the backward.
-    With ``counts`` it is counted in :data:`TALLY` as an all-gather over
-    ``axes`` (and, when the result takes gradients outside a backward,
-    the reduce-scatter of its backward)."""
-    out = torch.cat([s if s.device == dev else
-                     s.to(dev, copy=True, non_blocking=dev.type == "cuda")
-                     for s in shards], dim=dim)
+    concatenated along ``dim``.  ``dim`` may be a tuple, one dimension per
+    axis of ``axes`` (of group sizes ``sizes``): ``shards`` are then
+    row-major over those axes, each axis's blocks concatenated along its
+    dimension.  No barrier: parameters are stable within a step, so this
+    also runs in a remat recompute inside the backward.  With ``counts``
+    it is counted in :data:`TALLY` as an all-gather over ``axes`` (and,
+    when the result takes gradients outside a backward, the
+    reduce-scatter of its backward)."""
+    moved = [s if s.device == dev else
+             s.to(dev, copy=True, non_blocking=dev.type == "cuda")
+             for s in shards]
+    dims = (dim,) if isinstance(dim, int) else tuple(dim)
+    out = _cat_grid(moved, dims, tuple(sizes) or (len(moved),))
     if counts and len(shards) > 1:
         n = len(shards)
         TALLY.add("all-gather", tuple(axes), n, _nbytes(out))
         if out.requires_grad and not _in_backward():
             TALLY.add("reduce-scatter", tuple(axes), n, _nbytes(out))
     return out
+
+
+def _cat_grid(items: list, dims: tuple, sizes: tuple) -> torch.Tensor:
+    """``items`` row-major over a grid of ``sizes``, concatenated along
+    ``dims[i]`` over grid axis i."""
+    if len(dims) == 1:
+        return torch.cat(items, dim=dims[0])
+    n = math.prod(sizes[1:])
+    return torch.cat([_cat_grid(items[i * n:(i + 1) * n], dims[1:],
+                                sizes[1:]) for i in range(sizes[0])],
+                     dim=dims[0])
 
 
 @contextlib.contextmanager

@@ -17,10 +17,11 @@ each rank's loss and gradients on its shard of the batch, the gradients
 synchronized by the explicit rings (:func:`~repro_torch.collectives.
 scheduler.sync_grads_local`), then AdamW on every rank (:class:`RingStep`).
 A mesh whose ``model`` axis is larger than 1 gives the tensor-parallel
-step (:class:`TPStep`, the dense GQA family; every other family raises
-``NotImplementedError``): each rank of the whole mesh holds its blocks of
-the parameters and optimizer state, and the ranks' forwards form one
-autograd graph with one backward (``parallel/spmd.py``).
+step (:class:`TPStep`, the dense GQA and MoE families; every other family
+raises ``NotImplementedError``): each rank of the whole mesh holds its
+blocks of the parameters and optimizer state, and the ranks' forwards
+form one autograd graph with one backward (``parallel/spmd.py``), the
+MoE's ``all_to_all`` exchanges and its aux loss included.
 """
 from __future__ import annotations
 
@@ -69,8 +70,9 @@ def make_train_step(model, cfg: ModelConfig, tcfg: TrainConfig,
     model's device.  ``grad_sync="ring"``/``"hierarchical"`` under a mesh
     whose data axes ("pod", "data") have more than one rank returns a
     :class:`RingStep`; a mesh whose ``model`` axis is larger than 1 a
-    :class:`TPStep` for the dense GQA family and ``NotImplementedError``
-    for every other (ROADMAP queue 1 item 1, left 6)."""
+    :class:`TPStep` for the dense GQA and MoE families and
+    ``NotImplementedError`` for every other (ROADMAP queue 1 item 1, left
+    6)."""
     if mesh is not None and mesh.shape.get("model", 1) > 1:
         return TPStep(model, cfg, tcfg, par, mesh)
     if mesh is not None and par.grad_sync != "xla":
@@ -192,8 +194,8 @@ class TPStep:
     step returned or the model's parameters changed since.  A step: under :func:`~repro_torch.parallel.spmd.
     shard_map` manual over every axis each rank runs its forward on its
     data group's share of the batch (split over the data axes) and its
-    loss, ``pmean``-ed over the data axes (every rank then holds the
-    global loss); one backward from rank 0's copy gives every rank's
+    loss with the MoE aux loss, ``pmean``-ed over the data axes (every rank
+    then holds the global loss); one backward from rank 0's copy gives every rank's
     gradients; :func:`~repro_torch.collectives.scheduler.sync_grads_tp`
     sums the replicated leaves over ``model`` and the data axes
     (``grad_sync``: ``"xla"`` a psum, ``"ring"``/``"hierarchical"`` the

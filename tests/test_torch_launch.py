@@ -341,7 +341,8 @@ def _xla_side(cell, rec):
             len(list(_flat(cell.args[1]))) + 3      # + loss, lr, grad_norm
         out += 8 * n_out            # the output tuple's table
     elif kind == "prefill":
-        out -= out - out // tp      # logits[:, -1] sharded over model
+        if not cell.partitioned:    # a partitioned rank's is its block
+            out -= out - out // tp  # logits[:, -1] sharded over model
     else:
         logits = cell.shape.global_batch // 2 * cell.model.vocab_padded * 2
         out -= logits - logits // tp        # logits sharded over model
@@ -405,6 +406,11 @@ def test_collectives_of_a_moe_train_cell(meta_meshes):
     passes of two token all_to_alls and one id all_to_all."""
     mesh = meta_meshes[False]
     cell = P_steps.build_cell("granite_moe_1b_a400m", "train_4k", mesh)
+    # the cell is partitioned (its record's collectives are its rank's,
+    # tests/test_torch_tp_moe.py); the formulas here are those of a MoE
+    # cell at full model width (jamba's, and the MoE decode cells)
+    assert cell.partitioned
+    cell = dataclasses.replace(cell, partitioned=False)
     c = dryrun.collectives(cell, mesh)
     n_leaves = len(list(_flat(cell.args[0])))
     assert c["all-reduce"]["count"] == n_leaves
