@@ -224,9 +224,9 @@ that fails:
             named 4 times, 4 microbatches of 1 x 4,096: GPipe's 7 ticks,
             each microbatch bit-equal to the 4 blocks applied in turn on
             one device
-27. tp      tensor parallelism (GSPMD's partitioning of the dense GQA
-            and MoE families, ``models/lm.py``) over the card named 8 and
-            4 times:
+27. tp      tensor parallelism (GSPMD's partitioning of the dense GQA,
+            MoE, SSM and hybrid families, ``models/lm.py``) over the card
+            named 8 and 4 times:
             danube at full width cut to 2 of 24 layers on (data 2, model
             4), float32, a global batch of 4 x 4,096: one step of
             make_train_step with grad_sync "xla", then with FSDP, then
@@ -242,23 +242,36 @@ that fails:
             (data 2, model 4), 4 x 4,096, capacity factor 2.0 (nothing
             drops, counted), grad_sync "xla" and "ring" against one
             device's step (its aux the ranks' mean), collectives by kind
-            equal to the CPU ranks' derivation (all-to-all included); its
-            24 layers prefilling 1 x 32,768 on (data 1, model 4) at its
-            capacity 1.25 against one device, each layer's drops on both
-            sides; its layer-0 moe_block inside the ranks against the EP
-            path outside a rank (capacity 1.25, and 1.0 where rows drop:
-            bit-equal, the same drops); the flash forward and backward
-            kernels
-            timed at a rank's shapes (danube's and granite's), the D-64
-            backward at granite's held to the plain backward
+            equal to the CPU ranks' derivation (all-to-all included), the
+            tokens whose top-k differs from one device's and the smallest
+            top-k probability gap per layer; 12 of its 24 layers
+            prefilling 1 x 32,768 on (data 1, model 4) at its capacity 1.25
+            against one device, each layer's drops on both sides; its
+            layer-0 moe_block inside the ranks against the EP path
+            outside a rank (capacity 1.25, and 1.0 where rows drop:
+            bit-equal, the same drops); mamba2-130m's step likewise (2 of
+            24 layers, float32, xla and ring, the plain scan on each
+            rank's 6 heads) and its 24 layers prefilling 1 x 32,768 on
+            (data 1, model 4) through the SSD kernel (96 calls, 24 a rank)
+            in float32 (at the mamba phase's float32 tolerance) and in bf16
+            (rows and argmax) against one device; jamba's first period
+            (7 SSM and 1 attention layer) prefilling 1 x 32,768 in bf16 on
+            (1, 4) through the flash and SSD kernels (4 and 28 calls)
+            against the one-device route by rows and argmax, drops per MoE
+            layer on both sides; jamba's layer 0 (SSM and MLP) in float32
+            inside the ranks against one device; the flash forward and
+            backward kernels timed at a rank's shapes (danube's, granite's
+            and jamba's), the D-64 backward at granite's and the forward at
+            jamba's held to the plain versions, the SSD kernel held to its
+            plain version and timed at mamba2's and jamba's rank shapes
 28. launch  the launch layer (``launch/steps.py``, ``launch/dryrun.py``):
             the dry-run's records (meta devices, in worker processes) of
             danube's and mamba2's four cells on both production meshes
             (GiB a device, TFLOP, the three roofline terms at the card's
             spec-sheet constants); then cells as build_cell builds them
             on the card, each beside its dry-run prediction (printed
-            first): danube prefill_32k on one rank of a (data 16, model 1)
-            mesh (2 x 32,768 tokens, 24 layers, bf16 weights drawn on the
+            first): danube prefill_32k on one rank of a (data 32, model 1)
+            mesh (1 x 32,768 tokens, 24 layers, bf16 weights drawn on the
             card from seed 0, plain chunked attention), FlopCounterMode's
             count equal to the meta count, peak memory within LAUNCH_BAND
             of argument + output - alias + temp, wall time and TFLOP/s
@@ -276,7 +289,10 @@ that fails:
             rank of (data 16, model 16) at depth 2, run alone
             (spmd.lone_rank) on real tensors, its flop count equal to the
             meta count and its peak within TP_LAUNCH_BAND (5 %); granite
-            train_4k likewise (its all_to_alls keep their shapes alone)
+            train_4k likewise (its all_to_alls keep their shapes alone),
+            and jamba train_4k at one period (8 of 32 layers); every meta
+            run of the phase starts with the whole run in LAUNCH_WORKERS
+            processes at nice 19
 29. grid512 the 512-host grid (16 pods; sym off/on x 4 seeds as lanes),
             1,000 ticks: the tiled tick (blk=2048, tick_window=1) and the
             window kernel (tick_window=20), their launches counted, against
@@ -343,6 +359,8 @@ import collections
 import contextlib
 import ctypes
 import dataclasses
+import functools
+import gc
 import json
 import math
 import os
@@ -351,6 +369,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -573,6 +592,12 @@ GPIPE_STAGES, GPIPE_MB = 4, 4
 # dry-run's predicted argument + output - alias + temp, within LAUNCH_BAND
 # (relative); the faults planted in the decode cell's prediction
 LAUNCH_ARCHS = ("h2o_danube_3_4b", "mamba2_130m")
+# danube's prefill_32k held to the card on one rank of (data 32, model 1):
+# a rank's share of the batch of 32 is 1 x 32,768 (its plain float32
+# attention under the flop counter took 45 s at 2 x 32,768 on (16, 1): the
+# whole script's time limit; at 8 of 24 layers the flash route's bf16
+# logits part from the plain route's by 1.0, beyond the model tolerance)
+LAUNCH_PREFILL_MESH = (32, 1)
 # the partitioned record held to the card: danube train_4k on one rank of
 # (data 16, model 16) at depth 2, its peak within TP_LAUNCH_BAND
 TP_LAUNCH = ("h2o_danube_3_4b", "train_4k", (16, 16), 2)
@@ -603,14 +628,68 @@ TP_PREFILL_MESH = (1, 4)
 # its T tokens; the send buffers' 2 T k / 4 rows a destination hold twice
 # the mean, and their drops are counted); one device's aux taken as the
 # mesh program defines it (the mean of the ranks' auxes, mesh_aux).  Its
-# 24-layer prefill of 1 x 32,768 tokens on TP_PREFILL_MESH and one
+# prefill of 1 x 32,768 tokens on TP_PREFILL_MESH, cut to
+# TP_MOE_PREFILL_LAYERS of 24 layers for the script's time limit, and one
 # full-width MoE layer inside the ranks run at granite's own capacity 1.25.
 TP_MOE = "granite_moe_1b_a400m"
 TP_MOE_CF = 2.0
+TP_MOE_PREFILL_LAYERS = 12
 # the partitioned MoE record held to the card
 TP_LAUNCH_MOE = (TP_MOE, "train_4k", (16, 16), 2)
+# the tp phase's SSM and hybrid families.  mamba2 at full width: its step
+# cut to DP_LAYERS layers in float32 on TP_MESH at a global batch of TP_B x
+# 4,096 (xla, ring: the plain scan, the SSD kernel being forward only), as
+# granite's; its 24 layers prefilling 1 x 32,768 on TP_PREFILL_MESH
+# through the SSD kernel at a rank's 6 heads, in float32 against one
+# device at F32_ATOL / F32_RTOL (bf16 roundings build up through 24
+# layers: see the mamba phase) and in bf16 by rows (ROW_TOL of each row's
+# largest |logit|, rows TP_ROWS) and argmax.  jamba's first period
+# (JAMBA_LAYERS) prefilling 1 x 32,768 in bf16 on TP_PREFILL_MESH with the
+# flash and SSD kernels, held to one device as mamba2's bf16 rows, at its
+# own capacity factor (the drops of each MoE layer reported on both sides);
+# its layer 0 (an SSM layer and an MLP) inside the ranks in float32 on
+# 1 x 32,768 N(0,1) inputs against one device within TP_LAYER_REL_L2
+TP_SSM = "mamba2_130m"
+TP_HYBRID = "jamba_v0_1_52b"
+TP_ROWS = slice(255, None, 256)
+TP_LAYER_REL_L2 = 1e-4
+# the partitioned hybrid record held to the card: jamba's first period
+TP_LAUNCH_HYBRID = (TP_HYBRID, "train_4k", (16, 16), JAMBA_LAYERS)
+# the launch phase's meta runs (launch_task), all started with the run in
+# LAUNCH_WORKERS worker processes at the lowest priority, so that the phase
+# waits for none and the host-bound phases meanwhile keep the other cores:
+# first the predictions that the card's runs are held to (jamba's, the
+# longest, first), then the records (mamba2's prefill and train, the
+# longest, first)
+LAUNCH_PREDS = {
+    "tp_hybrid": ("predict",) + TP_LAUNCH_HYBRID,
+    "prefill": ("predict", "h2o_danube_3_4b", "prefill_32k",
+                LAUNCH_PREFILL_MESH, None),
+    "train": ("predict", "h2o_danube_3_4b", "train_4k", (16, 1), 2),
+    "decode": ("predict", "mamba2_130m", "decode_32k", (1, 1), None),
+    "tp": ("predict",) + TP_LAUNCH,
+    "tp_moe": ("predict",) + TP_LAUNCH_MOE}
+LONG_RECORDS = (("mamba2_130m", "prefill_32k"), ("mamba2_130m", "train_4k"))
+LAUNCH_RECORDS = tuple(
+    ("record", a, s, mp)
+    for a, s in LONG_RECORDS + tuple(
+        (a, s) for a in LAUNCH_ARCHS
+        for s in ("prefill_32k", "train_4k", "decode_32k", "long_500k")
+        if (a, s) not in LONG_RECORDS)
+    for mp in (False, True))
+LAUNCH_WORKERS = 3
 LAUNCH_BAND = 0.15
 LAUNCH_FAULTS = ("donation ignored", "cache dropped")
+
+
+def host_ms() -> float:
+    """Milliseconds that a fixed loop of 200,000 Python additions takes: a
+    reading of the host's speed, and of contention for its cores, beside
+    each phase's time."""
+    t0, n = time.perf_counter(), 0
+    for i in range(200_000):
+        n += i
+    return 1e3 * (time.perf_counter() - t0)
 
 
 def memory_band(measured: int, predicted: int,
@@ -720,6 +799,21 @@ def row_err(o, ref) -> float:
     r = ref.float()
     d = (o.float() - r).abs().amax(-1)
     return (d / r.abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+def logit_gap(got, want) -> str:
+    """Where two paths' float logits part, against the model tolerance's
+    element bound MODEL_ATOL + MODEL_RTOL * |want|: the largest difference
+    and |want| there, the element nearest its bound (or furthest past it)
+    with its |want|, how many elements pass their bound, and the row error
+    (:func:`row_err`)."""
+    d, w = (got - want).abs().flatten(), want.abs().flatten()
+    bound = MODEL_ATOL + MODEL_RTOL * w
+    i, j = int(d.argmax()), int((d / bound).argmax())
+    return (f"max abs err {d[i].item():.4g} at |logit| {w[i].item():.4g}; "
+            f"nearest its bound {d[j].item():.4g} of {bound[j].item():.4g} "
+            f"at |logit| {w[j].item():.4g}; {int((d > bound).sum())} of "
+            f"{d.numel()} past it; row error {row_err(got, want):.3g}")
 
 
 def chunked_lse(torch, q, k, window: int, scale: float, chunk: int = 512):
@@ -1050,6 +1144,74 @@ def flash_calls_by_stream(torch, ops):
 
 
 @contextlib.contextmanager
+def ssd_calls_by_stream(torch, ssm_mod):
+    """Within: the SSM mixer's calls of the SSD scan (``ssm_mod`` is
+    repro_torch.models.ssm, whose ``ssm_block`` calls ``ssd``), counted
+    per CUDA stream under a lock: a rank's calls run on its stream."""
+    counts, lock, scan = collections.Counter(), threading.Lock(), ssm_mod.ssd
+
+    def counted(*args, **kw):
+        with lock:
+            counts[torch.cuda.current_stream().cuda_stream] += 1
+        return scan(*args, **kw)
+
+    ssm_mod.ssd = counted
+    try:
+        yield counts
+    finally:
+        ssm_mod.ssd = scan
+
+
+def on_mesh(model, mesh):
+    """A model of ``model``'s configuration on ``mesh`` holding
+    ``model``'s own parameter tensors (not copies): the tensor-parallel
+    program of the same tree, where the mesh pads nothing more."""
+    from repro_torch.models.model import make_model
+    from repro_torch.models.params import slot
+    m = make_model(model.cfg, model.par, model.use_flash,
+                   model.use_ssd_kernel, "meta", mesh)
+    for name, p in model.named_parameters():
+        mod, key = slot(m, name)
+        if mod._parameters[key].shape != p.shape:
+            raise ValueError(f"{name}: {tuple(p.shape)} on one device, "
+                             f"{tuple(mod._parameters[key].shape)} on "
+                             f"{dict(mesh.shape)}")
+        mod._parameters[key] = p
+    return m
+
+
+@contextlib.contextmanager
+def as_float32(model):
+    """Within: ``model`` in float32, its weights widened (a tensor-parallel
+    model's ranks cut anew from them) and exactly restored after."""
+    cfg = model.cfg
+    saved = {n: p.data for n, p in model.named_parameters()}
+    model.cfg = dataclasses.replace(cfg, dtype="float32")
+    for p in model.parameters():
+        p.data = p.data.float()
+    try:
+        yield model
+    finally:
+        model.cfg = cfg
+        for n, p in model.named_parameters():
+            p.data = saved[n]
+
+
+def finite_rel(torch, a, b) -> float:
+    """The relative L2 distance of ``a`` from ``b``; infinite when it is
+    not finite (a NaN then tops any ``max`` and fails every ``<=``)."""
+    r = float((a - b).norm() / b.norm().clamp_min(1e-30))
+    return r if math.isfinite(r) else math.inf
+
+
+def rows_agree(torch, got, want) -> tuple[float, float]:
+    """bf16 logits of two paths ([rows, vocab]): (the largest row error,
+    :func:`row_err`; the share of rows whose argmax agrees)."""
+    same = got.float().argmax(-1).eq(want.float().argmax(-1))
+    return row_err(got, want), same.float().mean().item()
+
+
+@contextlib.contextmanager
 def ep_drop_counter(moe):
     """Within: the assignments each expert-parallel dispatch chunk drops,
     at the send buffer's capacity and at the experts' (``moe`` is
@@ -1073,6 +1235,87 @@ def ep_drop_counter(moe):
 
 
 @contextlib.contextmanager
+def route_log(torch, moe):
+    """Within: each call of the router (``moe._route``) records its expert
+    ids [T, k] sorted per token.  Yields ``.forward``: a forward call's ids
+    and the smallest gap between a token's k-th and (k+1)-th probability
+    (one device's; None on a rank), in call order, under the calling rank's
+    (data, model) coordinates, or None outside a rank; and ``.recompute``:
+    the ids of every remat recompute inside a backward (on the autograd
+    engine's thread, outside any rank)."""
+    from repro_torch.parallel import spmd
+    log = types.SimpleNamespace(forward=collections.defaultdict(list),
+                                recompute=[])
+    real, lock = moe._route, threading.Lock()
+
+    def logged(xt, router, cfg):
+        out = real(xt, router, cfg)
+        ids = out[1].detach().sort(-1).values
+        if torch._C._current_graph_task_id() != -1:
+            with lock:
+                log.recompute.append(ids)
+            return out
+        key, gap = None, None
+        if spmd.in_rank():
+            key = tuple(spmd.axis_index(a) for a in ("data", "model"))
+        else:
+            k = cfg.moe.experts_per_token
+            with torch.no_grad():
+                top = torch.softmax(xt.float() @ router, dim=-1).topk(
+                    k + 1, dim=-1).values
+                gap = (top[:, k - 1] - top[:, k]).min()
+        with lock:
+            log.forward[key].append((ids, gap))
+        return out
+
+    moe._route = logged
+    try:
+        yield log
+    finally:
+        moe._route = real
+
+
+def remat_flips(torch, log) -> int:
+    """The top-k sets that a :func:`route_log`'s remat recomputes gave and
+    its forward calls did not, counted as multisets over every call (a
+    recompute cannot name its rank: it runs on the autograd engine's
+    thread); 0 without recomputes."""
+    if not log.recompute:
+        return 0
+    fwd = torch.cat([i for recs in log.forward.values() for i, _ in recs])
+    again = torch.cat(log.recompute).to(fwd.device)
+    base = int(torch.maximum(fwd.max(), again.max())) + 1
+    weights = base ** torch.arange(fwd.shape[-1], device=fwd.device)
+
+    def rows(ids):
+        return collections.Counter((ids * weights).sum(-1).tolist())
+
+    return sum((rows(again) - rows(fwd)).values())
+
+
+def route_flips(torch, one: list, ranks: dict, layers: int, rows: int,
+                S: int, dp: int, tp: int) -> tuple[list[int], list[float]]:
+    """From :func:`route_log`'s records of one device's forward (``one``,
+    ``rows`` x ``S`` tokens) and the (dp, tp) ranks' (``ranks``) over
+    ``layers`` MoE layers: the tokens per layer whose top-k set differs
+    from one device's (each rank's tokens: its rows of the batch, and its
+    sequence shard under Megatron-SP), and one device's smallest k-th to
+    (k+1)-th probability gap per layer."""
+    k = one[0][0].shape[-1]
+    ids = torch.cat([i for i, _ in one]).view(layers, dp, rows // dp, S, k)
+    gaps = torch.stack([g for _, g in one]).view(layers, -1).amin(1)
+    flips = [0] * layers
+    for (d, m), recs in ranks.items():
+        got = torch.cat([i for i, _ in recs]).view(layers, -1, k)
+        want = ids[:, d]
+        if got.shape[1] != want[0, :, :, 0].numel():      # Megatron-SP
+            want = want.view(layers, rows // dp, tp, S // tp, k)[:, :, m]
+        diff = (got != want.reshape(got.shape).to(got.device)).any(-1)
+        flips = [a + int(b) for a, b in zip(flips, diff.sum(1))]
+    return flips, gaps.tolist()
+
+
+@contextlib.contextmanager
 def mesh_aux(torch, lm, moe, dp: int, tp: int):
     """Within: a one-device model's MoE layers (``lm`` is
     repro_torch.models.lm, ``moe`` repro_torch.models.moe) return the aux
@@ -1080,13 +1323,13 @@ def mesh_aux(torch, lm, moe, dp: int, tp: int):
     each rank's aux on its own tokens (the batch split over dp, the
     sequence over tp under Megatron-SP, else a data group's every token on
     each of its tp ranks); their outputs are the one-device path's."""
-    real = lm.moe_block
+    real, route = lm.moe_block, moe._route
 
     def grouped(p, x, cfg, rules=None, mesh=None):
         y, _ = real(p, x, cfg)
         d = x.shape[-1]
         sp = x.shape[1] % tp == 0 and x.shape[1] > 1
-        auxs = [moe._route(xs.reshape(-1, d), p["router"], cfg)[2]
+        auxs = [route(xs.reshape(-1, d), p["router"], cfg)[2]
                 for xb in x.chunk(dp, 0)
                 for xs in (xb.chunk(tp, 1) if sp else [xb] * tp)]
         return y, torch.stack(auxs).sum() / len(auxs)
@@ -1098,26 +1341,31 @@ def mesh_aux(torch, lm, moe, dp: int, tp: int):
         lm.moe_block = real
 
 
-def tp_moe_counts(layers: int, chunks: int, ce_chunks: int, leaves: int,
-                  sync: str) -> dict:
-    """The collectives by kind of one TPStep of a MoE model without FSDP
-    on (data 2, model 4) (tests/test_torch_tp_moe.py holds the CPU ranks'
-    run to the same derivation): the sequence all-gathered before each
-    layer's attention and after the last, the embedding's and each
-    ``wo``'s partial product reduce-scattered, each with its transpose;
-    per MoE layer and dispatch chunk the router gathered whole (its
-    transpose a reduce-scatter) and again in the recompute, two token
-    all_to_alls with their transposes and one of expert ids; the aux's
-    pmean over (data, model) a layer and the loss's over data, each with
-    its transpose; the loss's pmax and psum a cross-entropy chunk (the
-    psum's transpose too); the 4L + 1 leaves replicated over model summed
-    over it and the norm's psum; the ``leaves`` summed over data (xla), or
+def tp_family_counts(layers: int, chunks: int, ce_chunks: int, leaves: int,
+                     replicated: int, sync: str) -> dict:
+    """The collectives by kind of one TPStep of a MoE (``chunks`` dispatch
+    chunks a layer) or SSM model (``chunks`` 0) without FSDP on (data 2,
+    model 4), one mixer and one FFN (or none) a layer
+    (tests/test_torch_tp_moe.py and tests/test_torch_tp_ssm.py hold the
+    CPU ranks' run to the same derivation): the sequence all-gathered
+    before each layer's mixer (attention or SSM) and after the last, the
+    embedding's and each mixer's ``wo`` partial product reduce-scattered,
+    each with its transpose; per MoE layer and dispatch chunk the router
+    gathered whole (its transpose a reduce-scatter) and again in the
+    recompute, two token all_to_alls with their transposes and one of
+    expert ids, and the aux's pmean over (data, model) with its
+    transpose; the loss's pmean over data with its transpose; the loss's
+    pmax and psum a cross-entropy chunk (the psum's transpose too); the
+    ``replicated`` leaves (those not sharded over model) summed over it
+    and the norm's psum; the ``leaves`` summed over data (xla), or
     ring-synced over its 2 ranks (two collective-permutes a leaf)."""
     L, c = layers, chunks
     out = {"all-gather": 2 * L + 2 + 2 * L * c,
            "reduce-scatter": 2 * L + 2 + L * c,
-           "all-to-all": 5 * L * c,
-           "all-reduce": 3 * ce_chunks + 4 * L + 2 + 2 + 2 * L}
+           "all-reduce": 3 * ce_chunks + replicated + 1 + 2 +
+           (2 * L if c else 0)}
+    if c:
+        out["all-to-all"] = 5 * L * c
     if sync == "xla":
         out["all-reduce"] += leaves
     else:
@@ -1180,6 +1428,10 @@ class Smoke:
         self.reports = []
         self.eager128 = None
         self.against = None     # --against: {library: another commit's csrc}
+        self.launch_futs = {}   # launch_task futures, started with the run
+        self.launch_pool = None
+        self.launch_t0 = None
+        self.launch_done = []   # their finishing times
         self.variants = {}      # tag -> a library built from edited sources
 
     # ---------------------------------------------------------- 1. build
@@ -2819,18 +3071,8 @@ class Smoke:
     def mamba_float32(self, fn):
         """``fn(model)`` on the full-width model in float32 (weights
         widened, exactly restored after)."""
-        model = self.mamba_model()
-        cfg = model.cfg
-        saved = {n: p.data for n, p in model.named_parameters()}
-        model.cfg = dataclasses.replace(cfg, dtype="float32")
-        for p in model.parameters():
-            p.data = p.data.float()
-        try:
+        with as_float32(self.mamba_model()) as model:
             return fn(model)
-        finally:
-            model.cfg = cfg
-            for n, p in model.named_parameters():
-                p.data = saved[n]
 
     def decode_and_prefill(self, model, toks, positions=None):
         """Logits of ``toks`` [1, T] decoded token by token
@@ -4228,17 +4470,23 @@ class Smoke:
 
     # ------------------------------ 27. tensor parallelism over the card
     def tp(self):
-        """danube's and granite's tensor-parallel training steps and
-        prefills over the card named 8 and 4 times, each against one
-        device; one MoE layer inside the ranks against the EP path; the
-        flash kernels at the ranks' shapes."""
+        """danube's, granite's and mamba2's tensor-parallel training steps
+        and prefills (jamba's first period's prefill) over the card named 8
+        and 4 times, each against one device; one MoE layer inside the
+        ranks against the EP path, jamba's layer 0 against one device; the
+        flash and SSD kernels at the ranks' shapes."""
         self.tp_train()
         self.tp_prefill()
-        self.tp_moe_train()
+        self.tp_family_train(TP_MOE)
         self.tp_moe_prefill()
         self.tp_moe_layer()
+        self.tp_family_train(TP_SSM)
+        self.tp_ssm_prefill()
+        self.tp_hybrid_prefill()
+        self.tp_hybrid_layer()
         self.tp_kernels()
         self.tp_moe_kernels()
+        self.tp_ssm_kernels()
 
     def tp_grads(self, model, batch):
         """One device's float32 loss and gradients (parameter order)."""
@@ -4301,8 +4549,7 @@ class Smoke:
         upd1 = [p.detach() - q for p, q in zip(one.parameters(), init)]
         del one
         torch.cuda.empty_cache()
-        rel = lambda a, b: float((a - b).norm() /           # noqa: E731
-                                 b.norm().clamp_min(1e-30))
+        rel = functools.partial(finite_rel, torch)
         for mode, fsdp in (("xla", False), ("xla", True), ("ring", False)):
             what = f"grad_sync {mode}" + (", FSDP" if fsdp else "")
             p_mode = dataclasses.replace(par, grad_sync=mode, fsdp=fsdp)
@@ -4318,8 +4565,8 @@ class Smoke:
             worst = max((rel(gather_shards([g[k] for g in grads], specs[k],
                                            mesh), g1[i]), k)
                         for i, k in enumerate(names))
+            sync_ms = self.tp_sync_ms(step, grads)
             del grads
-            sync_ms = self.tp_sync_ms(step, batch)
             opt = fresh(m)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -4347,8 +4594,9 @@ class Smoke:
                 per_rank[(rank_of.get(sid, -1), kind)] += c
             want = {(r, kind): c for r in range(n)
                     for kind, c in (("fwd", 2 * L), ("bwd", L))}
-            if worst[0] > TP_GRAD_REL_L2 or l_rel > TP_LOSS_RTOL or \
-                    n_rel > TP_LOSS_RTOL or upd[0] > TP_UPDATE_REL_L2 or \
+            if not (worst[0] <= TP_GRAD_REL_L2 and l_rel <= TP_LOSS_RTOL
+                    and n_rel <= TP_LOSS_RTOL and
+                    upd[0] <= TP_UPDATE_REL_L2) or \
                     n_fwd != 2 * L * n or n_bwd != (L * n, L * n) or \
                     dict(per_rank) != want or len(kinds) < 2:
                 fail("tp", f"{what}: calls per (rank, kind) "
@@ -4382,13 +4630,13 @@ class Smoke:
         del model, init, g1, upd1
         torch.cuda.empty_cache()
 
-    def tp_sync_ms(self, step, batch) -> float:
+    def tp_sync_ms(self, step, grads) -> float:
         """The step's gradient sync (sync_grads_tp over every rank, on the
-        gradients of ``batch``) timed with CUDA events, median of 3."""
+        ranks' ``grads`` from ``step.grads``) timed with CUDA events,
+        median of 3."""
         torch = self.torch
         from repro_torch.collectives.scheduler import sync_grads_tp
         from repro_torch.parallel import spmd
-        _, grads = step.grads(batch)
 
         def local():
             sync_grads_tp(grads[spmd.rank_index()], step.specs,
@@ -4445,7 +4693,7 @@ class Smoke:
                 model.mesh = mesh_
             last_ref = ref[:, -1, :cfg.vocab_size].float()
             del ref
-        err = (last - last_ref).abs().max().item()
+        gap = logit_gap(last, last_ref)
         per = sorted(c for (kind, _), c in calls.items() if kind == "fwd")
         hl = model.blocks[0].attn["wq"].shape[1] // n
         nk = tp_kv_heads(hl, hl * n, cfg.num_kv_heads, 0)[1]
@@ -4454,26 +4702,28 @@ class Smoke:
                 last, last_ref, atol=MODEL_ATOL, rtol=MODEL_RTOL):
             fail("tp", f"prefill: {launches} flash launches (per rank "
                        f"{per}, want {L} on each of {n}); last-token logits "
-                       f"max abs err {err} against one device")
+                       f"against one device: {gap}")
         self.launches[("tp", "prefill")] = launches
         self.rates[("tp", "prefill")] = (PREFILL_S / secs, peak)
-        say("tp", f"prefill {cfg.name} (24 layers) 1 x {PREFILL_S} on "
+        say("tp", f"prefill {cfg.name} ({L} layers) 1 x {PREFILL_S} on "
                   f"{dict(mesh.shape)}: {launches} flash launches ({per} a "
                   f"rank, {hl} q heads and {nk} KV heads a rank), "
                   f"{secs:.3f} s "
                   f"({PREFILL_S / secs:,.0f} tokens/s), last-token logits "
-                  f"max abs err {err:.4g} against the one-device flash route "
-                  f"(atol {MODEL_ATOL}, rtol {MODEL_RTOL}); peak memory "
+                  f"against the one-device flash route (atol {MODEL_ATOL}, "
+                  f"rtol {MODEL_RTOL}): {gap}; peak memory "
                   f"{peak / 2**30:.2f} GiB (the model, the ranks' blocks "
                   f"and the assembled logits); card {self.card}")
         del model, tokens, last, last_ref
         torch.cuda.empty_cache()
 
-    def tp_moe_train(self):
-        """granite at full width cut to DP_LAYERS layers, float32, on
-        TP_MESH at TP_MOE_CF: one step of the tensor-parallel
+    def tp_family_train(self, arch):
+        """``arch`` (TP_MOE or TP_SSM) at full width cut to DP_LAYERS
+        layers, float32, on TP_MESH: one step of the tensor-parallel
         make_train_step with grad_sync "xla", then "ring", each against
-        one device's step on the same tree (its aux the mesh program's)."""
+        one device's step on the same tree (a MoE model at TP_MOE_CF, its
+        aux the mesh program's), its collectives by kind against
+        tp_family_counts."""
         torch, Fa = self.torch, self.Fa
         import repro_torch.models.lm as lm_mod
         import repro_torch.models.moe as moe
@@ -4487,18 +4737,19 @@ class Smoke:
         from repro_torch.models import build_model
         from repro_torch.models.model import replicate
         from repro_torch.models.params import cast_tree
-        from repro_torch.optim import init_opt_state
+        from repro_torch.optim import adamw_update, init_opt_state
         from repro_torch.parallel import spmd
-        from repro_torch.parallel.sharding import gather_shards
+        from repro_torch.parallel.sharding import gather_shards, spec_axes
         from repro_torch.runtime import make_train_step
-        base = registry.get_config(TP_MOE)
-        cfg = dataclasses.replace(
-            base, num_layers=DP_LAYERS, dtype="float32",
-            moe=dataclasses.replace(base.moe, capacity_factor=TP_MOE_CF))
+        base = registry.get_config(arch)
+        cfg = dataclasses.replace(base, num_layers=DP_LAYERS, dtype="float32")
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=TP_MOE_CF))
         spec = next(sp for sp in LM_SHAPES if sp.name == "train_4k")
-        tcfg = dataclasses.replace(make_train_config(TP_MOE, spec),
+        tcfg = dataclasses.replace(make_train_config(arch, spec),
                                    global_batch=TP_B)
-        par = make_parallel_config(TP_MOE, "train_4k")
+        par = make_parallel_config(arch, "train_4k")
         dp, tp = TP_MESH
         n = dp * tp
         mesh = make_mesh(TP_MESH, ("data", "model"), [self.dev] * n)
@@ -4514,19 +4765,31 @@ class Smoke:
         batch = {"tokens": torch.from_numpy(toks).to(self.dev),
                  "labels": torch.from_numpy(labs).to(self.dev)}
         T = TP_B // dp * spec.seq_len // tp
-        chunks = T // min(moe.DISPATCH_CHUNK, T)
-        wi = model.blocks[0].moe["wi"]
+        chunks = T // min(moe.DISPATCH_CHUNK, T) if cfg.moe else 0
+        L = len(model.blocks)
+        n_attn = sum(model.layer_kind(i) == "attn" for i in range(L))
+        n_moe = sum("moe" in b._modules for b in model.blocks)
+        if cfg.moe is not None:
+            wi = model.blocks[0].moe["wi"]
+            what_is = (f"{cfg.moe.num_experts} experts, {wi.shape[0] // tp}"
+                       f" a rank; heads {cfg.num_heads}/{cfg.num_kv_heads} "
+                       f"of {cfg.resolved_head_dim}, vocabulary "
+                       f"{model.vocab_padded}); capacity factor "
+                       f"{TP_MOE_CF}; {T} tokens a rank, {chunks} dispatch "
+                       "chunk(s)")
+        else:
+            wz = model.blocks[0].ssm["wz"]
+            what_is = (f"{wz.shape[1]} SSM heads of {wz.shape[2]}, "
+                       f"{wz.shape[1] // tp} a rank, state "
+                       f"{cfg.ssm.d_state}; vocabulary {model.vocab_padded})"
+                       "; the plain scan (the SSD kernel is forward only)")
         say("tp", f"{cfg.name} at full width cut to {DP_LAYERS} of "
                   f"{base.num_layers} layers on {dict(mesh.shape)} (the card "
                   f"named {n} times), float32, "
-                  f"{sum(p.numel() for p in init):,} parameters "
-                  f"({cfg.moe.num_experts} experts, {wi.shape[0] // tp} a "
-                  f"rank; heads {cfg.num_heads}/{cfg.num_kv_heads} of "
-                  f"{cfg.resolved_head_dim}, vocabulary {model.vocab_padded})"
-                  f"; capacity factor {TP_MOE_CF}; remat {par.remat}; "
-                  f"SyntheticLM {TP_B} x {spec.seq_len} ({T} tokens a rank, "
-                  f"{chunks} dispatch chunk(s)); against one device's step "
-                  f"on the same tree, its aux the ranks' mean")
+                  f"{sum(p.numel() for p in init):,} parameters ({what_is}"
+                  f"; remat {par.remat}; SyntheticLM {TP_B} x "
+                  f"{spec.seq_len}; against one device's step on the same "
+                  f"tree" + (", its aux the ranks' mean" if cfg.moe else ""))
 
         def fresh(m):
             opt = init_opt_state(dict(m.named_parameters()), tcfg)
@@ -4534,15 +4797,20 @@ class Smoke:
                                                      tcfg.warmup_steps))
 
         with mesh_aux(torch, lm_mod, moe, dp, tp), \
-                moe_drop_counter(moe) as d1:
+                moe_drop_counter(moe) as d1, route_log(torch, moe) as r1:
             loss1, g1 = self.tp_grads(one, batch)
-            _, met1 = make_train_step(one, cfg, tcfg, par)(fresh(one), batch)
+        with torch.no_grad():           # one device's step on its gradients
+            _, met1 = adamw_update(dict(one.named_parameters()),
+                                   dict(zip(names, g1)), fresh(one), tcfg)
+        met1["loss"] = torch.tensor(loss1)
         lost1 = int(torch.stack(d1).sum()) if d1 else 0
         upd1 = [p.detach() - q for p, q in zip(one.parameters(), init)]
         del one
         torch.cuda.empty_cache()
-        rel = lambda a, b: float((a - b).norm() /           # noqa: E731
-                                 b.norm().clamp_min(1e-30))
+        rel = functools.partial(finite_rel, torch)
+        specs = model.param_specs()
+        replicated = sum("model" not in spec_axes(sp)
+                         for sp in specs.values())
         for mode in ("xla", "ring"):
             what = f"{cfg.name} grad_sync {mode}"
             p_mode = dataclasses.replace(par, grad_sync=mode)
@@ -4550,22 +4818,22 @@ class Smoke:
                 for p, q in zip(model.parameters(), init):
                     p.copy_(q)
             step = make_train_step(model, cfg, tcfg, p_mode, mesh)
-            with ep_drop_counter(moe) as dm:
-                loss, grads = step.grads(batch)
-            lost = int(torch.stack(dm["send"] + dm["expert"]).sum())
-            specs = model.param_specs()
-            worst = max((rel(gather_shards([g[k] for g in grads], specs[k],
-                                           mesh), g1[i]), k)
-                        for i, k in enumerate(names))
-            del grads
-            sync_ms = self.tp_sync_ms(step, batch)
             opt = fresh(model)
+            # the step's own synced gradients, held to one device's below
+            held, grads_of = {}, step.grads
+
+            def keep(b):
+                held["loss"], held["grads"] = grads_of(b)
+                return held["loss"], held["grads"]
+
+            step.grads = keep
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             Fa.flash_fwd.launches = 0                 # main path starts
             Fa.flash_bwd.launches_dq = Fa.flash_bwd.launches_dkv = 0
             spmd.TALLY.clear()
-            with flash_calls_by_stream(torch, flash_ops) as calls:
+            with flash_calls_by_stream(torch, flash_ops) as calls, \
+                    ep_drop_counter(moe) as dm, route_log(torch, moe) as rm:
                 t0 = time.time()
                 opt, met = step(opt, batch)
                 torch.cuda.synchronize()
@@ -4574,11 +4842,35 @@ class Smoke:
             n_bwd = (Fa.flash_bwd.launches_dq, Fa.flash_bwd.launches_dkv)
             kinds = spmd.TALLY.by_kind()
             peak = torch.cuda.max_memory_allocated()
+            del step.grads              # no cycle through keep: freed below
+            grads = held.pop("grads")
+            lost = int(torch.stack(dm["send"] + dm["expert"]).sum()) \
+                if dm["send"] else 0
+            worst = max((rel(gather_shards([g[k] for g in grads], specs[k],
+                                           mesh), g1[i]), k)
+                        for i, k in enumerate(names))
+            # routing: a token whose top-k set differs from one device's
+            # moves the router's gradient; one device's smallest gap
+            # between a token's k-th and (k+1)-th probability says how near
+            # a tie the routing came
+            flips, gaps = route_flips(
+                torch, r1.forward[None], rm.forward, n_moe, TP_B,
+                spec.seq_len, dp, tp) if n_moe else ([], [])
+            routing = (f"tokens whose top-k differs from one device's per "
+                       f"MoE layer {flips}, one device's smallest top-k "
+                       f"probability gap per layer "
+                       f"{[float(f'{g:.3g}') for g in gaps]}, tokens whose "
+                       f"remat recompute routed otherwise than the forward "
+                       f"{remat_flips(torch, rm)} over the ranks, "
+                       f"{remat_flips(torch, r1)} on one device; ") \
+                if n_moe else ""
+            sync_ms = self.tp_sync_ms(step, grads)
+            del grads
             upd = max((rel(p.detach() - q, u), k) for k, p, q, u in zip(
                 names, model.parameters(), init, upd1))
-            L = len(model.blocks)
-            want_kinds = tp_moe_counts(L, chunks, spec.seq_len // 1024,
-                                       len(names), mode)
+            want_kinds = tp_family_counts(
+                L, chunks, spec.seq_len // 1024, len(names), replicated,
+                mode)
             l_rel = abs(float(met["loss"]) / float(met1["loss"]) - 1)
             n_rel = abs(float(met["grad_norm"]) / float(met1["grad_norm"]) - 1)
             rank_of = {st.cuda_stream: key[0]
@@ -4587,36 +4879,42 @@ class Smoke:
             for (kind, sid), c in calls.items():
                 per_rank[(rank_of.get(sid, -1), kind)] += c
             want = {(r, kind): c for r in range(n)
-                    for kind, c in (("fwd", 2 * L), ("bwd", L))}
-            if worst[0] > TP_GRAD_REL_L2 or l_rel > TP_LOSS_RTOL or \
-                    n_rel > TP_LOSS_RTOL or upd[0] > TP_UPDATE_REL_L2 or \
-                    n_fwd != 2 * L * n or n_bwd != (L * n, L * n) or \
+                    for kind, c in (("fwd", 2 * n_attn), ("bwd", n_attn))
+                    if c}
+            if not (worst[0] <= TP_GRAD_REL_L2 and l_rel <= TP_LOSS_RTOL
+                    and n_rel <= TP_LOSS_RTOL and
+                    upd[0] <= TP_UPDATE_REL_L2) or \
+                    n_fwd != 2 * n_attn * n or \
+                    n_bwd != (n_attn * n, n_attn * n) or \
                     dict(per_rank) != want or kinds != want_kinds or \
                     lost or lost1:
-                fail("tp", f"{what}: calls per (rank, kind) "
+                fail("tp", f"{what}: {routing}calls per (rank, kind) "
                            f"{dict(per_rank)}; worst gradient {worst}, losses "
                            f"{float(met['loss'])} / {float(met1['loss'])}, "
                            f"norms {float(met['grad_norm'])} / "
                            f"{float(met1['grad_norm'])}, worst update {upd};"
                            f" flash launches {n_fwd} forward, {n_bwd} "
-                           f"backward (want {2 * L * n}, {L * n}); "
-                           f"collectives {kinds} (want {want_kinds}); "
-                           f"assignments dropped {lost} over the ranks, "
-                           f"{lost1} on one device")
+                           f"backward (want {2 * n_attn * n}, "
+                           f"{n_attn * n}); collectives {kinds} (want "
+                           f"{want_kinds}); assignments dropped {lost} over "
+                           f"the ranks, {lost1} on one device")
             self.launches[("tp", what)] = (n_fwd,) + n_bwd
             self.rates[("tp", what)] = (ms, sync_ms, peak)
+            flash = (f"flash {n_fwd} forward, {n_bwd[0]} dq, {n_bwd[1]} "
+                     f"dk/dv launches (the float32 kernels; {2 * n_attn} "
+                     f"forward and {n_attn} backward calls on each rank's "
+                     "stream)") if n_attn else "no attention layer"
             say("tp", f"{what}: loss {float(met['loss']):.6f} (one device "
                       f"{float(met1['loss']):.6f}, {l_rel:.2g} rel), grad "
                       f"norm {float(met['grad_norm']):.6f} ({n_rel:.2g} "
                       f"rel), worst gradient {worst[0]:.3g} rel L2 "
                       f"({worst[1]}; tolerance {TP_GRAD_REL_L2}), worst "
                       f"update {upd[0]:.3g} ({upd[1]}; tolerance "
-                      f"{TP_UPDATE_REL_L2}); no assignment dropped; "
-                      f"collectives {kinds}, the CPU ranks' derivation "
-                      f"(tp_moe_counts); flash {n_fwd} forward, {n_bwd[0]} "
-                      f"dq, {n_bwd[1]} dk/dv launches (the float32 D-64 "
-                      f"kernels; {2 * L} forward and {L} backward calls on "
-                      f"each rank's stream); {ms:.1f} ms a step ("
+                      f"{TP_UPDATE_REL_L2}); "
+                      + ("no assignment dropped; " if cfg.moe else "")
+                      + routing
+                      + f"collectives {kinds}, the CPU ranks' derivation "
+                      f"(tp_family_counts); {flash}; {ms:.1f} ms a step ("
                       f"{TP_B * spec.seq_len / ms * 1e3:,.0f} tokens/s), the "
                       f"sync {sync_ms:.1f} ms; peak memory "
                       f"{peak / 2**30:.2f} GiB; card {self.card}")
@@ -4626,7 +4924,8 @@ class Smoke:
         torch.cuda.empty_cache()
 
     def tp_moe_prefill(self):
-        """granite's 24 layers at full width prefilling 1 x PREFILL_S
+        """granite at full width cut to TP_MOE_PREFILL_LAYERS layers
+        prefilling 1 x PREFILL_S
         tokens on TP_PREFILL_MESH through the flash forward at a rank's
         heads, against the one-device flash route on the same tree; each
         layer's dropped assignments on both sides."""
@@ -4637,7 +4936,8 @@ class Smoke:
         from repro_torch.launch.mesh import make_mesh
         from repro_torch.models import build_model
         from repro_torch.models.attention import tp_kv_heads
-        cfg = registry.get_config(TP_MOE)
+        cfg = dataclasses.replace(registry.get_config(TP_MOE),
+                                  num_layers=TP_MOE_PREFILL_LAYERS)
         n = TP_PREFILL_MESH[0] * TP_PREFILL_MESH[1]
         mesh = make_mesh(TP_PREFILL_MESH, ("data", "model"), [self.dev] * n)
         torch.cuda.synchronize()
@@ -4675,14 +4975,14 @@ class Smoke:
         kept = per_layer(torch, dm["expert"], L)
         mesh_drops = [a + b for a, b in zip(sent, kept)]
         one_drops = per_layer(torch, d1, L)
-        err = (last - last_ref).abs().max().item()
+        gap = logit_gap(last, last_ref)
         per = sorted(c for (kind, _), c in calls.items() if kind == "fwd")
         if launches != L * n or per != [L] * n or not torch.allclose(
                 last, last_ref, atol=MODEL_ATOL, rtol=MODEL_RTOL) or \
                 not math.isfinite(float(aux)):
             fail("tp", f"{cfg.name} prefill: {launches} flash launches (per "
                        f"rank {per}, want {L} on each of {n}); last-token "
-                       f"logits max abs err {err} against one device; aux "
+                       f"logits against one device: {gap}; aux "
                        f"{float(aux)}")
         self.launches[("tp", "granite prefill")] = launches
         self.rates[("tp", "granite prefill")] = (PREFILL_S / secs, peak)
@@ -4691,9 +4991,9 @@ class Smoke:
                   f"{dict(mesh.shape)}: {launches} flash launches ({per} a "
                   f"rank, {hl} q heads and {nk} KV heads a rank), "
                   f"{secs:.3f} s ({PREFILL_S / secs:,.0f} tokens/s), "
-                  f"last-token logits max abs err {err:.4g} against the "
-                  f"one-device flash route (atol {MODEL_ATOL}, rtol "
-                  f"{MODEL_RTOL}); aux {float(aux):.6g} (ranks' mean) vs "
+                  f"last-token logits against the one-device flash route "
+                  f"(atol {MODEL_ATOL}, rtol {MODEL_RTOL}): {gap}; aux "
+                  f"{float(aux):.6g} (ranks' mean) vs "
                   f"{float(aux1):.6g} (one device); of {n_assign:,} "
                   f"assignments a layer, dropped over the ranks (send + "
                   f"experts) {mesh_drops}, on one device {one_drops} "
@@ -4769,6 +5069,307 @@ class Smoke:
                       f"both; {1e3 * secs:.1f} ms (wall); card {self.card}")
             del got, want
         del x
+
+    def tp_ssm_prefill(self):
+        """mamba2's 24 layers at full width prefilling 1 x PREFILL_S tokens
+        on TP_PREFILL_MESH through the SSD kernel at a rank's heads, in
+        float32 and in bf16, each against the one-device route (the SSD
+        kernel on all heads) on the same tree."""
+        torch, Sd = self.torch, self.Sd
+        import repro_torch.models.ssm as ssm_mod
+        from repro_torch.configs import registry
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.models import build_model
+        cfg = registry.get_config(TP_SSM)
+        n = TP_PREFILL_MESH[0] * TP_PREFILL_MESH[1]
+        mesh = make_mesh(TP_PREFILL_MESH, ("data", "model"), [self.dev] * n)
+        model = build_model(cfg, use_ssd_kernel=True, seed=0, mesh=mesh)
+        tokens = self.family_tokens(cfg, 1, PREFILL_S)
+        L, V = cfg.num_layers, cfg.vocab_size
+        heads = model.blocks[0].ssm["wz"].shape[1]
+
+        def run(m):
+            """(rows TP_ROWS of the ranks' logits, of one device's; SSD
+            launches and calls per stream of the ranks' prefill; its
+            seconds and peak)."""
+            with torch.no_grad():
+                m.apply(tokens[:, :1024])     # the ranks' blocks, warm
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                Sd.ssd_chunked.launches = 0           # main path starts
+                with ssd_calls_by_stream(torch, ssm_mod) as calls:
+                    t0 = time.time()
+                    logits, _ = m.apply(tokens)
+                    torch.cuda.synchronize()
+                    secs = time.time() - t0
+                launches = Sd.ssd_chunked.launches    # main path ends
+                peak = torch.cuda.max_memory_allocated()
+                rows = logits[0, TP_ROWS, :V].float()
+                del logits
+                m._ranks = None
+                mesh_, m.mesh = m.mesh, None  # one device, same tree
+                try:
+                    ref, _ = m.apply(tokens)
+                finally:
+                    m.mesh = mesh_
+                ref_rows = ref[0, TP_ROWS, :V].float()
+                del ref
+            return rows, ref_rows, launches, sorted(calls.values()), secs, \
+                peak
+
+        with as_float32(model) as m32:
+            rows, ref_rows, launches, per, secs, peak = run(m32)
+        err = (rows - ref_rows).abs().max().item()
+        ok32 = bool(torch.isfinite(rows).all()) and torch.allclose(
+            rows, ref_rows, atol=F32_ATOL, rtol=F32_RTOL)
+        if launches != L * n or per != [L] * n or not ok32:
+            fail("tp", f"{cfg.name} prefill in float32: {launches} SSD "
+                       f"launches (per rank {per}, want {L} on each of {n});"
+                       f" logits max abs err {err} against one device")
+        self.launches[("tp", "mamba2 prefill")] = launches
+        self.rates[("tp", "mamba2 prefill")] = (PREFILL_S / secs, peak)
+        say("tp", f"prefill {cfg.name} ({L} layers) 1 x {PREFILL_S} on "
+                  f"{dict(mesh.shape)} in float32: {launches} SSD launches "
+                  f"({per} a rank, {heads // n} of {heads} heads a rank), "
+                  f"{secs:.3f} s ({PREFILL_S / secs:,.0f} tokens/s), "
+                  f"{rows.shape[0]} rows of logits max abs err {err:.3g} "
+                  f"against the one-device kernel route (|logit| max "
+                  f"{ref_rows.abs().max().item():.4g}; atol {F32_ATOL}, "
+                  f"rtol {F32_RTOL}); peak memory {peak / 2**30:.2f} GiB; "
+                  f"card {self.card}")
+        rows, ref_rows, launches, per, secs, peak = run(model)
+        worst, same = rows_agree(torch, rows, ref_rows)
+        if launches != L * n or per != [L] * n or worst > ROW_TOL or \
+                same < 1 or not bool(torch.isfinite(rows).all()):
+            fail("tp", f"{cfg.name} prefill in bf16: {launches} SSD launches"
+                       f" (per rank {per}); worst row error {worst} "
+                       f"(tolerance {ROW_TOL}), argmax agrees on {same:.1%}"
+                       " of the rows")
+        say("tp", f"prefill {cfg.name} in bf16 on {dict(mesh.shape)}: "
+                  f"{launches} SSD launches ({per} a rank), {secs:.3f} s "
+                  f"({PREFILL_S / secs:,.0f} tokens/s); {rows.shape[0]} rows"
+                  f" of logits against one device: worst row error "
+                  f"{worst:.3g} of the row's max |logit| (tolerance "
+                  f"{ROW_TOL}), argmax agrees on {same:.0%}; peak memory "
+                  f"{peak / 2**30:.2f} GiB; card {self.card}")
+        del model, tokens, rows, ref_rows
+        torch.cuda.empty_cache()
+
+    def tp_hybrid_prefill(self):
+        """jamba's first period at full width (the jamba phase's model,
+        drawn anew from seed 0 if that phase freed it) prefilling 1 x
+        PREFILL_S tokens in bf16 on TP_PREFILL_MESH with the flash and SSD
+        kernels at a rank's heads, against the one-device kernel route on
+        the same tree: rows TP_ROWS by row error and argmax, drops per MoE
+        layer on both sides at the config's capacity factor."""
+        torch, Fa, Sd = self.torch, self.Fa, self.Sd
+        import repro_torch.models.moe as moe
+        import repro_torch.models.ssm as ssm_mod
+        from repro_torch.kernels.flash_attention import ops as flash_ops
+        from repro_torch.launch.mesh import make_mesh
+        # two copies of jamba's 26 GB of weights need the room: the other
+        # families' models go (later phases draw them anew from seed 0)
+        self.danube = self.granite = self.mamba_lm = None
+        torch.cuda.empty_cache()
+        model = self.jamba_model()
+        cfg = model.cfg
+        L, V = cfg.num_layers, cfg.vocab_size
+        n_attn = sum(model.layer_kind(i) == "attn" for i in range(L))
+        n_moe = sum("moe" in b._modules for b in model.blocks)
+        n = TP_PREFILL_MESH[0] * TP_PREFILL_MESH[1]
+        mesh = make_mesh(TP_PREFILL_MESH, ("data", "model"), [self.dev] * n)
+        tokens = self.family_tokens(cfg, 1, PREFILL_S)
+        # one device first: its rows kept before the ranks' blocks (a
+        # second copy of the 26 GB of weights) are cut
+        with torch.no_grad(), moe_drop_counter(moe) as d1:
+            ref, aux1 = model.apply(tokens)
+            ref_rows = ref[0, TP_ROWS, :V].float()
+            del ref
+        one_drops = per_layer(torch, d1, n_moe)
+        tpm = on_mesh(model, mesh)
+        with torch.no_grad():
+            tpm.apply(tokens[:, :1024])       # the ranks' blocks, warm
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            Fa.flash_fwd.launches = 0                 # main path starts
+            Sd.ssd_chunked.launches = 0
+            with flash_calls_by_stream(torch, flash_ops) as fcalls, \
+                    ssd_calls_by_stream(torch, ssm_mod) as scalls, \
+                    ep_drop_counter(moe) as dm:
+                t0 = time.time()
+                logits, aux = tpm.apply(tokens)
+                torch.cuda.synchronize()
+                secs = time.time() - t0
+            nf, ns = Fa.flash_fwd.launches, Sd.ssd_chunked.launches  # ends
+            peak = torch.cuda.max_memory_allocated()
+            rows = logits[0, TP_ROWS, :V].float()
+            del logits
+        tpm._ranks = None
+        del tpm
+        torch.cuda.empty_cache()
+        fper = sorted(c for (kind, _), c in fcalls.items() if kind == "fwd")
+        sper = sorted(scalls.values())
+        sent = per_layer(torch, dm["send"], n_moe)
+        kept = per_layer(torch, dm["expert"], n_moe)
+        mesh_drops = [a + b for a, b in zip(sent, kept)]
+        worst, same = rows_agree(torch, rows, ref_rows)
+        n_ssm = L - n_attn
+        if (nf, ns) != (n_attn * n, n_ssm * n) or fper != [n_attn] * n or \
+                sper != [n_ssm] * n or worst > ROW_TOL or same < 1 or \
+                not bool(torch.isfinite(rows).all()) or \
+                not math.isfinite(float(aux)):
+            fail("tp", f"{cfg.name} prefill: {nf} flash and {ns} SSD "
+                       f"launches (per rank {fper} and {sper}, want "
+                       f"{n_attn} and {n_ssm} on each of {n}); worst row "
+                       f"error {worst} (tolerance {ROW_TOL}), argmax agrees"
+                       f" on {same:.1%} of the rows; aux {float(aux)}")
+        self.launches[("tp", "jamba prefill")] = (nf, ns)
+        self.rates[("tp", "jamba prefill")] = (PREFILL_S / secs, peak)
+        wz = model.blocks[0].ssm["wz"]
+        n_assign = PREFILL_S * cfg.moe.experts_per_token
+        say("tp", f"prefill {cfg.name} (one period, {L} layers) 1 x "
+                  f"{PREFILL_S} on {dict(mesh.shape)}, bf16: {nf} flash and "
+                  f"{ns} SSD launches ({fper} and {sper} a rank; "
+                  f"{cfg.num_heads // n} q heads, {wz.shape[1] // n} SSM "
+                  f"heads and {cfg.moe.num_experts // n} experts a rank), "
+                  f"{secs:.3f} s ({PREFILL_S / secs:,.0f} tokens/s); "
+                  f"{rows.shape[0]} rows of logits against the one-device "
+                  f"kernel route: worst row error {worst:.3g} of the row's "
+                  f"max |logit| (tolerance {ROW_TOL}), argmax agrees on "
+                  f"{same:.0%}; aux {float(aux):.6g} (ranks' mean) vs "
+                  f"{float(aux1):.6g} (one device); of {n_assign:,} "
+                  f"assignments a MoE layer, dropped over the ranks (send + "
+                  f"experts) {mesh_drops}, on one device {one_drops} "
+                  f"(capacity {cfg.moe.capacity_factor}); peak memory "
+                  f"{peak / 2**30:.2f} GiB (both copies of the weights); "
+                  f"card {self.card}")
+        del tokens, rows, ref_rows
+
+    def tp_hybrid_layer(self):
+        """jamba's layer 0 (an SSM layer and an MLP) at full width in
+        float32 on 1 x PREFILL_S N(0,1) tokens: the tensor-parallel rank's
+        program inside the ranks of TP_PREFILL_MESH (the SSM mixer on the
+        rank's heads through the SSD kernel, the column- and row-parallel
+        MLP, each partial product summed over model) against one device,
+        within TP_LAYER_REL_L2; then the jamba model is freed."""
+        torch, Sd = self.torch, self.Sd
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.models.layers import apply_mlp, apply_norm
+        from repro_torch.models.ssm import ssm_block
+        from repro_torch.parallel import spmd
+        model = self.jamba_model()
+        cfg = dataclasses.replace(model.cfg, dtype="float32")
+        n = TP_PREFILL_MESH[0] * TP_PREFILL_MESH[1]
+        mesh = make_mesh(TP_PREFILL_MESH, ("data", "model"), [self.dev] * n)
+        specs = on_mesh(model, mesh).param_specs()
+        bp = model.blocks[0]
+        subs = ("ln1", "ssm", "ln2", "mlp")
+        p = {sub: {k: v.detach().float() for k, v in bp._modules[sub].items()}
+             for sub in subs}
+        in_specs = {sub: {k: specs[f"blocks.0.{sub}.{k}"] for k in p[sub]}
+                    for sub in subs}
+        g = torch.Generator(device=self.dev).manual_seed(7)
+        x = torch.randn(1, PREFILL_S, cfg.d_model, generator=g,
+                        device=self.dev)
+
+        def layer(q, h, total=lambda t: t):
+            h = h + total(ssm_block(q["ssm"], apply_norm(q["ln1"], h, cfg),
+                                    cfg, True))
+            return h + total(apply_mlp(q["mlp"], apply_norm(q["ln2"], h, cfg),
+                                       cfg))
+
+        inside = spmd.shard_map(
+            lambda q, h: layer(q, h, lambda t: spmd.psum(t, "model")),
+            mesh=mesh, in_specs=(in_specs, spmd.P()), out_specs=spmd.P())
+        saved = Sd.ssd_chunked.launches
+        with torch.no_grad():
+            want = layer(p, x)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            got = inside(p, x)
+            torch.cuda.synchronize()
+            secs = time.time() - t0
+        calls = Sd.ssd_chunked.launches - saved - 1
+        Sd.ssd_chunked.launches = saved
+        rel = float((got - want).norm() / want.norm())
+        if rel > TP_LAYER_REL_L2 or calls != n or \
+                not bool(torch.isfinite(got).all()):
+            fail("tp", f"{cfg.name} layer 0 inside the ranks in float32: rel"
+                       f" L2 {rel} against one device (tolerance "
+                       f"{TP_LAYER_REL_L2}); {calls} SSD calls (want {n})")
+        say("tp", f"{cfg.name} layer 0 (SSM, {p['ssm']['wz'].shape[1] // n} "
+                  f"of {p['ssm']['wz'].shape[1]} heads a rank, and an MLP of "
+                  f"{p['mlp']['wo'].shape[0] // n} of "
+                  f"{p['mlp']['wo'].shape[0]} columns a rank) inside the "
+                  f"ranks of {dict(mesh.shape)} in float32 on 1 x "
+                  f"{PREFILL_S} N(0,1) tokens: rel L2 {rel:.3g} against one "
+                  f"device (tolerance {TP_LAYER_REL_L2}); {calls} SSD calls;"
+                  f" {1e3 * secs:.1f} ms (wall); card {self.card}")
+        del p, x, got, want
+        # 26 GB of weights: gone before the launch phase
+        self.jamba_lm = None
+        del model, bp
+        torch.cuda.empty_cache()
+
+    def tp_ssm_kernels(self):
+        """The SSD kernel at the model-4 ranks' shapes of the mamba2 and
+        jamba prefills, and the flash forward at jamba's rank shape (8 q
+        heads, 2 KV heads, D 128, causal): each held to its plain version
+        on the same inputs (SSD at SSD_TOL, flash as the flash phase holds
+        the main shape) and timed beside it, with its bound (flash also
+        beside one causal SDPA call)."""
+        torch, Fa = self.torch, self.Fa
+        from repro_torch.models.attention import (flash_or_ref,
+                                                  ref_attention_chunked)
+        n = TP_PREFILL_MESH[0] * TP_PREFILL_MESH[1]
+        for (B, S, H, P, N, Q), who in ((SSD_MAIN, "tp rank mamba2"),
+                                        (JAMBA_SSD, "tp rank jamba")):
+            self.timing_ssd((1, S, H // n, P, N, Q), model=who, phase="tp")
+        hq, hkv, D, item, Sp = 32 // n, 8 // n, 128, 2, PREFILL_S
+        q, k, v = self.attn_inputs(1, hq, hkv, Sp, D, "bfloat16")
+        views = [x.transpose(1, 2) for x in (q, k, v)]
+        saved = Fa.flash_fwd.launches
+        k_dev, k_wall = timed(lambda: Fa.flash_fwd(*views), 10, torch)
+        o, lse = Fa.flash_fwd(*views)
+        Fa.flash_fwd.launches = saved
+        pos = torch.arange(Sp, device=self.dev)[None]
+        # the kernel against the chunked plain attention and lse in float32
+        # on the same values, as the flash phase holds danube's main shape
+        kf = k.float()
+        o_ref = ref_attention_chunked(q.float(), kf, v.float(), pos, pos)
+        l_ref = chunked_lse(torch, q.float(), kf, 0, 1 / math.sqrt(D))
+        ok, eo, msg = self.attn_close(o.transpose(1, 2), lse.transpose(1, 2),
+                                      o_ref, l_ref, *FLASH_TOL["bfloat16"])
+        self.max_err["flash_fwd"] = max(self.max_err["flash_fwd"], eo)
+        name = (f"flash forward at jamba's rank shape (heads {hq}/{hkv}, "
+                f"D={D}, S={Sp}, causal, bf16)")
+        if not ok:
+            fail("tp", f"{name} against its plain version: {msg}")
+        say("tp", f"{name} against the chunked plain version in float32: "
+                  f"max abs err {msg} (tolerance o {FLASH_TOL['bfloat16'][0]}"
+                  f", lse {FLASH_TOL['bfloat16'][1]}, row {ROW_TOL}, lse abs "
+                  f"{LSE_ABS})")
+        del o, lse, o_ref, l_ref, kf
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        flash_or_ref(q, k, v, pos, pos)
+        b.record()
+        torch.cuda.synchronize()
+        p_ms = a.elapsed_time(b)
+        lib = self.sdpa_ms(q, k, v, 0)
+        self.report(f"tp rank jamba S={Sp}", "flash_fwd", "flash_fwd.cu",
+                    "src/repro/kernels/flash_attention/kernel.py:44",
+                    k_dev, k_wall, p_ms, p_ms,
+                    item * Sp * D * (2 * hq + 2 * hkv) + 4 * hq * Sp,
+                    4 * D * (Sp * (Sp + 1) // 2) * hq, 1,
+                    peak=BF16_OPS_PER_S, library_ms=lib,
+                    note=f"(jamba's model-4 rank: BH={hq}, KV heads {hkv}, "
+                         f"D={D}, causal, no window, bf16; plain: one call "
+                         "of the chunked plain version; library: "
+                         "is_causal=True)")
+        del q, k, v, views
+        torch.cuda.empty_cache()
 
     def tp_kernels(self):
         """The flash kernels at a tensor-parallel rank's shapes (danube at
@@ -4950,9 +5551,8 @@ class Smoke:
 
     # ------------------------------------- 28. launch: cells and dry-run
     def launch(self):
-        """The dry-run's records and its predictions held to the card."""
-        import concurrent.futures as cf
-        import multiprocessing
+        """The dry-run's records and its predictions held to the card (their
+        meta runs started with the run: :meth:`start_launch`)."""
         torch = self.torch
         from repro_torch.configs import registry
         smi = subprocess.run(
@@ -4968,63 +5568,51 @@ class Smoke:
                            f"judges fits against HBM_BYTES {HBM_BYTES:,}")
         say("launch", f"card {card}; {torch.cuda.get_device_name(0)}, "
                       f"{total:,} bytes, equal to the dry-run's HBM_BYTES")
-        # the meta-device work runs in worker processes meanwhile; the
-        # longest first
-        preds = {"prefill": ("predict", "h2o_danube_3_4b", "prefill_32k",
-                             (16, 1), None),
-                 "train": ("predict", "h2o_danube_3_4b", "train_4k",
-                           (16, 1), 2),
-                 "decode": ("predict", "mamba2_130m", "decode_32k", (1, 1),
-                            None),
-                 "tp": ("predict",) + TP_LAUNCH,
-                 "tp_moe": ("predict",) + TP_LAUNCH_MOE}
-        # mamba2's prefill and train records take longest on meta, then
-        # the predictions the card runs below wait for
-        records = [("record", "mamba2_130m", s, mp)
-                   for s in ("prefill_32k", "train_4k")
-                   for mp in (False, True)] + list(preds.values()) + [
-            ("record", a, s, mp) for a in LAUNCH_ARCHS
-            for s in ("prefill_32k", "train_4k", "decode_32k", "long_500k")
-            for mp in (False, True)
-            if (a, s) not in (("mamba2_130m", "prefill_32k"),
-                              ("mamba2_130m", "train_4k"))]
-        t0 = time.time()
-        workers = max(1, min(8, (os.cpu_count() or 2) - 1))
-        with cf.ProcessPoolExecutor(
-                workers, mp_context=multiprocessing.get_context("spawn"),
-                initializer=os.nice, initargs=(10,)) as pool:
-            futs = {t: pool.submit(launch_task, t) for t in records}
-            self.launch_prefill(futs[preds["prefill"]])
-            self.launch_train(futs[preds["train"]])
-            self.launch_decode(futs[preds["decode"]])
-            self.launch_partitioned(futs[preds["tp"]], TP_LAUNCH)
-            self.launch_partitioned(futs[preds["tp_moe"]], TP_LAUNCH_MOE)
-            for t in records:
-                if t[0] != "record":
-                    continue
-                r = futs[t].result()
-                mem = r["memory"]
-                say("launch", f"dry-run {t[1]}/{t[2]}/"
-                              f"{'multi' if t[3] else 'single'} "
-                              f"{r['mesh']}: "
-                              f"{mem['per_device_total'] / 2**30:.2f} GiB a "
-                              f"device (argument "
-                              f"{mem['argument'] / 2**30:.2f}, temp "
-                              f"{mem['temp'] / 2**30:.2f}; fits: "
-                              f"{mem['fits_h100']}), "
-                              f"{r['flops_per_device'] / 1e12:.3f} TFLOP, "
-                              f"t_compute {1e3 * r['t_compute']:.3f} ms, "
-                              f"t_memory {1e3 * r['t_memory']:.3f} ms, "
-                              f"t_collective "
-                              f"{1e3 * r['t_collective']:.3f} ms "
-                              f"({r['run_s']} s on meta)")
+        futs = self.launch_futs
+        self.launch_prefill(futs[LAUNCH_PREDS["prefill"]])
+        self.launch_train(futs[LAUNCH_PREDS["train"]])
+        self.launch_decode(futs[LAUNCH_PREDS["decode"]])
+        self.launch_partitioned(futs[LAUNCH_PREDS["tp"]], TP_LAUNCH)
+        self.launch_partitioned(futs[LAUNCH_PREDS["tp_moe"]], TP_LAUNCH_MOE)
+        self.launch_partitioned(futs[LAUNCH_PREDS["tp_hybrid"]],
+                                TP_LAUNCH_HYBRID)
+        for t in LAUNCH_RECORDS:
+            r = futs[t].result()
+            mem = r["memory"]
+            say("launch", f"dry-run {t[1]}/{t[2]}/"
+                          f"{'multi' if t[3] else 'single'} {r['mesh']}: "
+                          f"{mem['per_device_total'] / 2**30:.2f} GiB a "
+                          f"device (argument {mem['argument'] / 2**30:.2f}, "
+                          f"temp {mem['temp'] / 2**30:.2f}; fits: "
+                          f"{mem['fits_h100']}), "
+                          f"{r['flops_per_device'] / 1e12:.3f} TFLOP, "
+                          f"t_compute {1e3 * r['t_compute']:.3f} ms, "
+                          f"t_memory {1e3 * r['t_memory']:.3f} ms, "
+                          f"t_collective {1e3 * r['t_collective']:.3f} ms "
+                          f"({r['run_s']} s on meta)")
         n_cells = sum(1 for a, _, skip in registry.all_cells()
                       if a in LAUNCH_ARCHS and not skip)
-        say("launch", f"{2 * n_cells} dry-run records and {len(preds)} "
-                      f"predictions in "
-                      f"{time.time() - t0:.1f} s ({workers} workers); "
-                      f"constants: NVIDIA H100 80GB HBM3 spec sheet; card "
-                      f"{card}")
+        say("launch", f"{2 * n_cells} dry-run records and "
+                      f"{len(LAUNCH_PREDS)} predictions in {LAUNCH_WORKERS} "
+                      f"workers started with the run, all done "
+                      f"{max(self.launch_done) - self.launch_t0:.1f} s after "
+                      f"it started; constants: NVIDIA H100 80GB HBM3 spec "
+                      f"sheet; card {card}")
+
+    def start_launch(self):
+        """LAUNCH_PREDS' and LAUNCH_RECORDS' meta runs, submitted in that
+        order to LAUNCH_WORKERS worker processes at nice 19 when the run
+        starts; each future's finishing time goes to ``launch_done``."""
+        import concurrent.futures as cf
+        import multiprocessing
+        self.launch_pool = cf.ProcessPoolExecutor(
+            LAUNCH_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+            initializer=os.nice, initargs=(19,))
+        self.launch_t0 = time.time()
+        for t in tuple(LAUNCH_PREDS.values()) + LAUNCH_RECORDS:
+            self.launch_futs[t] = self.launch_pool.submit(launch_task, t)
+            self.launch_futs[t].add_done_callback(
+                lambda _: self.launch_done.append(time.time()))
 
     def launch_run(self, cell, args, count: bool = True, lone=None):
         """``cell.fn`` on ``args`` once (under FlopCounterMode with
@@ -5079,6 +5667,9 @@ class Smoke:
         mesh = make_mesh(mesh_shape, ("data", "model"),
                          [self.dev] * (mesh_shape[0] * mesh_shape[1]))
         cell = build_cell(arch, shape, mesh, depth_override=depth)
+        # earlier phases' garbage freed first: a reference cycle collected
+        # during the run would lower the peak read above this base
+        gc.collect()
         torch.cuda.synchronize()
         self.launch_base = torch.cuda.memory_allocated()
         t0 = time.time()
@@ -5099,7 +5690,7 @@ class Smoke:
         from repro_torch.launch.dryrun import PEAK_FLOPS
         torch, Fa = self.torch, self.Fa
         cell, pred, args = self.launch_cell("h2o_danube_3_4b", "prefill_32k",
-                                            (16, 1), None, fut)
+                                            LAUNCH_PREFILL_MESH, None, fut)
         t0 = time.time()
         plain, flops, peak = self.launch_run(cell, args)
         secs = time.time() - t0
@@ -5117,16 +5708,16 @@ class Smoke:
         finally:
             cell.model.use_flash = False
         n = Fa.flash_fwd.launches
-        err = (flash.float() - plain.float()).abs().max().item()
+        gap = logit_gap(flash.float(), plain.float())
         if n != cell.model.cfg.num_layers or not torch.allclose(
                 flash.float(), plain.float(), atol=MODEL_ATOL,
                 rtol=MODEL_RTOL):
             fail("launch", f"flash route: {n} launches, last-token logits "
-                           f"max abs err {err} against the plain route")
+                           f"against the plain route: {gap}")
         say("launch", f"danube prefill_32k through use_flash: {n} flash "
-                      f"launches, last-token logits max abs err {err:.4g} "
-                      f"against the plain route (atol {MODEL_ATOL}, rtol "
-                      f"{MODEL_RTOL}); card {self.card}")
+                      f"launches, last-token logits against the plain route "
+                      f"(atol {MODEL_ATOL}, rtol {MODEL_RTOL}): {gap}; card "
+                      f"{self.card}")
         del args, plain, flash
 
     def launch_train(self, fut):
@@ -5163,10 +5754,10 @@ class Smoke:
         del args, params, opt, batch, before, leaves
 
     def launch_partitioned(self, fut, which):
-        """A partitioned record (``which``: TP_LAUNCH, TP_LAUNCH_MOE): one
-        rank's program alone on the card, on its blocks of the args,
-        against the meta prediction (flops equal, peak within
-        TP_LAUNCH_BAND)."""
+        """A partitioned record (``which``: TP_LAUNCH, TP_LAUNCH_MOE,
+        TP_LAUNCH_HYBRID): one rank's program alone on the card, on its
+        blocks of the args, against the meta prediction (flops equal, peak
+        within TP_LAUNCH_BAND)."""
         torch = self.torch
         from repro_torch.launch.steps import make_train_config
         arch, shape, mesh_shape, depth = which
@@ -5179,7 +5770,10 @@ class Smoke:
                            "partitioned")
         params, opt, batch = args
         opt.step.fill_(make_train_config(cell.arch, cell.shape).warmup_steps)
-        wq = params["blocks"]["0"]["attn"]["wq"]
+        mixer = params["blocks"]["0"].get("attn") or \
+            params["blocks"]["0"]["ssm"]
+        leaf = "wq" if "wq" in mixer else "wz"
+        wq = mixer[leaf]
         (params, opt, metrics), _, peak = self.launch_run(
             cell, args, count=False, lone=mesh)
         loss = metrics["loss"].item()
@@ -5188,7 +5782,7 @@ class Smoke:
         _, flops, _ = self.launch_run(cell, args, lone=mesh)
         rel = self.launch_hold(
             f"{arch} {shape} depth {depth}, one rank of {mesh_shape} alone "
-            f"(its blocks: wq {tuple(wq.shape)}, tokens "
+            f"(its blocks: layer 0's {leaf} {tuple(wq.shape)}, tokens "
             f"{tuple(batch['tokens'].shape)}, accum {cell.accum})", pred,
             flops, peak, band=TP_LAUNCH_BAND)
         self.rates[("tp", "launch", arch)] = (rel, peak, pred)
@@ -5747,25 +6341,46 @@ class Smoke:
                           f"{tps:,.0f} tokens/s, peak memory "
                           f"{peak / 2**30:.2f} GiB; card {self.card}")
 
-    def timing_ssd(self, shape=SSD_MAIN, model="mamba2"):
+    def timing_ssd(self, shape=SSD_MAIN, model="mamba2", phase=None):
         """The SSD kernels at a prefill's shape (the main path's, SSD_MAIN,
         by default; jamba's too), B/C bf16, strided [B, H, S, P] views of
         [B, S, H, P] as ops.ssd passes them, and its plain version on
-        [B*H, S, P] copies; with ``--against`` the ssd.cu of another commit
-        timed beside them at the main shape (:meth:`ssd_against`).  No
-        single PyTorch call computes the scan: no library time."""
+        [B*H, S, P] copies; with ``phase`` the kernels' y and final state
+        held to the plain version's (:meth:`ssd_close`), failing that
+        phase; with ``--against`` the ssd.cu of another commit timed
+        beside them at the main shape (:meth:`ssd_against`).  No single
+        PyTorch call computes the scan: no library time."""
         torch, Sd = self.torch, self.Sd
         B, S, H, P, N, Q = shape
         x, a, Bm, Cm = self.ssd_case(B, S, H, P, N, "bfloat16")
         xv, av = x.transpose(1, 2), a.transpose(1, 2)
+
+        def kernel():
+            return Sd.ssd_chunked(xv, av, Bm, Cm, chunk=Q, n_heads=H)
+
         saved = Sd.ssd_chunked.launches
-        k_dev, k_wall = timed(lambda: Sd.ssd_chunked(
-            xv, av, Bm, Cm, chunk=Q, n_heads=H), 5, torch)
+        k_dev, k_wall = timed(kernel, 5, torch)
+        got = kernel() if phase else None
         Sd.ssd_chunked.launches = saved
         xf = xv.reshape(B * H, S, P).contiguous()
         af = av.reshape(B * H, S).contiguous()
-        p_dev, p_wall = timed(lambda: Sd.ssd_chunked_ref(
-            xf, af, Bm, Cm, chunk=Q, n_heads=H), 1, torch)
+
+        def plain():
+            return Sd.ssd_chunked_ref(xf, af, Bm, Cm, chunk=Q, n_heads=H)
+
+        p_dev, p_wall = timed(plain, 1, torch)
+        if phase:
+            y, fs = got
+            ok, err, msg = self.ssd_close(
+                (y.reshape(B * H, S, P), fs.reshape(B * H, N, P)), plain())
+            self.max_err["ssd"] = max(self.max_err["ssd"], err)
+            if not ok:
+                fail(phase, f"ssd at {model}'s shape (B={B} S={S} H={H} "
+                            f"P={P} N={N}) against its plain version: {msg}")
+            say(phase, f"ssd at {model}'s shape (B={B} S={S} H={H} P={P} "
+                       f"N={N} chunk {Q}, B/C bf16) against its plain "
+                       f"version: max abs err {msg} (tolerance {SSD_TOL})")
+            del got, y, fs
         del xf, af
         # x, a, B and C read once, y and the final state written once.
         # What the function needs: C B^T once per (row, chunk), it and
@@ -6242,11 +6857,20 @@ def main(argv) -> int:
     smoke = Smoke(torch)
     smoke.against = against
     t_all = time.time()
-    for p in PHASES:
-        if p in phases:
-            t0 = time.time()
-            getattr(smoke, p)()
-            say(p, f"phase done in {time.time() - t0:.1f} s")
+    say("all", f"host probe {host_ms():.1f} ms, load "
+               f"{os.getloadavg()[0]:.2f}, {os.cpu_count()} CPUs")
+    if "launch" in phases:
+        smoke.start_launch()
+    try:
+        for p in PHASES:
+            if p in phases:
+                t0 = time.time()
+                getattr(smoke, p)()
+                say(p, f"phase done in {time.time() - t0:.1f} s (host probe "
+                       f"{host_ms():.1f} ms, load {os.getloadavg()[0]:.2f})")
+    finally:
+        if smoke.launch_pool is not None:
+            smoke.launch_pool.shutdown(cancel_futures=True)
     say("all", f"{len(phases)} phases in {time.time() - t_all:.1f} s")
     if phases != list(PHASES):
         return 0

@@ -58,12 +58,17 @@ def ssd_chunked_ref(x, a, Bm, Cm, *, chunk: int, n_heads: int):
 
 
 def segsum_exp(a: torch.Tensor) -> torch.Tensor:
-    """L[i, j] = exp(sum_{j<k<=i} a_k) for i >= j, else 0.  a: [..., Q]."""
+    """L[i, j] = exp(sum_{j<k<=i} a_k) for i >= j, else 0.  a: [..., Q].
+
+    The values are the reference's ``where(tril, exp(diff), 0)``, bit for
+    bit, but the mask is taken before the exponential: above the diagonal
+    ``diff`` is a sum of ``-a > 0``, which overflows float32 at mamba2's
+    full width (174 in a chunk of 128), and the reference's gradient there
+    is ``0 * exp(diff) = 0 * inf``, NaN in every leaf before the scan."""
     Q = a.shape[-1]
     cum = a.cumsum(-1)
     diff = cum[..., :, None] - cum[..., None, :]        # [..., i, j]
-    return torch.where(_tril(Q, a.device), torch.exp(diff),
-                       torch.zeros((), dtype=diff.dtype, device=a.device))
+    return torch.exp(diff.masked_fill(~_tril(Q, a.device), float("-inf")))
 
 
 def _chunk(state, xk, ak, Bk, Ck):

@@ -28,21 +28,27 @@ groups.  With ``par.remat`` other than ``"none"`` each block runs under
 the reference's per-group ``jax.checkpoint`` at period 1 and its per
 sub-layer checkpoint under ``remat="full"`` at period > 1.
 
-**Tensor parallelism** (the dense GQA and MoE families, :func:`tp_ported`,
-under a mesh whose ``model`` axis is larger than 1): the reference's GSPMD
-partitioning by ``make_rules`` as an explicit per-rank program.
-:meth:`LM.shard` gives one :class:`LM` a rank of the mesh holding its
-blocks of the parameters (``spec_for(ParamSpec.axes, rules, mesh)``:
-``vocab``, ``heads``, ``mlp`` and ``experts`` over ``model``, ``embed``
-and ``expert_mlp`` over ``data`` under FSDP), :meth:`LM.gather` writes
-them back.  ``apply`` inside a rank that is manual over ``model`` runs
-:meth:`LM._apply_tp` (Megatron form:
-vocabulary-parallel embedding, column-parallel q/k/v and MLP up, row-
-parallel ``wo`` summed over ``model``, logits ``[B, S, V/tp]``); with
+**Tensor parallelism** (the dense GQA, MoE, SSM and hybrid families,
+:func:`tp_ported`, under a mesh whose ``model`` axis is larger than 1):
+the reference's GSPMD partitioning by ``make_rules`` as an explicit
+per-rank program.  :meth:`LM.shard` gives one :class:`LM` a rank of the
+mesh holding its blocks of the parameters (``spec_for(ParamSpec.axes,
+rules, mesh)``: ``vocab``, ``heads``, ``mlp``, ``experts`` and
+``ssm_heads`` over ``model``, ``embed`` and ``expert_mlp`` over ``data``
+under FSDP), :meth:`LM.gather` writes them back.  ``apply`` inside a
+rank that is manual over ``model`` runs :meth:`LM._apply_tp` (Megatron
+form: vocabulary-parallel embedding, column-parallel q/k/v and MLP up,
+row-parallel ``wo`` summed over ``model``, logits ``[B, S, V/tp]``); with
 Megatron-SP (``S`` a multiple of ``tp``, ``S > 1``) the residual a rank
 holds is ``[B, S/tp, d]`` (``seq_sp``): the sequence is all-gathered
 before each block's column-parallel products and the partial products
-reduce-scattered back.  A MoE layer is ``x + moe(ln2(x))`` on the rank's
+reduce-scattered back.  An SSM layer is ``ssm_block`` on the rank's
+blocks of the heads (``ssm_dims`` pads them to ``tp``; ``wB``, ``wC`` and
+``conv_BC`` are whole, so every rank computes the full B and C, as GSPMD
+does), a column- and row-parallel segment like attention: its conv,
+scan, skip and gated RMSNorm are per channel or per head (the norm's mean
+is over ``head_dim``), so its one collective is the sum of the partial
+``wo`` product.  A MoE layer is ``x + moe(ln2(x))`` on the rank's
 own residual, the tokens the reference's ``shard_map`` gives the rank (a
 sequence shard under Megatron-SP, else all of the rank's batch): the
 reference's expert-parallel body (:func:`~.moe.moe_rank`) routes them with
@@ -53,14 +59,15 @@ loss is ``pmean``-ed over every manual axis and summed over layers as
 with :func:`~repro_torch.parallel.spmd.gather_static` where they are
 used (and again in the recompute).  With remat, only the rank-local
 segments between collectives are checkpointed (norm -> projections ->
-attention -> ``wo``; norm -> MLP; norm -> router -> buckets, the experts,
-the combine), so no recompute calls a collective; the gathered sequence
-each segment starts from is kept.  ``apply`` outside a rank runs the
-ranks under :func:`~repro_torch.parallel.spmd.shard_map` (its rank
-modules cached until a parameter of the model changes) and returns the
-logits assembled from their vocabulary blocks and the ranks' aux loss.
-Other families raise under a ``model`` axis larger than 1
-(``models/model.py``).
+attention or the SSM mixer -> ``wo``; norm -> MLP; norm -> router ->
+buckets, the experts, the combine), so no recompute calls a collective;
+the gathered sequence each segment starts from is kept.  ``apply``
+outside a rank runs the ranks under
+:func:`~repro_torch.parallel.spmd.shard_map` (its rank modules cached
+until a parameter of the model changes) and returns the logits
+assembled from their vocabulary blocks and the ranks' aux loss.
+MLA, the VLM and the encoder-decoder raise under a ``model`` axis larger
+than 1 (``models/model.py``).
 
 MLA layers (``cfg.attention == "mla"``) keep their parameters under
 ``attn`` as the reference does and one :class:`~.mla.MLACache` (latent and
@@ -96,9 +103,11 @@ TP_LEFT = "ROADMAP queue 1 item 1, left 6"
 
 def tp_ported(cfg: ModelConfig) -> bool:
     """Whether tensor parallelism over ``model`` is ported for ``cfg``'s
-    family: the dense GQA and the MoE families with GQA and RoPE."""
+    family: the dense GQA, MoE and hybrid families with GQA and RoPE, and
+    the attention-free SSM family."""
     return (cfg.family, cfg.attention, cfg.pos_emb) in (
-        ("dense", "gqa", "rope"), ("moe", "gqa", "rope"))
+        ("dense", "gqa", "rope"), ("moe", "gqa", "rope"),
+        ("hybrid", "gqa", "rope"), ("ssm", "none", "none"))
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -455,9 +464,14 @@ class LM(nn.Module):
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         aux = group = zero
         for i, bp in enumerate(self.blocks):
-            x = sub(lambda h, bp=bp: attention_block_tp(
-                gather(bp.attn), apply_norm(bp.ln1, h, cfg), cfg, positions,
-                self.use_flash, r, tp), x)
+            if self.layer_kind(i) == "attn":
+                x = sub(lambda h, bp=bp: attention_block_tp(
+                    gather(bp.attn), apply_norm(bp.ln1, h, cfg), cfg,
+                    positions, self.use_flash, r, tp), x)
+            else:
+                x = sub(lambda h, bp=bp: ssm_block(
+                    gather(bp.ssm), apply_norm(bp.ln1, h, cfg), cfg,
+                    self.use_ssd_kernel), x)
             if "mlp" in bp._modules:
                 x = sub(lambda h, bp=bp: apply_mlp(
                     gather(bp.mlp), apply_norm(bp.ln2, h, cfg), cfg), x)

@@ -11,8 +11,17 @@ output projection.  Under ``flags.ROOFLINE_MODE`` the plain path runs
 :func:`ssd_reference_vec`, the scan vectorized over chunks (the dry-run's
 loop-free route; ``flags.SSD_BF16`` keeps its O(Q^2) tensors in bf16).
 
-Shapes: x_in [B, S, d_model]; heads H = d_inner / head_dim; state N =
+Shapes: x_in [B, S, d_model]; heads H = d_inner / head_dim (padded to a
+multiple of the tensor-parallel width by :func:`ssm_dims`); state N =
 cfg.ssm.d_state.
+
+A tensor-parallel rank (``models/lm.py``) runs :func:`ssm_block` as it
+stands on its blocks of the heads (``wz``, ``wx``, ``wdt``, ``dt_bias``,
+``A_log``, ``D``, ``conv_x``, ``norm``, ``wo``) with ``wB``, ``wC`` and
+``conv_BC`` whole: the depthwise conv, the scan, the skip and the gated
+RMSNorm (its mean over ``head_dim``) are per channel or per head, so the
+rank's output is its share of the ``wo`` product, summed over ``model``
+by the caller.
 """
 from __future__ import annotations
 

@@ -12,9 +12,9 @@ Megatron-style head/vocab padding).  `padded(n, tp)` computes that.
 
 The specs are the port's own :class:`~.spmd.PartitionSpec`; they place
 blocks under :func:`~.spmd.shard_map`.  GSPMD's partitioning of the
-``model`` axis is ported for the dense GQA and MoE families as an explicit
-per-rank program (``models/lm.py``): :func:`shard_tensor` /
-:func:`shard_of` cut a global tensor into the ranks' blocks by its spec
+``model`` axis is ported for the dense GQA, MoE, SSM and hybrid families
+as an explicit per-rank program (``models/lm.py``): :func:`shard_tensor`
+/ :func:`shard_of` cut a global tensor into the ranks' blocks by its spec
 (rank order: row-major over every mesh axis, :func:`~.spmd.shard_map`'s
 order when it is manual over all of them) and :func:`gather_shards` puts
 them back.  :func:`constrain` never changes values (as

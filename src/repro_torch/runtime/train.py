@@ -17,11 +17,13 @@ each rank's loss and gradients on its shard of the batch, the gradients
 synchronized by the explicit rings (:func:`~repro_torch.collectives.
 scheduler.sync_grads_local`), then AdamW on every rank (:class:`RingStep`).
 A mesh whose ``model`` axis is larger than 1 gives the tensor-parallel
-step (:class:`TPStep`, the dense GQA and MoE families; every other family
-raises ``NotImplementedError``): each rank of the whole mesh holds its
-blocks of the parameters and optimizer state, and the ranks' forwards
-form one autograd graph with one backward (``parallel/spmd.py``), the
-MoE's ``all_to_all`` exchanges and its aux loss included.
+step (:class:`TPStep`, the dense GQA, MoE, SSM and hybrid families; MLA,
+the VLM and the encoder-decoder raise ``NotImplementedError``): each rank
+of the whole mesh holds its blocks of the parameters and optimizer state,
+and the ranks' forwards form one autograd graph with one backward
+(``parallel/spmd.py``), the MoE's ``all_to_all`` exchanges and its aux
+loss included.  An SSM layer runs the plain scan on each rank's heads
+(the SSD kernel is forward only).
 """
 from __future__ import annotations
 
@@ -70,9 +72,9 @@ def make_train_step(model, cfg: ModelConfig, tcfg: TrainConfig,
     model's device.  ``grad_sync="ring"``/``"hierarchical"`` under a mesh
     whose data axes ("pod", "data") have more than one rank returns a
     :class:`RingStep`; a mesh whose ``model`` axis is larger than 1 a
-    :class:`TPStep` for the dense GQA and MoE families and
-    ``NotImplementedError`` for every other (ROADMAP queue 1 item 1, left
-    6)."""
+    :class:`TPStep` for the dense GQA, MoE, SSM and hybrid families and
+    ``NotImplementedError`` for MLA, the VLM and the encoder-decoder
+    (ROADMAP queue 1 item 1, left 6)."""
     if mesh is not None and mesh.shape.get("model", 1) > 1:
         return TPStep(model, cfg, tcfg, par, mesh)
     if mesh is not None and par.grad_sync != "xla":
@@ -277,8 +279,14 @@ class TPStep:
                 mean=False, channels=self.par.ring_buckets,
                 bidirectional=self.par.ring_bidirectional)
 
+        # the backward's gradients, some allocated on other ranks' streams,
+        # are freed only after the ranks' streams have joined the caller's:
+        # freed inside a rank, a block could go to another rank's stream
+        # while this rank's reads of it are still queued
+        raw = list(grads)
         with torch.no_grad():
             shard_map(sync, mesh=self.mesh, in_specs=(), out_specs=P())()
+        del raw
         return loss, grads
 
     def __call__(self, opt: OptState, batch: dict) -> tuple[OptState, dict]:

@@ -13,9 +13,9 @@
 - **Bytes.**  The dry-run's ``memory.argument`` equals XLA's
   ``argument_size_in_bytes`` exactly at ``depth_override=1`` on a (data 2,
   model 4) mesh (8 host devices), for a decode (danube), a prefill (the MoE
-  granite) and a train cell (the SSM mamba2).  Output and alias bytes
-  differ where XLA chose an output sharding the port's record does not
-  assume; each such leaf is named and the difference pinned: XLA shards
+  granite) and a train cell (the SSM mamba2; the last two partitioned).
+  Output and alias bytes differ where XLA chose an output sharding the
+  port's record does not assume; each such leaf is named and the difference pinned: XLA shards
   the logits over ``model``, returns mamba2's ``ssm/conv_BC``, ``wB`` and
   ``wC`` (and their m, v, master) sharded over ``model`` where they came
   in replicated (so not aliased), aliases the optimizer step (the port's
@@ -328,7 +328,9 @@ def _xla_side(cell, rec):
     tp = cell.model.mesh.shape["model"]
     if kind == "train":
         # mamba2's B/C projections and conv weights (and their m, v and
-        # master) come back sharded over model: not aliased
+        # master) come back sharded over model: not aliased.  XLA's
+        # placement, so the same for the port's partitioned record (its
+        # outputs are its blocks of the donated args, as at full width)
         for tree in (cell.args[0], cell.args[1].m, cell.args[1].v,
                      cell.args[1].master):
             for p, s in _flat(tree):
@@ -408,7 +410,8 @@ def test_collectives_of_a_moe_train_cell(meta_meshes):
     cell = P_steps.build_cell("granite_moe_1b_a400m", "train_4k", mesh)
     # the cell is partitioned (its record's collectives are its rank's,
     # tests/test_torch_tp_moe.py); the formulas here are those of a MoE
-    # cell at full model width (jamba's, and the MoE decode cells)
+    # cell at full model width (the MoE decode cells; jamba's train and
+    # prefill cells are partitioned too, tests/test_torch_tp_ssm.py)
     assert cell.partitioned
     cell = dataclasses.replace(cell, partitioned=False)
     c = dryrun.collectives(cell, mesh)

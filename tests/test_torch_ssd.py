@@ -9,8 +9,9 @@ tolerance 5e-4 (atol and rtol); against the sequential per-token
 recurrence at the reference's 1e-4; the wrapper ``ssd_chunked`` on strided
 and contiguous [B, H, S, P] against the reference's ``ssd_chunked``; the
 model-layout plain scan ``ssd_reference`` and ``segsum_exp`` against the
-reference's; and the wrapper's rejections.  Inputs come from numpy seeds and go to both sides as
-the same values.
+reference's (``segsum_exp``'s gradient also where the reference's is NaN:
+finite, equal to float64's); and the wrapper's rejections.  Inputs come
+from numpy seeds and go to both sides as the same values.
 """
 import numpy as np
 import pytest
@@ -153,6 +154,35 @@ def test_segsum_exp_matches_reference():
     np.testing.assert_allclose(segsum_exp(torch.from_numpy(a)).numpy(),
                                np.asarray(r_ssm.segsum_exp(jnp.asarray(a))),
                                atol=1e-6, rtol=1e-6)
+
+
+def test_segsum_exp_gradient_is_finite_where_the_reference_overflows():
+    """A chunk of 128 steps of log decay about -1.4, as mamba2's full width
+    gives (the largest sum above the diagonal 174): the values equal the
+    reference's ``where(tril, exp(diff), 0)`` bit for bit, and the
+    gradient is finite and equal to float64's, where the reference's is
+    NaN (its exp overflows above the diagonal: 0 * inf)."""
+    rng = np.random.default_rng(8)
+    a = -(1.4 + 0.1 * rng.random((2, 3, 128))).astype(np.float32)
+    t = torch.from_numpy(a).requires_grad_()
+    got = segsum_exp(t)
+    cum = t.detach().cumsum(-1)
+    diff = cum[..., :, None] - cum[..., None, :]
+    tril = torch.ones((128, 128), dtype=torch.bool).tril()
+    assert float(diff.max()) > 88.8                 # exp overflows float32
+    assert torch.equal(got.detach(), torch.where(tril, torch.exp(diff),
+                                                 torch.zeros(())))
+    w = np.random.default_rng(9).standard_normal(got.shape)
+    (g,) = torch.autograd.grad((got * torch.from_numpy(w).float()).sum(), t)
+    t64 = torch.from_numpy(a.astype(np.float64)).requires_grad_()
+    (g64,) = torch.autograd.grad((segsum_exp(t64) * torch.from_numpy(w)
+                                  ).sum(), t64)
+    assert bool(torch.isfinite(g).all())
+    np.testing.assert_allclose(g.numpy(), g64.numpy(), rtol=1e-4,
+                               atol=1e-4 * float(g64.abs().max()))
+    r_g = jax.grad(lambda x: (r_ssm.segsum_exp(x) * w).sum())(
+        jnp.asarray(a))
+    assert np.isnan(np.asarray(r_g)).any()
 
 
 def test_ssd_under_grad_raises():

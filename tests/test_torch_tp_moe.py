@@ -20,6 +20,10 @@ numpy from a seed.
   card); its outputs are the one-device path's.
 - **Planted fault.**  One rank (model index 1) keeps its own rows instead
   of layer 0's return ``all_to_all``: the step comparison must fail.
+- ``chip_smoke.py``'s record of a step's routing (``route_log``,
+  ``route_flips``, ``remat_flips``): no token routed apart from one
+  device or by a remat recompute, and two ranks' records swapped, or a
+  recompute's rows shifted, found.
 - **Prefill at capacity factor 1.0**, where rows drop: ``LM.apply``'s
   logits and aux on (data 2, model 4) against the reference's ``LM.apply``
   on a (2, 4) mesh of 8 host devices (atol / rtol 1e-4; the reference in
@@ -31,13 +35,15 @@ numpy from a seed.
 - The port's MoE parameter specs against the reference's ``spec_for``
   with FSDP on and off, and the table they give.
 - Lone-rank counts, ``all-to-all`` included, against the real ranks'; a
-  step's collectives by kind against ``chip_smoke.py``'s derivation.
+  step's collectives by kind against ``chip_smoke.py``'s derivation
+  (``tp_family_counts``).
 - A depth-1 granite ``train_4k`` dry-run record on a (2, 4) meta mesh:
   partitioned, its collectives by kind and axes equal to counts derived
   from the layer count (:func:`_expected_counts`).
 - A granite checkpoint saved on (2, 4) restored onto (4, 2), bit for bit.
-- ``check_tp`` still raising for the SSM, hybrid, MLA, VLM and
-  encoder-decoder families, naming left 6.
+- ``check_tp`` still raising for the MLA, VLM and encoder-decoder
+  families, naming left 6 (the SSM and hybrid families:
+  ``tests/test_torch_tp_ssm.py``).
 """
 import dataclasses
 import importlib.util
@@ -75,7 +81,7 @@ from repro_torch.parallel import spmd  # noqa: E402
 from repro_torch.parallel.sharding import (NamedSharding,  # noqa: E402
                                            RankShards, gather_shards,
                                            make_rules, mesh_coords,
-                                           shard_of)
+                                           shard_of, spec_axes)
 from repro_torch.runtime import make_train_step  # noqa: E402
 
 GRANITE, KIMI = "granite_moe_1b_a400m", "kimi_k2_1t_a32b"
@@ -221,6 +227,44 @@ def test_planted_local_return_fails_the_step_comparison(monkeypatch,
         _close(model, one, met, met1, got, want)
 
 
+@pytest.mark.parametrize("shape", [(2, 4), (2, 2)])
+def test_route_log_finds_tokens_routed_apart(shape, cs):
+    """``chip_smoke.py``'s routing record of a step (``route_log``,
+    ``route_flips``): the ranks' top-k sets equal one device's token by
+    token (each rank's tokens its rows and sequence shard), and ranks'
+    records swapped must show up as tokens routed apart."""
+    dp, tp = shape
+    par = ParallelConfig(remat="block")
+    model, one, mesh = _pair(_cfg(GRANITE), shape, par)
+    cfg, tcfg = model.cfg, TrainConfig(**TRAIN)
+    batch = _batch(cfg)
+    with _mesh_aux(cs, mesh), cs.route_log(torch, P_moe) as r1:
+        logits, aux = one.apply(batch["tokens"])
+        torch.autograd.grad(
+            P_steps.model_loss(one, cfg, logits, batch["labels"]) + aux,
+            list(one.parameters()))
+    step = make_train_step(model, cfg, tcfg, par, mesh)
+    with cs.route_log(torch, P_moe) as rm:
+        step(_opt(model, tcfg), batch)
+    L = len(model.blocks)
+    one_fwd, ranks = r1.forward[None], rm.forward
+    assert list(r1.forward) == [None] and len(one_fwd) == L
+    assert sorted(ranks) == [(d, m) for d in range(dp) for m in range(tp)]
+    flips, gaps = cs.route_flips(torch, one_fwd, ranks, L, B, S, dp, tp)
+    assert flips == [0] * L and all(g > 0 for g in gaps)
+    a, b = (0, 0), (dp - 1, tp - 1)
+    swapped = {**ranks, a: ranks[b], b: ranks[a]}
+    flips, _ = cs.route_flips(torch, one_fwd, swapped, L, B, S, dp, tp)
+    assert all(f > 0 for f in flips)
+    # remat block: every router call recomputed once, alike
+    for log in (r1, rm):
+        assert len(log.recompute) == sum(map(len, log.forward.values()))
+        assert cs.remat_flips(torch, log) == 0
+    ids = rm.recompute[0]
+    ids[0] = ids[1] if not torch.equal(ids[0], ids[1]) else ids[0].flip(0)
+    assert cs.remat_flips(torch, rm) == 1        # one token routed apart
+
+
 @pytest.mark.parametrize("sync", ["xla", "ring"])
 def test_step_collectives_by_kind(sync, cs):
     """A TPStep's collectives by kind on (2, 4), equal to the derivation
@@ -234,7 +278,11 @@ def test_step_collectives_by_kind(sync, cs):
     got = spmd.TALLY.by_kind()
     spmd.TALLY.clear()
     leaves = len(list(model.parameters()))
-    assert got == cs.tp_moe_counts(len(model.blocks), 1, 1, leaves, sync)
+    replicated = sum("model" not in spec_axes(sp)
+                     for sp in model.param_specs().values())
+    assert replicated == 4 * len(model.blocks) + 1  # ln1, ln2, wk, wv; final
+    assert got == cs.tp_family_counts(len(model.blocks), 1, 1, leaves,
+                                      replicated, sync)
 
 
 # ------------------------------------------------------------ prefill
@@ -496,8 +544,7 @@ def test_checkpoint_saved_on_2x4_restores_onto_4x2(tmp_path):
 
 # ------------------------------------------------------------ refusals
 
-@pytest.mark.parametrize("arch", ["mamba2_130m", "jamba_v0_1_52b",
-                                  "minicpm3_4b", "qwen2_vl_2b",
+@pytest.mark.parametrize("arch", ["minicpm3_4b", "qwen2_vl_2b",
                                   "whisper_large_v3"])
 def test_other_families_still_refused(arch):
     cfg = registry.get_config(arch, smoke=True)
