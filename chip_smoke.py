@@ -177,15 +177,10 @@ that fails:
             a greedy decode of 64 steps through init_cache / decode_step
             held so to the teacher-forced logits of the same tokens; freed
             after
-20. goldens Table 1, 20,000 ticks, seed 3: the ecmp_base and ecmp_sym golden
-            finish ticks (two lanes of one grid run) through
-            backend="cuda" with tick_window 1 (one tick launch per tick),
-            20 (1,000 window launches) and 7 (3,000), and through the tiled
-            tick with blk=256 (20,000 tiled launches)
-21. multipod 128-host fat_tree_multipod, 8 seeds as lanes, 2,000 ticks:
+20. multipod 128-host fat_tree_multipod, 8 seeds as lanes, 2,000 ticks:
             backend="cuda" with tick_window 1 and 20 (the main-path runs
             whose launches are counted) against backend="eager"
-22. lanes   the grid entry points' devices=: the same 8 lanes over the card
+21. lanes   the grid entry points' devices=: the same 8 lanes over the card
             named 2 and 3 times (tick_window 1, cut to 500 ticks, and
             20), and Table 1's four
             knob points with chunk_knobs=1 over 2 entries (goldens
@@ -193,7 +188,7 @@ that fails:
             for bit, float series allclose, bit-differing elements
             counted; wall times beside each other); a planted fault (shares
             that renumber their lanes) must fail
-23. ring    the explicit ring collectives over the card named 4 and 8
+22. ring    the explicit ring collectives over the card named 4 and 8
             times (a host thread and CUDA stream a rank): ring_all_reduce
             (plain, channels=2, bidirectional) and ring_all_reduce_nd over
             the reference test's sweep in float32 and bf16,
@@ -206,7 +201,7 @@ that fails:
             faults (a ring shifted by two, the last reduce-scatter step
             dropped) must fail; the 256 MiB all-reduce timed with CUDA
             events over 4 and 8 ranks beside one stack(...).sum(0)
-24. dp      h2o-danube-3-4b at full width cut to 2 of 24 layers (432.6 M
+23. dp      h2o-danube-3-4b at full width cut to 2 of 24 layers (432.6 M
             parameters; remat per block, ARCH_POLICY's AdamW, flash):
             step 0's ring-synced gradients on mesh (data 4) against one
             device's on the whole 4 x 4,096 batch (rel L2 2e-2 a leaf,
@@ -215,18 +210,18 @@ that fails:
             times: the four replicas bit-equal after every step, flash
             calls counted per rank (by its stream), ms a step, the sync's
             ms and peak memory
-25. ep      granite-moe-1b-a400m's layer-0 moe_block at full width over
+24. ep      granite-moe-1b-a400m's layer-0 moe_block at full width over
             (data 2, model 4), the card named 8 times (all_to_all over
             model), on 2 x 4,096 N(0,1) bf16 tokens: at capacity 8.0
             (nothing drops) against the one-device path at BF16_REL_L2;
             at granite's 1.25 two runs bit-equal, drops reported
-26. gpipe   4 stages of one danube block each at full width over the card
+25. gpipe   4 stages of one danube block each at full width over the card
             named 4 times, 4 microbatches of 1 x 4,096: GPipe's 7 ticks,
             each microbatch bit-equal to the 4 blocks applied in turn on
             one device
-27. tp      tensor parallelism (GSPMD's partitioning of the dense GQA,
-            MoE, SSM and hybrid families, ``models/lm.py``) over the card
-            named 8 and 4 times:
+26. tp      tensor parallelism (GSPMD's partitioning of the dense GQA and
+            MLA, MoE, SSM and hybrid families, ``models/lm.py``) over the
+            card named 8 and 4 times:
             danube at full width cut to 2 of 24 layers on (data 2, model
             4), float32, a global batch of 4 x 4,096: one step of
             make_train_step with grad_sync "xla", then with FSDP, then
@@ -259,12 +254,21 @@ that fails:
             (1, 4) through the flash and SSD kernels (4 and 28 calls)
             against the one-device route by rows and argmax, drops per MoE
             layer on both sides; jamba's layer 0 (SSM and MLP) in float32
-            inside the ranks against one device; the flash forward and
-            backward kernels timed at a rank's shapes (danube's, granite's
-            and jamba's), the D-64 backward at granite's and the forward at
-            jamba's held to the plain versions, the SSD kernel held to its
-            plain version and timed at mamba2's and jamba's rank shapes
-28. launch  the launch layer (``launch/steps.py``, ``launch/dryrun.py``):
+            inside the ranks against one device; minicpm3-4b's step
+            likewise (2 of 62 layers, float32, xla and ring, q_lora over
+            model: 192 of 768 and 10 of 40 heads a rank, its collectives
+            by kind with the q RMSNorm's psum and the q reduce-scatter
+            equal to the CPU ranks' derivation) and 31 of its 62 layers
+            prefilling 1 x 32,768 in bf16 on (data 1, model 4) through
+            the flash forward (124 calls, 31 a rank) against one device
+            by rows and argmax; the flash forward and backward kernels
+            timed at a rank's shapes (danube's, granite's, jamba's and
+            minicpm3's), the backward pair at granite's (D 64) and
+            minicpm3's (D 96) and the forward at granite's, jamba's and
+            minicpm3's held to the plain versions, the SSD kernel held to
+            its plain version and timed at mamba2's and jamba's rank
+            shapes
+27. launch  the launch layer (``launch/steps.py``, ``launch/dryrun.py``):
             the dry-run's records (meta devices, in worker processes) of
             danube's and mamba2's four cells on both production meshes
             (GiB a device, TFLOP, the three roofline terms at the card's
@@ -290,9 +294,19 @@ that fails:
             (spmd.lone_rank) on real tensors, its flop count equal to the
             meta count and its peak within TP_LAUNCH_BAND (5 %); granite
             train_4k likewise (its all_to_alls keep their shapes alone),
-            and jamba train_4k at one period (8 of 32 layers); every meta
+            jamba train_4k at one period (8 of 32 layers) and minicpm3
+            train_4k at depth 2; every meta
             run of the phase starts with the whole run in LAUNCH_WORKERS
             processes at nice 19
+28. goldens Table 1, 20,000 ticks, seed 3: the ecmp_base and ecmp_sym golden
+            finish ticks (two lanes of one grid run) through
+            backend="cuda" with tick_window 1 (one tick launch per tick),
+            20 (1,000 window launches) and 7 (3,000), and through the tiled
+            tick with blk=256 (20,000 tiled launches); the two host-bound
+            tick_window=1 runs (GOLDEN_EARLY) run in worker processes of
+            their own, side by side, started when the launch phase starts
+            (it measures no rate but under its flop counter), else when
+            this phase does
 29. grid512 the 512-host grid (16 pods; sym off/on x 4 seeds as lanes),
             1,000 ticks: the tiled tick (blk=2048, tick_window=1) and the
             window kernel (tick_window=20), their launches counted, against
@@ -407,8 +421,8 @@ INT_SERIES = ("finish_ticks", "job_finish_ticks", "ts_min_wire",
               "ts_max_wire", "ts_done_min", "ts_alpha_max")
 PHASES = ("build", "math", "kernel", "window", "tiled", "large", "switch",
           "flash", "flash_bwd", "prefill", "serve", "train", "ssd", "mamba",
-          "moe", "jamba", "mla", "vlm", "whisper", "goldens", "multipod",
-          "lanes", "ring", "dp", "ep", "gpipe", "tp", "launch", "grid512",
+          "moe", "jamba", "mla", "vlm", "whisper", "multipod", "lanes",
+          "ring", "dp", "ep", "gpipe", "tp", "launch", "goldens", "grid512",
           "control", "timing", "profile")
 # (F, FW, H, L+1, J, DJ) of the multipod grids the tick and window kernels
 # run at 128 hosts (ids in shared memory) and 512 hosts (ids in global
@@ -655,6 +669,15 @@ TP_ROWS = slice(255, None, 256)
 TP_LAYER_REL_L2 = 1e-4
 # the partitioned hybrid record held to the card: jamba's first period
 TP_LAUNCH_HYBRID = (TP_HYBRID, "train_4k", (16, 16), JAMBA_LAYERS)
+# the tp phase's MLA family: minicpm3 at full width, its step cut to
+# DP_LAYERS layers in float32 on TP_MESH at a global batch of TP_B x 4,096
+# (xla, ring; q_lora over model, 192 of 768 a rank; 10 of 40 heads a rank)
+# as granite's; LEFT3_LAYERS of it prefilling 1 x 32,768 in bf16 with the
+# flash forward on TP_PREFILL_MESH, held to one device by rows (ROW_TOL of
+# each row's largest |logit|, rows TP_ROWS) and argmax as mamba2's bf16
+# prefill; its partitioned record held to the card as the others
+TP_MLA = "minicpm3_4b"
+TP_LAUNCH_MLA = (TP_MLA, "train_4k", (16, 16), 2)
 # the launch phase's meta runs (launch_task), all started with the run in
 # LAUNCH_WORKERS worker processes at the lowest priority, so that the phase
 # waits for none and the host-bound phases meanwhile keep the other cores:
@@ -663,6 +686,7 @@ TP_LAUNCH_HYBRID = (TP_HYBRID, "train_4k", (16, 16), JAMBA_LAYERS)
 # longest, first)
 LAUNCH_PREDS = {
     "tp_hybrid": ("predict",) + TP_LAUNCH_HYBRID,
+    "tp_mla": ("predict",) + TP_LAUNCH_MLA,
     "prefill": ("predict", "h2o_danube_3_4b", "prefill_32k",
                 LAUNCH_PREFILL_MESH, None),
     "train": ("predict", "h2o_danube_3_4b", "train_4k", (16, 1), 2),
@@ -730,6 +754,43 @@ def launch_task(task: tuple) -> dict:
                      ["meta"] * (mesh_shape[0] * mesh_shape[1]))
     return dryrun.measure(build_cell(arch, shape, mesh,
                                      depth_override=depth))
+
+
+# the golden runs that start_goldens runs in worker processes: (tick_window,
+# blk) of the tick kernel's and the tiled kernel's tick_window=1 runs
+GOLDEN_EARLY = ((1, None), (1, BLK["table1"]))
+
+
+def golden_task(tw: int, blk) -> dict:
+    """One Table-1 golden run (seed 3, ecmp, sym off and on as two lanes)
+    through backend "cuda" at ``tick_window`` ``tw`` and ``blk`` on the
+    card, its launch counts set to 0 before it: its seconds, (tick,
+    window, tiled) launches, and each lane's job and flow finish ticks.
+    The goldens phase takes its tick_window=1 runs from worker processes
+    (``Smoke.start_goldens``)."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch.core.netsim as T
+    from repro_torch.kernels.netsim_tick import kernel as K
+    from repro_torch.kernels.netsim_tick import tiled as Tl
+    from repro_torch.kernels.netsim_tick import window as Wn
+    topo, wl, cfg = table1(T)
+    knobs = T.stack_knobs([cfg.knobs(), cfg._replace(sym_on=True).knobs()])
+    K.netsim_tick.launches = Wn.netsim_window.launches = 0
+    Tl.netsim_tiled.launches = 0
+    t0 = time.time()
+    res = T.simulate_grid(
+        topo, wl, cfg._replace(
+            backend="cuda", tick_window=tw, blk=blk,
+            segsum="onehot" if blk else "scatter").structure(),
+        knobs, seeds=[3], routing="ecmp", device=torch.device("cuda"))
+    torch.cuda.synchronize()
+    return {"secs": time.time() - t0,
+            "launches": (K.netsim_tick.launches, Wn.netsim_window.launches,
+                         Tl.netsim_tiled.launches),
+            "job": [int(res.job_finish_ticks[k, 0, 0]) for k in range(2)],
+            "flows": [res.finish_ticks[k, 0].cpu().tolist()
+                      for k in range(2)]}
 
 
 def _tree_items(tree, prefix=()):
@@ -1342,15 +1403,19 @@ def mesh_aux(torch, lm, moe, dp: int, tp: int):
 
 
 def tp_family_counts(layers: int, chunks: int, ce_chunks: int, leaves: int,
-                     replicated: int, sync: str) -> dict:
+                     replicated: int, sync: str, mlps: int = 0,
+                     mla: int = 0) -> dict:
     """The collectives by kind of one TPStep of a MoE (``chunks`` dispatch
-    chunks a layer) or SSM model (``chunks`` 0) without FSDP on (data 2,
-    model 4), one mixer and one FFN (or none) a layer
-    (tests/test_torch_tp_moe.py and tests/test_torch_tp_ssm.py hold the
-    CPU ranks' run to the same derivation): the sequence all-gathered
-    before each layer's mixer (attention or SSM) and after the last, the
-    embedding's and each mixer's ``wo`` partial product reduce-scattered,
-    each with its transpose; per MoE layer and dispatch chunk the router
+    chunks a layer), SSM or MLA model (``chunks`` 0) without FSDP on (data
+    2, model 4), one mixer and one FFN (or none) a layer
+    (tests/test_torch_tp_moe.py, tests/test_torch_tp_ssm.py and
+    tests/test_torch_tp_mla.py hold the CPU ranks' run to the same
+    derivation): the sequence all-gathered before each layer's mixer
+    (attention or SSM), before each of the ``mlps`` MLPs and after the
+    last layer, the embedding's, each mixer's and each MLP's partial
+    product reduce-scattered, each with its transpose; per MLA layer (of
+    ``mla``) the q latent's sum of squares psummed and the partial q
+    reduce-scattered over model, each with its transpose; per MoE layer and dispatch chunk the router
     gathered whole (its transpose a reduce-scatter) and again in the
     recompute, two token all_to_alls with their transposes and one of
     expert ids, and the aux's pmean over (data, model) with its
@@ -1360,10 +1425,10 @@ def tp_family_counts(layers: int, chunks: int, ce_chunks: int, leaves: int,
     and the norm's psum; the ``leaves`` summed over data (xla), or
     ring-synced over its 2 ranks (two collective-permutes a leaf)."""
     L, c = layers, chunks
-    out = {"all-gather": 2 * L + 2 + 2 * L * c,
-           "reduce-scatter": 2 * L + 2 + L * c,
+    out = {"all-gather": 2 * (L + mlps) + 2 + 2 * L * c + mla,
+           "reduce-scatter": 2 * (L + mlps) + 2 + L * c + mla,
            "all-reduce": 3 * ce_chunks + replicated + 1 + 2 +
-           (2 * L if c else 0)}
+           (2 * L if c else 0) + 2 * mla}
     if c:
         out["all-to-all"] = 5 * L * c
     if sync == "xla":
@@ -1430,6 +1495,8 @@ class Smoke:
         self.against = None     # --against: {library: another commit's csrc}
         self.launch_futs = {}   # launch_task futures, started with the run
         self.launch_pool = None
+        self.golden_futs = {}   # golden_task futures (start_goldens)
+        self.golden_pool = None
         self.launch_t0 = None
         self.launch_done = []   # their finishing times
         self.variants = {}      # tag -> a library built from edited sources
@@ -3864,52 +3931,66 @@ class Smoke:
         del model, cache, enc
         torch.cuda.empty_cache()
 
-    # ------------------------------------------------------- 20. goldens
+    # ------------------------------------------------------- 28. goldens
+    def start_goldens(self):
+        """The two host-bound tick_window=1 golden runs (the tick kernel's
+        and the tiled one's, ~100 s each at ~200 ticks/s), each in a
+        worker process of its own, side by side (two host threads of this
+        process shared its interpreter and ran at 55 ticks/s each).  The
+        main loop starts them with the launch phase, whose only rate is
+        taken under its flop counter, so that no phase that reports a time
+        or rate shares the card and the host with them."""
+        import concurrent.futures as cf
+        import multiprocessing
+        self.torch.cuda.empty_cache()
+        self.golden_pool = cf.ProcessPoolExecutor(
+            len(GOLDEN_EARLY), mp_context=multiprocessing.get_context("spawn"))
+        for key in GOLDEN_EARLY:
+            self.golden_futs[key] = self.golden_pool.submit(golden_task,
+                                                            *key)
+
     def goldens(self):
-        torch, T, K, Wn = self.torch, self.T, self.K, self.Wn
-        topo, wl, cfg = table1(T)
-        knobs = T.stack_knobs([cfg.knobs(),
-                               cfg._replace(sym_on=True).knobs()])
+        """The Table-1 goldens through each kernel route
+        (:func:`golden_task`): the tick_window=1 runs from the workers
+        :meth:`start_goldens` started (now, if the launch phase did not),
+        the others in this process meanwhile."""
+        if self.golden_pool is None:
+            self.start_goldens()
+        cfg = table1(self.T)[2]
         R = cfg.record_every
         # tick_window=1: a tick launch per tick; w > 1: each record period
         # runs R // w windows of w ticks and one of R % w
-        # (tick_window, blk, tick, window and tiled launches expected)
-        for tw, blk, want in (
-                (1, None, (cfg.n_ticks, 0, 0)),
-                (20, None, (0, cfg.n_ticks // R, 0)),
-                (7, None, (0, cfg.n_ticks // R * -(-R // 7), 0)),
-                (1, BLK["table1"], (0, 0, cfg.n_ticks))):
-            K.netsim_tick.launches = 0
-            Wn.netsim_window.launches = 0
-            self.Tl.netsim_tiled.launches = 0
-            t0 = time.time()
-            res = T.simulate_grid(
-                topo, wl, cfg._replace(
-                    backend="cuda", tick_window=tw, blk=blk,
-                    segsum="onehot" if blk else "scatter").structure(),
-                knobs, seeds=[3], routing="ecmp", device=self.dev)
-            torch.cuda.synchronize()
-            secs = time.time() - t0
-            nt, nw = K.netsim_tick.launches, Wn.netsim_window.launches
-            ntl = self.Tl.netsim_tiled.launches
-            if (nt, nw, ntl) != want:
-                fail("goldens", f"tick_window={tw} blk={blk}: {nt} tick, "
-                                f"{nw} window and {ntl} tiled launches for "
-                                f"{cfg.n_ticks} ticks")
+        # ((tick_window, blk): tick, window and tiled launches expected)
+        runs = {(20, None): (0, cfg.n_ticks // R, 0),
+                (7, None): (0, cfg.n_ticks // R * -(-R // 7), 0),
+                (1, None): (cfg.n_ticks, 0, 0),
+                (1, BLK["table1"]): (0, 0, cfg.n_ticks)}
+        for (tw, blk), want in runs.items():
+            early = (tw, blk) in self.golden_futs
+            r = self.golden_futs.pop((tw, blk)).result() if early \
+                else golden_task(tw, blk)
+            if r["launches"] != want:
+                fail("goldens", f"tick_window={tw} blk={blk}: "
+                                f"{r['launches']} tick, window and tiled "
+                                f"launches for {cfg.n_ticks} ticks")
             for k, name in enumerate(("ecmp_base", "ecmp_sym")):
-                job = int(res.job_finish_ticks[k, 0, 0])
-                flows = res.finish_ticks[k, 0].cpu().tolist()
-                if job != GOLDEN_JOB[name] or flows != GOLDEN_FLOWS[name]:
+                if r["job"][k] != GOLDEN_JOB[name] or \
+                        r["flows"][k] != GOLDEN_FLOWS[name]:
                     fail("goldens", f"tick_window={tw} blk={blk} {name}: "
-                                    f"job finish {job}, flows {flows}")
+                                    f"job finish {r['job'][k]}, flows "
+                                    f"{r['flows'][k]}")
+            nt, nw, ntl = r["launches"]
             say("goldens", f"tick_window={tw} blk={blk}: ecmp_base "
                            f"{GOLDEN_JOB['ecmp_base']} and ecmp_sym "
-                           f"{GOLDEN_JOB['ecmp_sym']} with all {len(flows)} "
-                           f"flow finish ticks; 2 lanes x {cfg.n_ticks} "
-                           f"ticks, {nt} tick + {nw} window + {ntl} tiled "
-                           f"launches, {cfg.n_ticks / secs:.1f} ticks/s")
+                           f"{GOLDEN_JOB['ecmp_sym']} with all "
+                           f"{len(r['flows'][0])} flow finish ticks; 2 "
+                           f"lanes x {cfg.n_ticks} ticks, {nt} tick + {nw} "
+                           f"window + {ntl} tiled launches, "
+                           f"{cfg.n_ticks / r['secs']:.1f} ticks/s"
+                           + (" (in a worker process beside the other "
+                              "tick_window=1 run)" if early else ""))
 
-    # --------------------------------------------- 21. 128-host, 8 lanes
+    # --------------------------------------------- 20. 128-host, 8 lanes
     def multipod(self):
         torch, T, K, Wn = self.torch, self.T, self.K, self.Wn
         topo, wl, cfg = multipod128(T)
@@ -3954,7 +4035,7 @@ class Smoke:
                             f"{rate:.1f} ticks/s ({rate * 8:.1f} "
                             "lane-ticks/s)")
 
-    # ----------------------------------- 22. lanes split over devices
+    # ----------------------------------- 21. lanes split over devices
     def lanes(self):
         """The grid entry points' devices=: 128 hosts x 8 seeds (tick_window 1
         for LANES_TW1_TICKS ticks, tick_window 20 for 2,000) with the card
@@ -4026,7 +4107,7 @@ class Smoke:
         say("lanes", f"planted fault (each dispatch's second share runs its "
                      f"first lane's point): {msg}; fails, as it must")
 
-    # ------------------------------------- 23. explicit ring collectives
+    # ------------------------------------- 22. explicit ring collectives
     def ring(self):
         """The ring collectives over the card named 4 and 8 times, each case
         bit-equal to the same call over CPU ranks and within its tolerance
@@ -4125,7 +4206,7 @@ class Smoke:
                     f"shards {plain_ms:.3f} ms; card {self.card}")
         del x, shards
 
-    # ------------------------------- 24. data-parallel training, 4 ranks
+    # ------------------------------- 23. data-parallel training, 4 ranks
     def dp(self):
         """danube at full width cut to DP_LAYERS layers, trained with ring
         then hierarchical gradient sync over the card named 4 times."""
@@ -4285,6 +4366,7 @@ class Smoke:
         calls per rank (by the ranks' streams)."""
         torch, Fa = self.torch, self.Fa
         from repro_torch.optim import init_opt_state
+        from repro_torch.parallel import spmd
         model = step.replicas[0]
         opt = init_opt_state(dict(model.named_parameters()), step.tcfg)
         Fa.flash_fwd.launches = 0                     # main path starts
@@ -4308,7 +4390,7 @@ class Smoke:
                                    "leaves")
         n_fwd = Fa.flash_fwd.launches                 # main path ends
         n_dq, n_dkv = Fa.flash_bwd.launches_dq, Fa.flash_bwd.launches_dkv
-        rank_of = {s.cuda_stream: key[0] for key, s in mesh.streams.items()}
+        rank_of = {s.cuda_stream: key[0] for key, s in spmd.rank_streams(mesh).items()}
         per_rank = {r: (0, 0) for r in range(len(step.replicas))}
         for (kind, sid), c in calls.items():
             r = rank_of.get(sid, -1)
@@ -4341,7 +4423,7 @@ class Smoke:
                   f" tokens/s), the sync alone {sync_ms:.1f} ms; peak "
                   f"memory {peak / 2**30:.2f} GiB; card {self.card}")
 
-    # ----------------------------- 25. expert-parallel dispatch, 8 ranks
+    # ----------------------------- 24. expert-parallel dispatch, 8 ranks
     def ep(self):
         """granite's layer-0 MoE at full width over (data 2, model 4) on
         the card named 8 times: at capacity 8.0 against the one-device
@@ -4410,7 +4492,7 @@ class Smoke:
                   f"run (wall, second); card {self.card}")
         self.rates["ep"] = (1e3 * tb, da)
 
-    # ------------------------------------------ 26. GPipe over 4 stages
+    # ------------------------------------------ 25. GPipe over 4 stages
     def gpipe(self):
         """4 stages of one danube block each at full width over the card
         named 4 times, GPIPE_MB microbatches of 1 x TRAIN_S: each
@@ -4468,13 +4550,13 @@ class Smoke:
                      f"in turn (wall); card {self.card}")
         del stages, got, want
 
-    # ------------------------------ 27. tensor parallelism over the card
+    # ------------------------------ 26. tensor parallelism over the card
     def tp(self):
-        """danube's, granite's and mamba2's tensor-parallel training steps
-        and prefills (jamba's first period's prefill) over the card named 8
-        and 4 times, each against one device; one MoE layer inside the
-        ranks against the EP path, jamba's layer 0 against one device; the
-        flash and SSD kernels at the ranks' shapes."""
+        """danube's, granite's, mamba2's and minicpm3's tensor-parallel
+        training steps and prefills (jamba's first period's prefill) over
+        the card named 8 and 4 times, each against one device; one MoE
+        layer inside the ranks against the EP path, jamba's layer 0 against
+        one device; the flash and SSD kernels at the ranks' shapes."""
         self.tp_train()
         self.tp_prefill()
         self.tp_family_train(TP_MOE)
@@ -4484,9 +4566,12 @@ class Smoke:
         self.tp_ssm_prefill()
         self.tp_hybrid_prefill()
         self.tp_hybrid_layer()
+        self.tp_family_train(TP_MLA)
+        self.tp_mla_prefill()
         self.tp_kernels()
         self.tp_moe_kernels()
         self.tp_ssm_kernels()
+        self.tp_mla_kernels()
 
     def tp_grads(self, model, batch):
         """One device's float32 loss and gradients (parameter order)."""
@@ -4588,7 +4673,7 @@ class Smoke:
             l_rel = abs(float(met["loss"]) / float(met1["loss"]) - 1)
             n_rel = abs(float(met["grad_norm"]) / float(met1["grad_norm"]) - 1)
             rank_of = {st.cuda_stream: key[0]
-                       for key, st in mesh.streams.items()}
+                       for key, st in spmd.rank_streams(mesh).items()}
             per_rank = collections.Counter()
             for (kind, sid), c in calls.items():
                 per_rank[(rank_of.get(sid, -1), kind)] += c
@@ -4718,7 +4803,7 @@ class Smoke:
         torch.cuda.empty_cache()
 
     def tp_family_train(self, arch):
-        """``arch`` (TP_MOE or TP_SSM) at full width cut to DP_LAYERS
+        """``arch`` (TP_MOE, TP_SSM or TP_MLA) at full width cut to DP_LAYERS
         layers, float32, on TP_MESH: one step of the tensor-parallel
         make_train_step with grad_sync "xla", then "ring", each against
         one device's step on the same tree (a MoE model at TP_MOE_CF, its
@@ -4769,6 +4854,8 @@ class Smoke:
         L = len(model.blocks)
         n_attn = sum(model.layer_kind(i) == "attn" for i in range(L))
         n_moe = sum("moe" in b._modules for b in model.blocks)
+        n_mlp = sum("mlp" in b._modules for b in model.blocks)
+        n_mla = n_attn if cfg.attention == "mla" else 0
         if cfg.moe is not None:
             wi = model.blocks[0].moe["wi"]
             what_is = (f"{cfg.moe.num_experts} experts, {wi.shape[0] // tp}"
@@ -4777,6 +4864,13 @@ class Smoke:
                        f"{model.vocab_padded}); capacity factor "
                        f"{TP_MOE_CF}; {T} tokens a rank, {chunks} dispatch "
                        "chunk(s)")
+        elif cfg.attention == "mla":
+            wq_b = model.blocks[0].attn["wq_b"]
+            what_is = (f"MLA: q_lora {wq_b.shape[0]}, {wq_b.shape[0] // tp}"
+                       f" a rank; heads {wq_b.shape[1]} of {wq_b.shape[2]}, "
+                       f"{wq_b.shape[1] // tp} a rank; kv_lora "
+                       f"{cfg.mla.kv_lora_rank} whole; vocabulary "
+                       f"{model.vocab_padded})")
         else:
             wz = model.blocks[0].ssm["wz"]
             what_is = (f"{wz.shape[1]} SSM heads of {wz.shape[2]}, "
@@ -4870,11 +4964,11 @@ class Smoke:
                 names, model.parameters(), init, upd1))
             want_kinds = tp_family_counts(
                 L, chunks, spec.seq_len // 1024, len(names), replicated,
-                mode)
+                mode, n_mlp, n_mla)
             l_rel = abs(float(met["loss"]) / float(met1["loss"]) - 1)
             n_rel = abs(float(met["grad_norm"]) / float(met1["grad_norm"]) - 1)
             rank_of = {st.cuda_stream: key[0]
-                       for key, st in mesh.streams.items()}
+                       for key, st in spmd.rank_streams(mesh).items()}
             per_rank = collections.Counter()
             for (kind, sid), c in calls.items():
                 per_rank[(rank_of.get(sid, -1), kind)] += c
@@ -5318,57 +5412,76 @@ class Smoke:
         on the same inputs (SSD at SSD_TOL, flash as the flash phase holds
         the main shape) and timed beside it, with its bound (flash also
         beside one causal SDPA call)."""
-        torch, Fa = self.torch, self.Fa
-        from repro_torch.models.attention import (flash_or_ref,
-                                                  ref_attention_chunked)
         n = TP_PREFILL_MESH[0] * TP_PREFILL_MESH[1]
         for (B, S, H, P, N, Q), who in ((SSD_MAIN, "tp rank mamba2"),
                                         (JAMBA_SSD, "tp rank jamba")):
             self.timing_ssd((1, S, H // n, P, N, Q), model=who, phase="tp")
-        hq, hkv, D, item, Sp = 32 // n, 8 // n, 128, 2, PREFILL_S
-        q, k, v = self.attn_inputs(1, hq, hkv, Sp, D, "bfloat16")
-        views = [x.transpose(1, 2) for x in (q, k, v)]
-        saved = Fa.flash_fwd.launches
-        k_dev, k_wall = timed(lambda: Fa.flash_fwd(*views), 10, torch)
-        o, lse = Fa.flash_fwd(*views)
-        Fa.flash_fwd.launches = saved
-        pos = torch.arange(Sp, device=self.dev)[None]
-        # the kernel against the chunked plain attention and lse in float32
-        # on the same values, as the flash phase holds danube's main shape
-        kf = k.float()
-        o_ref = ref_attention_chunked(q.float(), kf, v.float(), pos, pos)
-        l_ref = chunked_lse(torch, q.float(), kf, 0, 1 / math.sqrt(D))
-        ok, eo, msg = self.attn_close(o.transpose(1, 2), lse.transpose(1, 2),
-                                      o_ref, l_ref, *FLASH_TOL["bfloat16"])
-        self.max_err["flash_fwd"] = max(self.max_err["flash_fwd"], eo)
-        name = (f"flash forward at jamba's rank shape (heads {hq}/{hkv}, "
-                f"D={D}, S={Sp}, causal, bf16)")
-        if not ok:
-            fail("tp", f"{name} against its plain version: {msg}")
-        say("tp", f"{name} against the chunked plain version in float32: "
-                  f"max abs err {msg} (tolerance o {FLASH_TOL['bfloat16'][0]}"
-                  f", lse {FLASH_TOL['bfloat16'][1]}, row {ROW_TOL}, lse abs "
-                  f"{LSE_ABS})")
-        del o, lse, o_ref, l_ref, kf
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        flash_or_ref(q, k, v, pos, pos)
-        b.record()
-        torch.cuda.synchronize()
-        p_ms = a.elapsed_time(b)
-        lib = self.sdpa_ms(q, k, v, 0)
-        self.report(f"tp rank jamba S={Sp}", "flash_fwd", "flash_fwd.cu",
-                    "src/repro/kernels/flash_attention/kernel.py:44",
-                    k_dev, k_wall, p_ms, p_ms,
-                    item * Sp * D * (2 * hq + 2 * hkv) + 4 * hq * Sp,
-                    4 * D * (Sp * (Sp + 1) // 2) * hq, 1,
-                    peak=BF16_OPS_PER_S, library_ms=lib,
-                    note=f"(jamba's model-4 rank: BH={hq}, KV heads {hkv}, "
-                         f"D={D}, causal, no window, bf16; plain: one call "
-                         "of the chunked plain version; library: "
-                         "is_causal=True)")
-        del q, k, v, views
+        self.tp_flash_fwd("jamba", 32 // n, 8 // n, 128)
+
+    def tp_mla_prefill(self):
+        """minicpm3 at full width cut to LEFT3_LAYERS' 31 of 62 layers
+        prefilling 1 x PREFILL_S tokens in bf16 on TP_PREFILL_MESH through
+        the flash forward at a rank's heads (10 of 40, D 96), against the
+        one-device flash route on the same tree: rows TP_ROWS by row error
+        and argmax."""
+        torch, Fa = self.torch, self.Fa
+        from repro_torch.configs import registry
+        from repro_torch.kernels.flash_attention import ops as flash_ops
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.models import build_model
+        cfg = dataclasses.replace(registry.get_config(TP_MLA),
+                                  num_layers=LEFT3_LAYERS[TP_MLA])
+        n = TP_PREFILL_MESH[0] * TP_PREFILL_MESH[1]
+        mesh = make_mesh(TP_PREFILL_MESH, ("data", "model"), [self.dev] * n)
+        model = build_model(cfg, use_flash=True, seed=0, mesh=mesh)
+        tokens = self.family_tokens(cfg, 1, PREFILL_S)
+        L, V = cfg.num_layers, cfg.vocab_size
+        wq_b = model.blocks[0].attn["wq_b"]
+        with torch.no_grad():
+            model.apply(tokens[:, :1024])     # the ranks' blocks, warm
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            Fa.flash_fwd.launches = 0                 # main path starts
+            with flash_calls_by_stream(torch, flash_ops) as calls:
+                t0 = time.time()
+                logits, _ = model.apply(tokens)
+                torch.cuda.synchronize()
+                secs = time.time() - t0
+            launches = Fa.flash_fwd.launches          # main path ends
+            peak = torch.cuda.max_memory_allocated()
+            rows = logits[0, TP_ROWS, :V].float()
+            del logits
+            model._ranks = None
+            mesh_, model.mesh = model.mesh, None  # one device, same tree
+            try:
+                ref, _ = model.apply(tokens)
+            finally:
+                model.mesh = mesh_
+            ref_rows = ref[0, TP_ROWS, :V].float()
+            del ref
+        per = sorted(c for (kind, _), c in calls.items() if kind == "fwd")
+        worst, same = rows_agree(torch, rows, ref_rows)
+        if launches != L * n or per != [L] * n or worst > ROW_TOL or \
+                same < 1 or not bool(torch.isfinite(rows).all()):
+            fail("tp", f"{cfg.name} prefill in bf16: {launches} flash "
+                       f"launches (per rank {per}, want {L} on each of {n})"
+                       f"; worst row error {worst} (tolerance {ROW_TOL}), "
+                       f"argmax agrees on {same:.1%} of the rows")
+        self.launches[("tp", "minicpm3 prefill")] = launches
+        self.rates[("tp", "minicpm3 prefill")] = (PREFILL_S / secs, peak)
+        say("tp", f"prefill {cfg.name} ({L} of 62 layers) 1 x {PREFILL_S} on"
+                  f" {dict(mesh.shape)} in bf16: {launches} flash launches "
+                  f"({per} a rank; q_lora {wq_b.shape[0] // n} of "
+                  f"{wq_b.shape[0]} and {wq_b.shape[1] // n} of "
+                  f"{wq_b.shape[1]} heads a rank), {secs:.3f} s "
+                  f"({PREFILL_S / secs:,.0f} tokens/s); {rows.shape[0]} rows"
+                  f" of logits against the one-device flash route: worst "
+                  f"row error {worst:.3g} of the row's max |logit| "
+                  f"(tolerance {ROW_TOL}), argmax agrees on {same:.0%}; "
+                  f"peak memory {peak / 2**30:.2f} GiB (the model, the "
+                  f"ranks' blocks and the assembled logits); card "
+                  f"{self.card}")
+        del model, tokens, rows, ref_rows
         torch.cuda.empty_cache()
 
     def tp_kernels(self):
@@ -5444,16 +5557,26 @@ class Smoke:
 
     def tp_moe_kernels(self):
         """The flash kernels at granite's model-4 rank shapes (4 q heads, 2
-        KV heads, D 64, causal, no window): the backward pair (the D-64
-        instantiations; the MoE step runs the float32 ones) held to the
-        plain backward in bf16 and float32 at the step's rank shape (B 2,
-        S 4,096) as *flash_bwd* holds it, two launches bit-equal; then the
-        forward at the prefill's rank shape (S 32,768) and the backward
-        pair at the step's, bf16, timed beside the plain version and one
-        SDPA call."""
+        KV heads, D 64: the D-64 instantiations; the MoE step runs the
+        float32 ones)."""
+        self.tp_flash_bwd("granite", 4, 2, 64)
+        self.tp_flash_fwd("granite", 4, 2, 64)
+
+    def tp_mla_kernels(self):
+        """The flash kernels at minicpm3's model-4 rank shapes (10 of 40 q
+        heads, KV 10, D 96: the D-128 instantiations; the MLA step runs the
+        float32 ones)."""
+        self.tp_flash_bwd("minicpm3", 10, 10, 96)
+        self.tp_flash_fwd("minicpm3", 10, 10, 96)
+
+    def tp_flash_bwd(self, who, hq, hkv, D):
+        """The flash backward pair at ``who``'s model-4 rank shape of the
+        step (B 2, S 4,096; ``hq`` q heads, ``hkv`` KV heads, head dim
+        ``D``, causal, no window): held to the plain backward in bf16 and
+        float32 as *flash_bwd* holds it, two launches bit-equal; then in
+        bf16 timed beside the plain backward and one SDPA backward."""
         torch, Fa = self.torch, self.Fa
-        from repro_torch.models.attention import flash_or_ref
-        hq, hkv, D, item = 4, 2, 64, 2
+        item = 2
         B, S = TP_B // TP_MESH[0], TRAIN_S
         saved = (Fa.flash_fwd.launches, Fa.flash_bwd.launches_dq,
                  Fa.flash_bwd.launches_dkv)
@@ -5469,51 +5592,27 @@ class Smoke:
             again = Fa.flash_bwd(*views[:4], lse, views[4], window=0)
             torch.cuda.synchronize()
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                fail("tp", f"flash backward at granite's rank shape, {dtype}"
-                           ": two launches give different bits")
+                fail("tp", f"flash backward at {who}'s rank shape, {dtype}: "
+                           "two launches give different bits")
             ok, (eq, ekv), msg = self.bwd_close(
                 [x.reshape(-1, S, D) for x in got], want, dtype)
             self.max_err["flash_dq"] = max(self.max_err["flash_dq"], eq)
             self.max_err["flash_dkv"] = max(self.max_err["flash_dkv"], ekv)
             if not ok:
-                fail("tp", f"flash backward at granite's rank shape (B {B}, "
+                fail("tp", f"flash backward at {who}'s rank shape (B {B}, "
                            f"heads {hq}/{hkv}, S {S}, D {D}), {dtype}: {msg}"
                            " against the plain backward")
             msgs.append(f"{dtype} {msg}")
             del q, k, v, o, lse, do, flat, want, views, got, again
         Fa.flash_fwd.launches, Fa.flash_bwd.launches_dq, \
             Fa.flash_bwd.launches_dkv = saved
-        say("tp", f"flash backward (D-64 kernels) at granite's model-4 rank "
-                  f"shape (B {B}, heads {hq}/{hkv}, S {S}, D {D}, causal) "
-                  f"against the plain backward: max abs err "
+        inst = 64 if D <= 64 else 128
+        say("tp", f"flash backward (D-{inst} kernels) at {who}'s model-4 "
+                  f"rank shape (B {B}, heads {hq}/{hkv}, S {S}, D {D}, "
+                  f"causal) against the plain backward: max abs err "
                   f"{'; '.join(msgs)} (row tolerance {ROW_TOL}, float32 "
                   f"also allclose {REF_GRAD_TOL}); two launches bit-equal; "
                   f"card {self.card}")
-        Sp = PREFILL_S
-        q, k, v = self.attn_inputs(1, hq, hkv, Sp, D, "bfloat16")
-        views = [x.transpose(1, 2) for x in (q, k, v)]
-        k_dev, k_wall = timed(lambda: Fa.flash_fwd(*views), 10, torch)
-        Fa.flash_fwd.launches = saved[0]
-        pos = torch.arange(Sp, device=self.dev)[None]
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        flash_or_ref(q, k, v, pos, pos)
-        b.record()
-        torch.cuda.synchronize()
-        p_ms = a.elapsed_time(b)
-        lib = self.sdpa_ms(q, k, v, 0)
-        self.report(f"tp rank granite S={Sp}", "flash_fwd", "flash_fwd.cu",
-                    "src/repro/kernels/flash_attention/kernel.py:44",
-                    k_dev, k_wall, p_ms, p_ms,
-                    item * Sp * D * (2 * hq + 2 * hkv) + 4 * hq * Sp,
-                    4 * D * (Sp * (Sp + 1) // 2) * hq, 1,
-                    peak=BF16_OPS_PER_S, library_ms=lib,
-                    note=f"(granite's model-4 rank: BH={hq}, KV heads {hkv}, "
-                         f"D={D}, causal, no window, bf16; plain: one call "
-                         "of the chunked plain version; library: "
-                         "is_causal=True)")
-        del q, k, v, views
         q, k, v, o, lse, do = self.bwd_inputs(B, hq, hkv, S, D, "bfloat16",
                                               0)
         views = [x.transpose(1, 2) for x in (q, k, v, o, do)]
@@ -5529,17 +5628,17 @@ class Smoke:
             *flat[:4], lse.reshape(-1, S), flat[4], window=0), 1, torch)
         pairs = B * hq * S * (S + 1) // 2
         stats = 2 * 4 * B * hq * S
-        note = (f"(granite's model-4 rank: BH={B * hq}, KV heads {hkv}, "
+        note = (f"({who}'s model-4 rank: BH={B * hq}, KV heads {hkv}, "
                 f"D={D}, causal, bf16; plain: dq, dk and dv in one call; "
                 "library: one SDPA backward)")
-        self.report(f"tp rank granite B={B} S={S}", "flash_dq",
+        self.report(f"tp rank {who} B={B} S={S}", "flash_dq",
                     "flash_bwd.cu",
                     "src/repro/kernels/flash_attention/kernel.py:124",
                     dq_dev, dq_wall, p_dev, p_wall,
                     item * B * S * D * (3 * hq + 2 * hkv) + stats,
                     6 * D * pairs, 1, note=note, peak=BF16_OPS_PER_S,
                     library_ms=lib)
-        self.report(f"tp rank granite B={B} S={S}", "flash_dkv",
+        self.report(f"tp rank {who} B={B} S={S}", "flash_dkv",
                     "flash_bwd.cu",
                     "src/repro/kernels/flash_attention/kernel.py:159",
                     dkv_dev, dkv_wall, p_dev, p_wall,
@@ -5549,7 +5648,61 @@ class Smoke:
         del q, k, v, o, lse, do, views, call, flat
         torch.cuda.empty_cache()
 
-    # ------------------------------------- 28. launch: cells and dry-run
+    def tp_flash_fwd(self, who, hq, hkv, D):
+        """The flash forward at ``who``'s model-4 rank shape of the prefill
+        (1 x PREFILL_S; ``hq`` q heads, ``hkv`` KV heads, head dim ``D``,
+        causal, no window, bf16): held to the chunked plain attention and
+        lse in float32 on the same values as the flash phase holds
+        danube's main shape, then timed beside one call of the chunked
+        plain version and one causal SDPA call, with its bound."""
+        torch, Fa = self.torch, self.Fa
+        from repro_torch.models.attention import (flash_or_ref,
+                                                  ref_attention_chunked)
+        item, Sp = 2, PREFILL_S
+        q, k, v = self.attn_inputs(1, hq, hkv, Sp, D, "bfloat16")
+        views = [x.transpose(1, 2) for x in (q, k, v)]
+        saved = Fa.flash_fwd.launches
+        k_dev, k_wall = timed(lambda: Fa.flash_fwd(*views), 10, torch)
+        o, lse = Fa.flash_fwd(*views)
+        Fa.flash_fwd.launches = saved
+        pos = torch.arange(Sp, device=self.dev)[None]
+        kf = k.float()
+        o_ref = ref_attention_chunked(q.float(), kf, v.float(), pos, pos)
+        l_ref = chunked_lse(torch, q.float(), kf, 0, 1 / math.sqrt(D))
+        ok, eo, msg = self.attn_close(o.transpose(1, 2), lse.transpose(1, 2),
+                                      o_ref, l_ref, *FLASH_TOL["bfloat16"])
+        self.max_err["flash_fwd"] = max(self.max_err["flash_fwd"], eo)
+        name = (f"flash forward at {who}'s rank shape (heads {hq}/{hkv}, "
+                f"D={D}, S={Sp}, causal, bf16)")
+        if not ok:
+            fail("tp", f"{name} against its plain version: {msg}")
+        say("tp", f"{name} against the chunked plain version in float32: "
+                  f"max abs err {msg} (tolerance o {FLASH_TOL['bfloat16'][0]}"
+                  f", lse {FLASH_TOL['bfloat16'][1]}, row {ROW_TOL}, lse abs "
+                  f"{LSE_ABS})")
+        del o, lse, o_ref, l_ref, kf
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        flash_or_ref(q, k, v, pos, pos)
+        b.record()
+        torch.cuda.synchronize()
+        p_ms = a.elapsed_time(b)
+        lib = self.sdpa_ms(q, k, v, 0)
+        self.report(f"tp rank {who} S={Sp}", "flash_fwd", "flash_fwd.cu",
+                    "src/repro/kernels/flash_attention/kernel.py:44",
+                    k_dev, k_wall, p_ms, p_ms,
+                    item * Sp * D * (2 * hq + 2 * hkv) + 4 * hq * Sp,
+                    4 * D * (Sp * (Sp + 1) // 2) * hq, 1,
+                    peak=BF16_OPS_PER_S, library_ms=lib,
+                    note=f"({who}'s model-4 rank: BH={hq}, KV heads {hkv}, "
+                         f"D={D}, causal, no window, bf16; plain: one call "
+                         "of the chunked plain version; library: "
+                         "is_causal=True)")
+        del q, k, v, views
+        torch.cuda.empty_cache()
+
+    # ------------------------------------- 27. launch: cells and dry-run
     def launch(self):
         """The dry-run's records and its predictions held to the card (their
         meta runs started with the run: :meth:`start_launch`)."""
@@ -5576,6 +5729,7 @@ class Smoke:
         self.launch_partitioned(futs[LAUNCH_PREDS["tp_moe"]], TP_LAUNCH_MOE)
         self.launch_partitioned(futs[LAUNCH_PREDS["tp_hybrid"]],
                                 TP_LAUNCH_HYBRID)
+        self.launch_partitioned(futs[LAUNCH_PREDS["tp_mla"]], TP_LAUNCH_MLA)
         for t in LAUNCH_RECORDS:
             r = futs[t].result()
             mem = r["memory"]
@@ -5695,9 +5849,12 @@ class Smoke:
         plain, flops, peak = self.launch_run(cell, args)
         secs = time.time() - t0
         self.launch_hold("danube prefill_32k (plain)", pred, flops, peak)
+        golden_side = ", beside the goldens' two worker processes" \
+            if self.golden_futs else ""
         say("launch", f"danube prefill_32k, {tuple(args[1]['tokens'].shape)}"
                       f" tokens: {secs:.3f} s (wall, under the flop "
-                      f"counter), {flops / secs / 1e12:.1f} TFLOP/s; "
+                      f"counter{golden_side}), {flops / secs / 1e12:.1f} "
+                      f"TFLOP/s; "
                       f"t_compute {1e3 * flops / PEAK_FLOPS:.1f} ms at 989 "
                       f"TFLOP/s ({flops / PEAK_FLOPS / secs:.1%} of it)")
         cell.model.use_flash = True
@@ -5755,7 +5912,8 @@ class Smoke:
 
     def launch_partitioned(self, fut, which):
         """A partitioned record (``which``: TP_LAUNCH, TP_LAUNCH_MOE,
-        TP_LAUNCH_HYBRID): one rank's program alone on the card, on its
+        TP_LAUNCH_HYBRID, TP_LAUNCH_MLA): one rank's program alone on the
+        card, on its
         blocks of the args, against the meta prediction (flops equal, peak
         within TP_LAUNCH_BAND)."""
         torch = self.torch
@@ -5772,7 +5930,7 @@ class Smoke:
         opt.step.fill_(make_train_config(cell.arch, cell.shape).warmup_steps)
         mixer = params["blocks"]["0"].get("attn") or \
             params["blocks"]["0"]["ssm"]
-        leaf = "wq" if "wq" in mixer else "wz"
+        leaf = next(k for k in ("wq", "wq_a", "wz") if k in mixer)
         wq = mixer[leaf]
         (params, opt, metrics), _, peak = self.launch_run(
             cell, args, count=False, lone=mesh)
@@ -5827,7 +5985,7 @@ class Smoke:
                       f"faults fail the band: {'; '.join(caught)}")
         del args, cache, logits, out
 
-    # --------------------------------------- 28. 512 hosts, 8 lanes, tiled
+    # --------------------------------------- 29. 512 hosts, 8 lanes, tiled
     def grid512(self):
         torch, T, Tl, Wn, Rf = self.torch, self.T, self.Tl, self.Wn, self.Rf
         from repro_torch.kernels.netsim_tick import ops
@@ -5905,7 +6063,7 @@ class Smoke:
                        + (f", first at tick {first}" if first is not None
                           else "") + f"; throughput max abs diff {err}")
 
-    # ------------------------------------------------------- 29. control
+    # ------------------------------------------------------- 30. control
     def control(self):
         torch, T, Wn = self.torch, self.T, self.Wn
         topo, wl, cfg = table1(T)
@@ -5955,7 +6113,7 @@ class Smoke:
                        f"for bit (alpha max {oa.stats.alpha_max:.0f}, queue "
                        f"max {oa.stats.qmax:.0f} B)")
 
-    # -------------------------------------------------------- 30. timing
+    # -------------------------------------------------------- 31. timing
     def timing(self):
         torch, K, Rf, Wn, Tl = self.torch, self.K, self.Rf, self.Wn, self.Tl
         from repro_torch.core.netsim.stages import stage_starts
@@ -6569,7 +6727,7 @@ class Smoke:
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 library_ms=library_ms))
 
-    # ------------------------------------------------------ 31. profile
+    # ------------------------------------------------------ 32. profile
     def profile(self):
         torch, T = self.torch, self.T
         from repro_torch.core.netsim.simulator import _window_body
@@ -6864,13 +7022,16 @@ def main(argv) -> int:
     try:
         for p in PHASES:
             if p in phases:
+                if p == "launch" and "goldens" in phases:
+                    smoke.start_goldens()
                 t0 = time.time()
                 getattr(smoke, p)()
                 say(p, f"phase done in {time.time() - t0:.1f} s (host probe "
                        f"{host_ms():.1f} ms, load {os.getloadavg()[0]:.2f})")
     finally:
-        if smoke.launch_pool is not None:
-            smoke.launch_pool.shutdown(cancel_futures=True)
+        for pool in (smoke.launch_pool, smoke.golden_pool):
+            if pool is not None:
+                pool.shutdown(cancel_futures=True)
     say("all", f"{len(phases)} phases in {time.time() - t_all:.1f} s")
     if phases != list(PHASES):
         return 0

@@ -13,6 +13,8 @@ stops the run before anything is built.  Run from the repository root:
 
     python3 chip_variants.py flash [--against DIR]
     python3 chip_variants.py ssd
+    python3 chip_variants.py tp_repeat [N] [ARCH]
+    python3 chip_variants.py alias_race [N]
 
 ``flash`` (``csrc/flash_fwd.cu``) has four variants that compute the same
 function:
@@ -57,6 +59,19 @@ the profiler:
 
 then the card's ``mma.sync`` m16n8k8 TF32 and m16n8k16 bf16 rates (a loop
 of independent accumulators, 8 blocks an SM), TFLOP/s.
+
+``tp_repeat [N] [ARCH]`` is no kernel variant: it repeats
+``chip_smoke.py``'s tensor-parallel step check of granite (or ARCH:
+``minicpm3_4b``, ``mamba2_130m``; ``tp_family_train``: grad_sync xla and
+ring against one device) N times (default 20) in one process, after
+danube's ``tp_train`` and ``tp_prefill`` as the full run orders them, and
+prints each repeat's worst gradient per mode, its peak memory and the
+memory left allocated before it (a failed check is printed and the
+repeat goes on; a step whose worst gradient passes 1e-5 also prints its
+worst leaves and each router's error by model rank).  ``alias_race [N]``
+runs the fault of the cross-rank copy that ``spmd._Copy`` replaced alone
+N times (default 200), with that plain copy and the shipped one
+(``run_alias_race``): the card's guard against that fault's return.
 """
 from __future__ import annotations
 
@@ -67,6 +82,7 @@ import re
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 from typing import Callable
 
@@ -479,13 +495,159 @@ def run_ssd(torch, cs) -> bool:
     return True
 
 
+READING = re.compile(r"grad_sync (\w+)\W.*?worst gradient \(?([0-9.e+-]+|inf)"
+                     r"(?: rel L2 \(|, ')([\w.]+)")
+PEAK = re.compile(r"peak memory ([0-9.]+) GiB")
+
+
+@contextlib.contextmanager
+def _patched(obj, name: str, value):
+    """Within: ``obj.name`` is ``value``."""
+    real = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, real)
+
+
+class _PlainCopy:
+    """The cross-rank copy that ``spmd._Copy`` replaced: ``Tensor.to``,
+    whose backward hands every sender the receiver's gradient itself."""
+
+    @staticmethod
+    def apply(x, dev):
+        return x.to(dev, copy=True, non_blocking=dev.type == "cuda")
+
+
+def _leaf_log(cs, names: list, experts: int, tp: int):
+    """``chip_smoke.finite_rel`` made to log each call: yields a function
+    that prints, for a step whose worst gradient passed 1e-5, its four
+    worst leaves and each router's error per model rank's block of
+    experts (tp_family_train takes each leaf's gradient error in
+    parameter order, then each update's)."""
+    real, calls = cs.finite_rel, []
+
+    def logged(torch, a, b):
+        r = real(torch, a, b)
+        blocks = None
+        if a.ndim == 2 and a.shape[-1] == experts:
+            blocks = [real(torch, x, y) for x, y in
+                      zip(a.chunk(tp, -1), b.chunk(tp, -1))]
+        calls.append((r, blocks))
+        return r
+
+    def report(i):
+        n = len(names)
+        for m, mode in enumerate(("xla", "ring")):
+            grads = calls[2 * n * m: 2 * n * m + n]
+            if len(grads) < n or max(r for r, _ in grads) <= 1e-5:
+                continue
+            worst = sorted(zip(grads, names), key=lambda x: -x[0][0])[:4]
+            print(f"[tp_repeat] repeat {i} {mode}: worst leaves "
+                  + ", ".join(f"{k} {r:.3g}" for (r, _), k in worst)
+                  + "; routers by model rank's block: "
+                  + ", ".join(f"{k} {[float(f'{x:.3g}') for x in b]}"
+                              for (r, b), k in zip(grads, names) if b),
+                  flush=True)
+        calls.clear()
+
+    cs.finite_rel = logged
+    return report
+
+
+def run_tp_repeat(torch, cs, repeats: int, arch: str) -> bool:
+    """``arch``'s tensor-parallel step check (``chip_smoke.py``
+    ``tp_family_train``: grad_sync xla, then ring, each against one
+    device) ``repeats`` times in one process, after danube's ``tp_train``
+    and ``tp_prefill`` as the full run orders them.  A failed check is
+    printed and the repeat goes on.  One line a repeat: each mode's worst
+    gradient and its leaf, the step's peak memory, and the memory
+    allocated before the repeat, before and after a garbage collection;
+    for a mode whose worst gradient passed 1e-5, its worst leaves and the
+    routers' error by model rank."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import make_model
+    smoke = cs.Smoke(torch)
+    smoke.build()
+    cfg = dataclasses.replace(registry.get_config(arch),
+                              num_layers=cs.DP_LAYERS)
+    dp, tp = cs.TP_MESH
+    names = [k for k, _ in make_model(
+        cfg, device="meta", mesh=make_mesh(cs.TP_MESH, ("data", "model"),
+                                           ["meta"] * (dp * tp)))
+        .named_parameters()]
+    report = _leaf_log(cs, names, cfg.moe.num_experts if cfg.moe else -1,
+                       tp)
+    heard, say, fail = [], cs.say, cs.fail
+
+    def hearing(phase, msg):
+        heard.append(msg)
+        say(phase, msg)
+
+    def failing(phase, msg):
+        print(f"[{phase}] FAILED (the repeat goes on): {msg}", flush=True)
+
+    cs.say, cs.fail = hearing, failing
+    rows = []
+    smoke.tp_train()
+    smoke.tp_prefill()
+    for i in range(repeats):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        found = gc.collect()
+        after = torch.cuda.memory_allocated()
+        heard.clear()
+        t0 = time.time()
+        try:
+            smoke.tp_family_train(arch)
+        except Exception as e:  # noqa: BLE001 - a reading
+            print(f"[tp_repeat] repeat {i}: {type(e).__name__}: {e}",
+                  flush=True)
+        report(i)
+        got = []
+        for msg in heard:
+            m, p = READING.search(msg), PEAK.search(msg)
+            if m:
+                got.append((m[1], float(m[2]), m[3], p[1] if p else "?"))
+        rows.append(got)
+        print(f"[tp_repeat] repeat {i}: " + ("; ".join(
+            f"{mo} {v:.3g} ({k}, peak {pk} GiB)" for mo, v, k, pk in got)
+            or "no reading")
+            + f"; allocated before {before / 2**30:.3f} GiB, after a garbage"
+            f" collection ({found} objects) {after / 2**30:.3f} GiB; "
+            f"{time.time() - t0:.1f} s", flush=True)
+    cs.say, cs.fail = say, fail
+    bad = sum(v > cs.TP_GRAD_REL_L2 for got in rows for _, v, _, _ in got)
+    missing = sum(2 - len(got) for got in rows)
+    print(f"[tp_repeat] {arch}, {repeats} repeats: {bad} readings past "
+          f"{cs.TP_GRAD_REL_L2}, {missing} missing; card {card()}",
+          flush=True)
+    return bad == 0 and missing == 0
+
+
 def main(argv) -> int:
     against = None
+    if argv[:1] == ["tp_repeat"]:
+        return tp_repeat_main(argv[1:])
+    if argv[:1] == ["alias_race"] and (len(argv) == 1 or argv[1].isdigit()):
+        import torch
+        if not torch.cuda.is_available():
+            print("chip_variants: no CUDA device", file=sys.stderr)
+            return 2
+        sys.path.insert(0, str(ROOT / "src"))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        return 0 if run_alias_race(
+            torch, int(argv[1]) if len(argv) > 1 else 200) else 1
     if argv[:1] == ["flash"] and argv[1:2] == ["--against"] and \
             len(argv) == 3:
         against = Path(argv[2]).resolve()
     elif argv not in (["flash"], ["ssd"]):
-        print("usage: chip_variants.py flash [--against CSRC_DIR] | ssd",
+        print("usage: chip_variants.py flash [--against CSRC_DIR] | ssd | "
+              "tp_repeat [N] [ARCH] | alias_race [N]",
               file=sys.stderr)
         return 2
     import torch
@@ -498,6 +660,86 @@ def main(argv) -> int:
     ok = (run_flash(torch, cs, against) if argv[0] == "flash"
           else run_ssd(torch, cs))
     return 0 if ok else 1
+
+
+def run_alias_race(torch, trials: int) -> bool:
+    """The pattern of the MoE aux loss alone, ``trials`` times with the
+    cross-rank copy that ``spmd._Copy`` replaced (``_PlainCopy``) and with the
+    shipped one: on (data 2, model 4) over the card, rank r sums ``a @
+    w_r`` (a scalar, as a rank's aux loss is) and ``pmean``s it over every
+    rank; one backward from ranks 0 and 4 (the two data ranks' model-0
+    ranks, as the loss's two data ranks) gives every ``w_r`` its gradient
+    ``a.sum(0)`` / 4 broadcast.  Before the backward the odd ranks'
+    streams are given ``busy`` matrix products, so that their gradient
+    sums queue behind them while the even ranks' run at once.  Prints the
+    trials whose gradients part from the exact value by more than 1e-4 of
+    it, for each copy."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import spmd
+    from repro_torch.parallel.spmd import P
+    dev = torch.device("cuda")
+    mesh = make_mesh((2, 4), ("data", "model"), [dev] * 8)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    N, busy = 2048, 8
+    a = torch.randn(N, N, device=dev, generator=gen)
+    want = (a.sum(0)[:, None] / 4).expand(N, N)
+    ok = True
+    for name, copy in (("plain copy (before the fix)", _PlainCopy),
+                       ("shipped copy", spmd._Copy)):
+        bad, worst = 0, 0.0
+        with _patched(spmd, "_Copy", copy):
+            for _ in range(trials):
+                ws = [torch.ones(N, N, device=dev, requires_grad=True)
+                      for _ in range(8)]
+                outs = [None] * 8
+
+                def f(_, ws=ws, outs=outs):
+                    r = spmd.rank_index()
+                    outs[r] = spmd.pmean((a @ ws[r]).sum(),
+                                         ("data", "model"))
+                    return outs[r].detach()
+
+                spmd.shard_map(f, mesh=mesh, in_specs=P(),
+                               out_specs=P())(a[:1, :1])
+                for r in range(1, 8, 2):
+                    with torch.no_grad(), torch.cuda.stream(
+                            spmd._rank_stream(r, dev)):
+                        for _ in range(busy):
+                            a @ a
+                gs = torch.autograd.grad(outs[0] + outs[4], ws)
+                torch.cuda.synchronize()
+                err = max(float((g - want).abs().max() / want.abs().max())
+                          for g in gs)
+                worst = max(worst, err)
+                bad += err > 1e-4
+        print(f"[alias_race] {name}: {bad} of {trials} trials with a "
+              f"gradient off by more than 1e-4, worst {worst:.3g}; card "
+              f"{card()}", flush=True)
+        ok = ok and (bad == 0 or copy is _PlainCopy)
+    return ok
+
+
+TP_REPEAT_ARCHS = ("granite_moe_1b_a400m", "minicpm3_4b", "mamba2_130m")
+
+
+def tp_repeat_main(argv) -> int:
+    arch = next((a for a in argv if a in TP_REPEAT_ARCHS), TP_REPEAT_ARCHS[0])
+    rest = [a for a in argv if a != arch]
+    if len(rest) > 1 or (rest and not rest[0].isdigit()):
+        print(f"usage: chip_variants.py tp_repeat [N] [ARCH]; ARCH one of "
+              f"{TP_REPEAT_ARCHS}", file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_variants: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return 0 if run_tp_repeat(torch, cs, int(rest[0]) if rest else 20,
+                              arch) else 1
 
 
 if __name__ == "__main__":

@@ -9,17 +9,17 @@ dtypes, no values, no allocation) and counts what it does:
 * **Meshes** are the production meshes over meta devices
   (``make_production_mesh(multi_pod=..., devices=["meta"] * n)``).
 * **A rank's share** (:func:`rank_share`).  A *partitioned* cell (the
-  dense GQA, MoE, SSM and hybrid families' ``train`` and ``prefill``
-  cells on a ``model`` axis larger than 1, ``Cell.partitioned``) runs one
-  rank's partitioned program: every argument is cut to the rank's block
-  by its sharding (the optimizer state as its parameter is: the ZeRO-1
+  dense GQA and MLA, MoE, SSM and hybrid families' ``train`` and
+  ``prefill`` cells on a ``model`` axis larger than 1,
+  ``Cell.partitioned``) runs one rank's partitioned program: every
+  argument is cut to the rank's block by its sharding (the optimizer state as its parameter is: the ZeRO-1
   sharding over ``pod`` of the multi-pod mesh is not partitioned, and the
   record says so), and the run is alone in :func:`~repro_torch.parallel.spmd.lone_rank` mode,
   whose collectives keep their shapes and are recorded.  Every other cell
   splits the batch axes of the inputs and the decode cache over ``(pod,
   data)`` as ``batch_axes`` places them and runs at full model width
-  (GSPMD's partitioning of decode and of the MLA, VLM and
-  encoder-decoder families is ROADMAP queue 1 item 1, left 6; such a
+  (GSPMD's partitioning of decode and of the VLM and encoder-decoder
+  families is ROADMAP queue 1 item 1, left 6; such a
   run's MoE layers dispatch on one device): ``memory.temp`` is then
   measured at that width, the record says so
   (``temp_at_full_model_width``), and ``flops_per_device`` and
@@ -129,9 +129,8 @@ HBM_SPEC_BYTES = 80 * 1024**3       # the spec sheet's "80 GB" (not used)
 ALLOC_BYTES = 512            # the CUDA caching allocator's rounding
 BATCH_AXES = frozenset(("pod", "data"))
 NOT_PORTED = ("tensor-parallel all-reduces and all-gathers over 'model' "
-              "(GSPMD's partitioning of decode cells and of the MLA, VLM "
-              "and encoder-decoder families: ROADMAP queue 1 item 1, "
-              "left 6)",
+              "(GSPMD's partitioning of decode cells and of the VLM and "
+              "encoder-decoder families: ROADMAP queue 1 item 1, left 6)",
               "FSDP parameter all-gathers over 'data' (GSPMD, left 6)")
 ZERO1_POD = ("ZeRO-1 of the optimizer state over 'pod' (the partitioned "
              "program holds it as its parameter: ROADMAP queue 1 item 1, "

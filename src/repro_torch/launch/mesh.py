@@ -17,7 +17,7 @@ CPU.  Building a mesh touches no device.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -31,9 +31,6 @@ class Mesh:
     shape, axes in the order of ``axis_names``."""
     axis_names: tuple[str, ...]
     devices: np.ndarray
-    # one CUDA stream a rank position, made at first use and kept, so that
-    # the caching allocator's per-stream pools stay the same across calls
-    streams: dict = field(default_factory=dict, repr=False)
 
     def __post_init__(self):
         if self.devices.ndim != len(self.axis_names):

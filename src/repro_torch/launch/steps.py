@@ -23,20 +23,19 @@ outputs are the donated inputs themselves.  The optimizer's step counter
 is the exception: ``adamw_update`` returns a new one.
 
 ``fn`` runs what one device runs when the mesh has a single device.  A
-dense GQA, MoE, SSM or hybrid ``train`` or ``prefill`` cell on a mesh
-whose ``model`` axis is larger than 1 is *partitioned*
+dense GQA or MLA, MoE, SSM or hybrid ``train`` or ``prefill`` cell on a
+mesh whose ``model`` axis is larger than 1 is *partitioned*
 (``Cell.partitioned``): its ``fn`` is one rank's program
 (``models/lm.py``'s tensor-parallel forward, the SSM mixer on the rank's
 heads and the MoE's expert dispatch over the rank's ``model`` group among
-it, the
-vocabulary-parallel :func:`cross_entropy_tp`, :func:`~repro_torch.
+it, the vocabulary-parallel :func:`cross_entropy_tp`, :func:`~repro_torch.
 collectives.scheduler.sync_grads_tp` and AdamW on the rank's blocks),
 run inside a rank that is manual over every mesh axis on the rank's
 blocks of the args (:func:`~repro_torch.launch.dryrun.rank_share`); the
 dry-run runs it alone (``spmd.lone_rank``), and the real ranks' training
 step is ``runtime.make_train_step``'s.  Every other cell on a larger mesh
 (the decode cells, whose tensor parallelism is ROADMAP queue 1 item 1,
-left 6 item 6, and the MLA, VLM and encoder-decoder cells, left 6) runs
+left 6 item 6, and the VLM and encoder-decoder cells, left 6) runs
 one rank's share of the batch at full model width.
 """
 from __future__ import annotations

@@ -28,14 +28,15 @@ groups.  With ``par.remat`` other than ``"none"`` each block runs under
 the reference's per-group ``jax.checkpoint`` at period 1 and its per
 sub-layer checkpoint under ``remat="full"`` at period > 1.
 
-**Tensor parallelism** (the dense GQA, MoE, SSM and hybrid families,
-:func:`tp_ported`, under a mesh whose ``model`` axis is larger than 1):
+**Tensor parallelism** (the dense GQA and MLA, MoE, SSM and hybrid
+families, :func:`tp_ported`, under a mesh whose ``model`` axis is larger
+than 1):
 the reference's GSPMD partitioning by ``make_rules`` as an explicit
 per-rank program.  :meth:`LM.shard` gives one :class:`LM` a rank of the
 mesh holding its blocks of the parameters (``spec_for(ParamSpec.axes,
-rules, mesh)``: ``vocab``, ``heads``, ``mlp``, ``experts`` and
-``ssm_heads`` over ``model``, ``embed`` and ``expert_mlp`` over ``data``
-under FSDP), :meth:`LM.gather` writes them back.  ``apply`` inside a
+rules, mesh)``: ``vocab``, ``heads``, ``mlp``, ``experts``,
+``ssm_heads`` and ``q_lora`` over ``model``, ``embed`` and
+``expert_mlp`` over ``data`` under FSDP), :meth:`LM.gather` writes them back.  ``apply`` inside a
 rank that is manual over ``model`` runs :meth:`LM._apply_tp` (Megatron
 form: vocabulary-parallel embedding, column-parallel q/k/v and MLP up,
 row-parallel ``wo`` summed over ``model``, logits ``[B, S, V/tp]``); with
@@ -48,7 +49,13 @@ blocks of the heads (``ssm_dims`` pads them to ``tp``; ``wB``, ``wC`` and
 does), a column- and row-parallel segment like attention: its conv,
 scan, skip and gated RMSNorm are per channel or per head (the norm's mean
 is over ``head_dim``), so its one collective is the sum of the partial
-``wo`` product.  A MoE layer is ``x + moe(ln2(x))`` on the rank's
+``wo`` product.  An MLA layer (:meth:`LM._mla_tp`) takes ``q_lora``
+over ``model`` as the reference's rules do: the rank's block of the q
+latent, the q RMSNorm's sum of squares psummed over ``model``, its
+partial q (``wq_b``'s rows) reduce-scattered over ``model`` along the
+heads, the latent and rope key whole (``wkv_a`` and ``kv_norm`` are
+replicated), K and V of its heads, and its row-parallel ``wo`` product
+summed like attention's.  A MoE layer is ``x + moe(ln2(x))`` on the rank's
 own residual, the tokens the reference's ``shard_map`` gives the rank (a
 sequence shard under Megatron-SP, else all of the rank's batch): the
 reference's expert-parallel body (:func:`~.moe.moe_rank`) routes them with
@@ -59,15 +66,17 @@ loss is ``pmean``-ed over every manual axis and summed over layers as
 with :func:`~repro_torch.parallel.spmd.gather_static` where they are
 used (and again in the recompute).  With remat, only the rank-local
 segments between collectives are checkpointed (norm -> projections ->
-attention or the SSM mixer -> ``wo``; norm -> MLP; norm -> router ->
-buckets, the experts, the combine), so no recompute calls a collective;
+attention or the SSM mixer -> ``wo``; MLA's norm -> q latent, norm ->
+partial q, norm -> latent -> attention -> ``wo``; norm -> MLP; norm ->
+router -> buckets, the experts, the combine), so no recompute calls a
+collective;
 the gathered sequence each segment starts from is kept.  ``apply``
 outside a rank runs the ranks under
 :func:`~repro_torch.parallel.spmd.shard_map` (its rank modules cached
 until a parameter of the model changes) and returns the logits
 assembled from their vocabulary blocks and the ranks' aux loss.
-MLA, the VLM and the encoder-decoder raise under a ``model`` axis larger
-than 1 (``models/model.py``).
+The VLM and the encoder-decoder raise under a ``model`` axis larger than
+1 (``models/model.py``).
 
 MLA layers (``cfg.attention == "mla"``) keep their parameters under
 ``attn`` as the reference does and one :class:`~.mla.MLACache` (latent and
@@ -92,7 +101,8 @@ from .attention import (KVCache, attention_block, attention_block_tp,
                         attn_spec, decode_attention, effective_kv_heads)
 from .layers import (apply_embed, apply_embed_tp, apply_mlp, apply_norm,
                      apply_unembed, embed_spec, mlp_spec, norm_spec)
-from .mla import MLACache, init_mla_cache, mla_block, mla_decode, mla_spec
+from .mla import (MLACache, init_mla_cache, mla_attn_tp, mla_block,
+                  mla_decode, mla_q_tp_a, mla_q_tp_b, mla_spec)
 from .moe import moe_block, moe_rank, moe_spec, shared_expert
 from .ssm import SSMCache, init_ssm_cache, ssm_block, ssm_decode, ssm_spec
 
@@ -103,11 +113,12 @@ TP_LEFT = "ROADMAP queue 1 item 1, left 6"
 
 def tp_ported(cfg: ModelConfig) -> bool:
     """Whether tensor parallelism over ``model`` is ported for ``cfg``'s
-    family: the dense GQA, MoE and hybrid families with GQA and RoPE, and
-    the attention-free SSM family."""
+    family: the dense GQA, MoE and hybrid families with GQA and RoPE, the
+    dense MLA family, and the attention-free SSM family."""
     return (cfg.family, cfg.attention, cfg.pos_emb) in (
-        ("dense", "gqa", "rope"), ("moe", "gqa", "rope"),
-        ("hybrid", "gqa", "rope"), ("ssm", "none", "none"))
+        ("dense", "gqa", "rope"), ("dense", "mla", "rope"),
+        ("moe", "gqa", "rope"), ("hybrid", "gqa", "rope"),
+        ("ssm", "none", "none"))
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -447,10 +458,13 @@ class LM(nn.Module):
             return spmd.psum_scatter(part, "model", 1) if sp else \
                 spmd.psum(part, "model")
 
+        def gathered(x):
+            return spmd.all_gather(x, "model", 1) if sp else x
+
         def across(segment, x):
             """The sum over ``model`` of ``segment`` on the (gathered)
             residual; only the rank-local segment is recomputed."""
-            h = spmd.all_gather(x, "model", 1) if sp else x
+            h = gathered(x)
             part = checkpoint(segment, h, use_reentrant=False) if remat \
                 else segment(h)
             return reduce(part)
@@ -464,7 +478,10 @@ class LM(nn.Module):
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         aux = group = zero
         for i, bp in enumerate(self.blocks):
-            if self.layer_kind(i) == "attn":
+            if self.layer_kind(i) == "attn" and cfg.attention == "mla":
+                x = x + reduce(self._mla_tp(bp, gathered(x), positions,
+                                            gather, remat, r))
+            elif self.layer_kind(i) == "attn":
                 x = sub(lambda h, bp=bp: attention_block_tp(
                     gather(bp.attn), apply_norm(bp.ln1, h, cfg), cfg,
                     positions, self.use_flash, r, tp), x)
@@ -488,6 +505,40 @@ class LM(nn.Module):
         logits = constrain(logits, ("batch", "seq", "act_heads"), rules,
                            mesh, (bg, S, self.vocab_padded))
         return logits, aux
+
+    def _mla_tp(self, bp: Block, h: torch.Tensor, positions, gather,
+                remat: bool, rank: int) -> torch.Tensor:
+        """An MLA layer's attention on the rank's gathered residual ``h``
+        (``models/mla.py``): the sum of squares of its block of the q
+        latent psummed over ``model``, its partial q reduce-scattered over
+        ``model`` along the heads, and its partial ``wo`` product, which
+        the caller sums.  With remat the three rank-local pieces between
+        the collectives are checkpointed apart (each of the first and the
+        last normalizes ``h`` itself, so only ``h`` is held), so no
+        recompute calls a collective and the collectives' outputs are
+        kept; without remat the norm runs once."""
+        cfg, attn = self.cfg, bp.attn
+
+        def run(piece, *args):
+            return checkpoint(piece, *args, use_reentrant=False) if remat \
+                else piece(*args)
+
+        def held(*keys) -> dict:
+            return gather({k: attn[k] for k in keys})
+
+        def norm(h):
+            return apply_norm(bp.ln1, h, cfg) if remat else h
+
+        if not remat:
+            h = apply_norm(bp.ln1, h, cfg)
+        ql, sq = run(lambda h: mla_q_tp_a(held("wq_a")["wq_a"], norm(h)), h)
+        sq = spmd.psum(sq, "model")
+        q = run(lambda ql, sq: mla_q_tp_b(held("q_norm", "wq_b"), ql, sq,
+                                          cfg, rank), ql, sq)
+        q = spmd.psum_scatter(q, "model", 2)
+        return run(lambda h, q: mla_attn_tp(
+            held("wkv_a", "kv_norm", "wk_b", "wv_b", "wo"), norm(h), q, cfg,
+            positions, self.use_flash), h, q)
 
     def _moe_tp(self, bp: Block, x: torch.Tensor, gather, across,
                 remat: bool):

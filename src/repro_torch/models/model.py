@@ -2,9 +2,9 @@
 with the reference's mesh-aware sharding rules.
 
 Under a mesh whose ``model`` axis is larger than 1, :func:`build_model`
-builds the dense GQA, MoE, SSM and hybrid families
+builds the dense GQA and MLA, MoE, SSM and hybrid families
 (:func:`~.lm.tp_ported`), which run tensor-parallel (``models/lm.py``),
-and raises ``NotImplementedError`` for every other family (MLA, VLM,
+and raises ``NotImplementedError`` for every other family (VLM,
 encoder-decoder: :func:`check_tp`); :func:`make_model` builds any
 family on any mesh (the dry-run sizes every cell from it)."""
 from __future__ import annotations
@@ -51,13 +51,14 @@ def check_ported(cfg: ModelConfig) -> None:
 def check_tp(cfg: ModelConfig, mesh, model=None) -> None:
     """Raise ``NotImplementedError`` when ``mesh`` has a ``model`` axis
     larger than 1 and tensor parallelism is not ported for ``cfg``'s
-    family (MLA, the VLM and the encoder-decoder), or ``model``'s
+    family (the VLM and the encoder-decoder), or ``model``'s
     parameters do not split evenly over it."""
     tp = 1 if mesh is None else mesh.shape.get("model", 1)
     if tp > 1 and not tp_ported(cfg):
         raise NotImplementedError(
             f"{cfg.name}: tensor parallelism over a model axis of {tp} is "
-            f"ported for the dense GQA, MoE, SSM and hybrid families only, "
+            f"ported for the dense GQA and MLA, MoE, SSM and hybrid "
+            f"families only, "
             f"not for family "
             f"{cfg.family!r} (attention {cfg.attention!r}, positions "
             f"{cfg.pos_emb!r}): {TP_LEFT}")

@@ -13,8 +13,10 @@ every rank:
   device at coordinate 0 of it (GSPMD's partitioning of such an axis has
   no counterpart here);
 - :func:`shard_map` splits each global input by its :class:`PartitionSpec`
-  onto the ranks' devices, runs ``f`` once per rank, each in its own host
-  thread and, on CUDA, on its own stream (kept on the mesh), and assembles
+  onto the ranks' devices, runs ``f`` once per rank, each in the host
+  thread and, on CUDA, on the stream of its rank index (both kept for
+  the life of the process, so that PyTorch's cuBLAS workspaces, one a
+  thread's handle and stream, do not multiply), and assembles
   the outputs by their specs on the mesh's first device; ``P()`` takes the
   first rank's output, as the reference's ``check_vma=False`` does;
 - inside ``f``, :func:`ppermute`, :func:`psum`, :func:`pmean` and
@@ -40,7 +42,8 @@ collective is also counted in :data:`TALLY` by kind, axes, group size and
 operand bytes (what the dry-run turns into wire bytes).
 
 **Gradients: one graph, one backward.**  The copy that carries a value
-across ranks is an ordinary differentiable copy, so :func:`psum`,
+across ranks is a differentiable copy (whose backward copies the
+gradient back: :class:`_Copy` says why), so :func:`psum`,
 :func:`all_gather` and :func:`psum_scatter` (and the other collectives)
 are autograd ops over copies of the other ranks' tensors, and the ranks'
 forwards form *one* autograd graph.  The controller, after
@@ -84,7 +87,7 @@ __all__ = ["PartitionSpec", "P", "shard_map", "rank_devices", "axis_index",
            "axis_size", "manual_axes", "in_rank", "rank_index", "ppermute",
            "psum", "pmean", "pmax", "all_gather", "psum_scatter",
            "all_to_all", "peers", "gather_static", "lone_rank", "Tally",
-           "TALLY", "BARRIER_TIMEOUT"]
+           "TALLY", "BARRIER_TIMEOUT", "rank_streams"]
 
 BARRIER_TIMEOUT = 600.0     # seconds a rank waits for the others
 
@@ -282,17 +285,44 @@ def _post(x: torch.Tensor):
     return x, ev
 
 
+class _Copy(torch.autograd.Function):
+    """``x.to(dev, copy=True)`` whose backward hands the sender a copy of
+    the gradient, never the gradient itself.
+
+    Autograd passes one gradient tensor unchanged to every input of a sum
+    and through a copy on one device, and adds a later gradient into an
+    earlier one in place once no other reference holds it.  Through a
+    plain copy a psum's gradient reached every sender as one tensor, on
+    each sender's stream; a sender whose tensor took a second gradient
+    (each rank's MoE aux loss from the two data ranks' psums, each MLA
+    rank's q sum of squares from its model group's) added it into that
+    shared tensor in place on its stream, overtaking another sender's
+    queued read of it on another stream, which then read the sum: a
+    gradient counted twice, now and then, as the card's timing fell.  A
+    copy of its own per sender keeps every in-place add on the stream
+    that alone reads the tensor."""
+
+    @staticmethod
+    def forward(ctx, x, dev):
+        ctx.src = x.device
+        return x.to(dev, copy=True, non_blocking=dev.type == "cuda")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.src, copy=True), None
+
+
 def _fetch(item, dev: torch.device) -> torch.Tensor:
     """A copy of a posted tensor on ``dev``, on its current stream: an
-    autograd op, whose backward carries the gradient back to the sender's
-    tensor."""
+    autograd op, whose backward carries a copy of the gradient back to the
+    sender's tensor (:class:`_Copy`)."""
     x, ev = item
     if ev is not None:
         if dev.type == "cuda":
             torch.cuda.current_stream(dev).wait_event(ev)
         else:
             ev.synchronize()
-    y = x.to(dev, copy=True, non_blocking=dev.type == "cuda")
+    y = _Copy.apply(x, dev)
     if x.is_cuda and dev.type == "cuda":
         x.record_stream(torch.cuda.current_stream(dev))
     return y
@@ -530,8 +560,6 @@ def lone_rank(mesh, coords: dict | None = None, axis_names=None):
 
 # ------------------------------------------------------------- shard_map
 
-# ------------------------------------------------------------- shard_map
-
 def _map_spec(fn, spec, x):
     """Apply ``fn(leaf, spec)`` to every leaf of ``x``; ``spec`` is a tree
     of :class:`PartitionSpec` matching a prefix of ``x``'s."""
@@ -637,11 +665,48 @@ def rank_devices(mesh, axis_names=None) -> list[torch.device]:
     return out
 
 
+# A rank index keeps one host thread (``_WORKERS``) and, on each CUDA
+# device, one stream (``_STREAMS``) for the life of the process, whatever
+# mesh it serves.  PyTorch gives each host thread its own cuBLAS handle and
+# keeps one cuBLAS workspace for every (handle, stream) pair it has seen,
+# freeing none: with a new thread and a new stream a rank at every call
+# and mesh, the pairs, and the device memory they hold, grew with every
+# step.  ``_RUN`` lets one shard_map at a time use the workers.
+_STREAMS: dict = {}
+_WORKERS: list = []
+_RUN = threading.Lock()
+
+
+def _rank_stream(rank: int, dev: torch.device) -> torch.cuda.Stream:
+    dev = torch.device("cuda", torch.cuda.current_device()
+                       if dev.index is None else dev.index)
+    if (rank, dev) not in _STREAMS:
+        _STREAMS[(rank, dev)] = torch.cuda.Stream(dev)
+    return _STREAMS[(rank, dev)]
+
+
+def rank_streams(mesh) -> dict:
+    """{(rank index, device): stream} of every rank stream made so far on
+    the CUDA devices of ``mesh`` (whichever of its axes the shard_maps
+    that made them were manual over)."""
+    devs = {torch.device("cuda", torch.cuda.current_device()
+                         if d.index is None else d.index)
+            for d in mesh.devices.flat if d.type == "cuda"}
+    return {k: s for k, s in _STREAMS.items() if k[1] in devs}
+
+
+def _workers(n: int) -> list:
+    while len(_WORKERS) < n:
+        _WORKERS.append(ThreadPoolExecutor(
+            1, thread_name_prefix=f"spmd-rank-{len(_WORKERS)}"))
+    return _WORKERS[:n]
+
+
 def shard_map(f, *, mesh, in_specs, out_specs, axis_names=None):
     """``f`` run once per rank of ``mesh``'s manual axes (``axis_names``,
-    default all), each rank on its block of every input, from its own
-    host thread and CUDA stream; returns the outputs assembled by
-    ``out_specs`` on the mesh's first device."""
+    default all), each rank on its block of every input, from the host
+    thread and CUDA stream of its rank index; returns the outputs
+    assembled by ``out_specs`` on the mesh's first device."""
     manual = tuple(a for a in mesh.axis_names
                    if axis_names is None or a in set(axis_names))
     sizes = mesh.shape
@@ -649,18 +714,18 @@ def shard_map(f, *, mesh, in_specs, out_specs, axis_names=None):
     def run(*args):
         if in_rank():
             raise RuntimeError("shard_map inside a shard_map rank")
+        with _RUN:
+            return _run(*args)
+
+    def _run(*args):
         group = _Group(manual, sizes)
         ranks = []
         for pos, dev in zip(
                 itertools.product(*(range(sizes[a]) for a in manual)),
                 rank_devices(mesh, manual)):
             coords = dict(zip(manual, pos))
-            stream = None
-            if dev.type == "cuda":
-                key = (len(ranks), dev)
-                stream = mesh.streams.get(key)
-                if stream is None:
-                    stream = mesh.streams[key] = torch.cuda.Stream(dev)
+            stream = _rank_stream(len(ranks), dev) \
+                if dev.type == "cuda" else None
             ranks.append(_Rank(group, len(ranks), coords, dev, stream))
         callers = {c.device: torch.cuda.current_stream(c.device)
                    for c in ranks if c.stream is not None}
@@ -684,9 +749,9 @@ def shard_map(f, *, mesh, in_specs, out_specs, axis_names=None):
             finally:
                 _tls.rank = None
 
-        with ThreadPoolExecutor(len(ranks)) as pool:
-            futs = [pool.submit(one, c) for c in ranks]
-            errs = [fu.exception() for fu in futs]
+        futs = [w.submit(one, c) for w, c in zip(_workers(len(ranks)),
+                                                  ranks)]
+        errs = [fu.exception() for fu in futs]
         if group.error is not None:
             raise group.error
         if any(e is not None for e in errs):

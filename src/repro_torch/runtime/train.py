@@ -17,13 +17,13 @@ each rank's loss and gradients on its shard of the batch, the gradients
 synchronized by the explicit rings (:func:`~repro_torch.collectives.
 scheduler.sync_grads_local`), then AdamW on every rank (:class:`RingStep`).
 A mesh whose ``model`` axis is larger than 1 gives the tensor-parallel
-step (:class:`TPStep`, the dense GQA, MoE, SSM and hybrid families; MLA,
-the VLM and the encoder-decoder raise ``NotImplementedError``): each rank
-of the whole mesh holds its blocks of the parameters and optimizer state,
-and the ranks' forwards form one autograd graph with one backward
-(``parallel/spmd.py``), the MoE's ``all_to_all`` exchanges and its aux
-loss included.  An SSM layer runs the plain scan on each rank's heads
-(the SSD kernel is forward only).
+step (:class:`TPStep`, the dense GQA and MLA, MoE, SSM and hybrid
+families; the VLM and the encoder-decoder raise ``NotImplementedError``):
+each rank of the whole mesh holds its blocks of the parameters and
+optimizer state, and the ranks' forwards form one autograd graph with one
+backward (``parallel/spmd.py``), the MoE's ``all_to_all`` exchanges and
+its aux loss included.  An SSM layer runs the plain scan on each rank's
+heads (the SSD kernel is forward only).
 """
 from __future__ import annotations
 
@@ -72,9 +72,9 @@ def make_train_step(model, cfg: ModelConfig, tcfg: TrainConfig,
     model's device.  ``grad_sync="ring"``/``"hierarchical"`` under a mesh
     whose data axes ("pod", "data") have more than one rank returns a
     :class:`RingStep`; a mesh whose ``model`` axis is larger than 1 a
-    :class:`TPStep` for the dense GQA, MoE, SSM and hybrid families and
-    ``NotImplementedError`` for MLA, the VLM and the encoder-decoder
-    (ROADMAP queue 1 item 1, left 6)."""
+    :class:`TPStep` for the dense GQA and MLA, MoE, SSM and hybrid
+    families and ``NotImplementedError`` for the VLM and the
+    encoder-decoder (ROADMAP queue 1 item 1, left 6)."""
     if mesh is not None and mesh.shape.get("model", 1) > 1:
         return TPStep(model, cfg, tcfg, par, mesh)
     if mesh is not None and par.grad_sync != "xla":
@@ -245,7 +245,7 @@ class TPStep:
     def _join(self) -> None:
         """The caller's stream waits for the ranks' (a backward ran on
         them)."""
-        for (_, dev), s in self.mesh.streams.items():
+        for (_, dev), s in spmd.rank_streams(self.mesh).items():
             torch.cuda.current_stream(dev).wait_stream(s)
 
     def grads(self, batch: dict) -> tuple[torch.Tensor, list[dict]]:
@@ -279,10 +279,14 @@ class TPStep:
                 mean=False, channels=self.par.ring_buckets,
                 bidirectional=self.par.ring_bidirectional)
 
-        # the backward's gradients, some allocated on other ranks' streams,
-        # are freed only after the ranks' streams have joined the caller's:
-        # freed inside a rank, a block could go to another rank's stream
-        # while this rank's reads of it are still queued
+        # the backward's gradients are freed only after the ranks' streams
+        # have joined the caller's.  A gradient of a leaf that several
+        # ranks use (a router or an FSDP block) is allocated on the stream
+        # its sum ran on, another rank's, and read here on this rank's;
+        # freed inside this rank, the caching allocator would hand its
+        # block to the next allocation on that stream while this rank's
+        # reads are still queued (no repeat isolated this: the fault seen
+        # was the shared gradient that spmd._Copy removed)
         raw = list(grads)
         with torch.no_grad():
             shard_map(sync, mesh=self.mesh, in_specs=(), out_specs=P())()

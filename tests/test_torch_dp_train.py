@@ -228,14 +228,14 @@ def test_ring_grads_are_the_global_batch_gradients(data):
 
 def test_tensor_parallel_mesh_is_refused(data):
     """Under a model axis > 1: a family outside tensor parallelism's slice
-    (MLA) raises NotImplementedError naming its ROADMAP item; a dense
+    (the VLM) raises NotImplementedError naming its ROADMAP item; a dense
     GQA model built without the mesh raises ValueError."""
     from repro_torch.configs import registry
     from repro_torch.models import build_model
     mesh = make_mesh((2, 2), ("data", "model"), ["cpu"] * 4)
-    mla = registry.get_config("minicpm3_4b", smoke=True)
+    vlm = registry.get_config("qwen2_vl_2b", smoke=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.*left 6"):
-        make_train_step(build_model(mla, device="cpu"), mla,
+        make_train_step(build_model(vlm, device="cpu"), vlm,
                         TrainConfig(**TRAIN), ParallelConfig(), mesh)
     model, par = _model(data, "ring", None)
     with pytest.raises(ValueError, match="built on its mesh"):

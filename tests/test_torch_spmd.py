@@ -215,7 +215,9 @@ def test_a_rank_that_raises_stops_every_rank():
     """Rank 5 raises before the ring's second step; the others wait at
     the barrier, which the failure aborts: shard_map re-raises rank 5's
     error within seconds (the call runs in a thread joined with a 60 s
-    timeout), and no rank thread is left behind."""
+    timeout), and no rank thread is left behind: the only threads added
+    are the rank indices' own, which persist (``spmd._WORKERS``), and a
+    call after it runs on them at once."""
     from repro_torch.collectives.ring import ring_all_reduce
     mesh = M.make_mesh((8,), ("data",), ["cpu"] * 8)
 
@@ -225,7 +227,7 @@ def test_a_rank_that_raises_stops_every_rank():
             raise ValueError("rank 5 lost")
         return ring_all_reduce(a, "data")
 
-    before = threading.active_count()
+    before, workers = threading.active_count(), len(spmd._WORKERS)
     caught = []
 
     def call():
@@ -242,7 +244,85 @@ def test_a_rank_that_raises_stops_every_rank():
     assert not th.is_alive(), "shard_map hung after a rank raised"
     assert time.time() - t0 < 10
     assert len(caught) == 1 and "rank 5 lost" in str(caught[0])
-    assert threading.active_count() <= before
+    assert threading.active_count() <= before + len(spmd._WORKERS) - workers
+    t0 = time.time()
+    out = shard_map(lambda a: spmd.psum(a, "data"), mesh=mesh,
+                    in_specs=P("data"), out_specs=P())(torch.ones(8, 4))
+    assert torch.equal(out, torch.full((1, 4), 8.0))
+    assert time.time() - t0 < 10
+
+
+def test_a_sender_takes_a_gradient_of_its_own():
+    """Through a psum each rank's tensor takes its gradient as a tensor of
+    its own (``spmd._Copy``).  Autograd hands one gradient unchanged
+    through a sum and a plain copy: every sender took rank 0's, and once
+    no other reference held it, adding a second gradient into it was done
+    in place, on the card on the adding rank's stream, where it could
+    overtake another rank's queued read of the shared tensor.  Then with
+    two ranks' outputs taking gradients, as the MoE aux loss's two data
+    ranks do, every sender's sum is right."""
+    mesh = M.make_mesh((4,), ("model",), ["cpu"] * 4)
+    for weights in ((1.0,), (1.0, 2.0)):
+        xs = [torch.full((3,), float(i + 1), requires_grad=True)
+              for i in range(4)]
+        got, outs = {}, [None] * 4
+
+        def f(_, xs=xs, got=got, outs=outs):
+            r = spmd.rank_index()
+            x = xs[r] * 1.0
+            x.register_hook(lambda g, r=r: got.setdefault(r, []).append(g))
+            outs[r] = spmd.psum(x, "model")
+            return outs[r].detach()
+
+        shard_map(f, mesh=mesh, in_specs=P(), out_specs=P())(torch.zeros(1))
+        sum(w * o.sum() for w, o in zip(weights, outs)).backward()
+        assert sorted(got) == [0, 1, 2, 3]
+        ptrs = [g.data_ptr() for r in sorted(got) for g in got[r]]
+        assert len(set(ptrs)) == len(ptrs) == 4, ptrs
+        for x in xs:
+            assert torch.equal(x.grad, torch.full((3,), sum(weights)))
+
+
+def test_a_rank_index_keeps_its_host_thread_across_meshes():
+    """Rank i of any mesh runs on the same host thread (PyTorch keeps a
+    cuBLAS workspace a thread's handle and stream: a new thread or
+    stream a call multiplied them), and two callers' shard_maps at once
+    take turns instead of sharing the ranks' threads."""
+    seen = {}
+
+    def who(a):
+        seen.setdefault(spmd.rank_index(), set()).add(threading.get_ident())
+        return spmd.psum(a, tuple(spmd.manual_axes()))
+
+    for shape, names in (((8,), ("data",)), ((2, 4), ("data", "model")),
+                         ((4,), ("model",))):
+        mesh = M.make_mesh(shape, names, ["cpu"] * int(np.prod(shape)))
+        for _ in range(2):
+            shard_map(who, mesh=mesh, in_specs=P(names[0]),
+                      out_specs=P())(torch.ones(8, 2))
+    assert sorted(seen) == list(range(8))
+    assert all(len(t) == 1 for t in seen.values()), seen
+    assert len(set.union(*seen.values())) == 8
+    mesh = M.make_mesh((8,), ("data",), ["cpu"] * 8)
+    outs = []
+
+    def call():
+        outs.append(shard_map(who, mesh=mesh, in_specs=P("data"),
+                              out_specs=P())(torch.ones(8, 2)))
+
+    callers = [threading.Thread(target=call, daemon=True) for _ in range(3)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for th in callers:
+            th.start()
+        for th in callers:
+            th.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in callers)
+    assert len(outs) == 3 and all(torch.equal(o, torch.full((1, 2), 8.0))
+                                  for o in outs)
 
 
 def test_collectives_refuse_autograd_and_calls_outside_a_rank():

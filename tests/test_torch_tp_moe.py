@@ -544,8 +544,14 @@ def test_checkpoint_saved_on_2x4_restores_onto_4x2(tmp_path):
 
 # ------------------------------------------------------------ refusals
 
-@pytest.mark.parametrize("arch", ["minicpm3_4b", "qwen2_vl_2b",
-                                  "whisper_large_v3"])
+def test_mla_is_no_longer_refused():
+    """minicpm3's MLA runs tensor-parallel (tests/test_torch_tp_mla.py)."""
+    mesh = _mesh((2, 4), "meta")
+    for smoke in (True, False):
+        check_tp(registry.get_config("minicpm3_4b", smoke=smoke), mesh)
+
+
+@pytest.mark.parametrize("arch", ["qwen2_vl_2b", "whisper_large_v3"])
 def test_other_families_still_refused(arch):
     cfg = registry.get_config(arch, smoke=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.*left 6"):

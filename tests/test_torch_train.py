@@ -201,10 +201,10 @@ def test_train_steps_match_reference(dtype, use_flash, remat):
 
 def test_grad_sync_under_a_mesh_is_not_ported():
     """Ring sync over data axes is ported (tests/test_torch_dp_train.py),
-    and tensor parallelism for the dense GQA, MoE, SSM and hybrid families
-    (tests/test_torch_tp*.py); a mesh with a model axis still raises for
-    the other families (here MLA)."""
-    cfg = registry.get_config("minicpm3_4b", smoke=True)
+    and tensor parallelism for the dense GQA and MLA, MoE, SSM and hybrid
+    families (tests/test_torch_tp*.py); a mesh with a model axis still
+    raises for the other families (here the VLM)."""
+    cfg = registry.get_config("qwen2_vl_2b", smoke=True)
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import build_model
     model = build_model(cfg, device="cpu")
